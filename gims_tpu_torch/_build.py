@@ -1,0 +1,112 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+All sources under ``csrc/`` go through ONE nvcc call into a shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libgims_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``gims_tpu_torch/_build/`` (listed in .gitignore)
+under a name keyed by a hash of the sources, so an edited source is
+rebuilt and an unchanged one is loaded as it is. The build runs at first
+use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the build this process ran, if any
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME, then /usr/local/cuda/bin, then PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda/bin, PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256()
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libgims_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the sources if their library is not built yet; return its path."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    if verbose and (proc.stdout or proc.stderr):
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first call and cached per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def _declare(lib):
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.gims_attention_fwd.restype = i
+    lib.gims_attention_fwd.argtypes = (
+        [p, p, p, p, p]            # q, k, v, key_mask, out
+        + [i] * 6                  # dtype, B, N, M, H, D
+        + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
+        + [i64]                    # key_mask batch stride
+        + [f, p])                  # scale * log2(e), stream
+    lib.gims_sinkhorn_uv.restype = i
+    lib.gims_sinkhorn_uv.argtypes = [p, p, p, p, p, i, i, i, i, p]

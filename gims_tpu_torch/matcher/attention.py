@@ -1,0 +1,84 @@
+"""Masked multi-head attention for the GNN trunk.
+
+Port of ``gims_tpu/matcher/attention.py``:
+
+* ``masked_attention_direct`` materializes (B, H, N, M) scores;
+* ``masked_attention_flash`` streams a softmax over key blocks, so the
+  N x M score matrix never exists in full.
+
+Both are the plain versions of the CUDA kernel in ``cuda_attention.py``.
+Scores are scaled by 1/sqrt(head_dim), masked keys get NEG_INF
+(reference: models/gmatcher.py:35-39).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e9
+FLASH_THRESHOLD = 4096
+FLASH_BLOCK = 1024
+
+
+def masked_attention_direct(q, k, v, key_mask):
+    """q: (B, N, H, D); k, v: (B, M, H, D); key_mask: (B, M) bool."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bnhd,bmhd->bhnm", q, k) * scale
+    scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
+    prob = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhnm,bmhd->bnhd", prob, v)
+
+
+def masked_attention_flash(q, k, v, key_mask, block_size=FLASH_BLOCK):
+    """Streaming-softmax attention over key blocks, accumulated in f32.
+
+    Equal to the direct path up to float rounding; never holds more than
+    (B, H, N, block_size) scores.
+    """
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qt = q.permute(0, 2, 1, 3)                        # (B, H, N, D)
+    acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, n), dtype=torch.float32, device=q.device)
+    mx = torch.full((b, h, n), NEG_INF, dtype=torch.float32, device=q.device)
+    for start in range(0, m, block_size):
+        kc = k[:, start:start + block_size].permute(0, 2, 1, 3)  # (B, H, C, D)
+        vc = v[:, start:start + block_size].permute(0, 2, 1, 3)
+        mc = key_mask[:, start:start + block_size]
+        s = torch.einsum("bhnd,bhcd->bhnc", qt, kc).float() * scale
+        s = s.masked_fill(~mc[:, None, None, :], NEG_INF)
+        mx_new = torch.maximum(mx, s.amax(dim=-1))
+        corr = torch.exp(mx - mx_new)
+        p = torch.exp(s - mx_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhnc,bhcd->bhnd", p.to(q.dtype), vc).float()
+        mx = mx_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)  # back to (B, N, H, D)
+
+
+def masked_attention(q, k, v, key_mask, impl: str = "auto"):
+    """Dispatch.
+
+    On a CUDA tensor "auto" and "pallas" launch the CUDA kernel at every
+    key count. "direct" and "flash" force the plain versions. On the CPU
+    "auto" takes direct up to FLASH_THRESHOLD keys and flash above, as the
+    JAX package does off the TPU. "ring" (multi-device) is not ported yet.
+    """
+    if impl == "ring":
+        raise NotImplementedError(
+            "attention_impl='ring' (multi-device ring attention) is not "
+            "ported yet; see ROADMAP.md")
+    if impl == "pallas" or (impl == "auto" and q.is_cuda):
+        from gims_tpu_torch.matcher.cuda_attention import masked_attention_cuda
+
+        return masked_attention_cuda(q, k, v, key_mask)
+    if impl == "direct" or (impl == "auto" and k.shape[1] <= FLASH_THRESHOLD):
+        return masked_attention_direct(q, k, v, key_mask)
+    if impl in ("auto", "flash"):
+        return masked_attention_flash(q, k, v, key_mask)
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,0 +1,69 @@
+"""Log-domain Sinkhorn through the hand-written CUDA kernel.
+
+Port of ``gims_tpu/matcher/pallas_sinkhorn.py``. The kernel
+(``csrc/sinkhorn.cu``) computes the potentials (u, v); the wrapper forms
+Z + u + v - norm as the JAX wrapper does. On a CUDA tensor the wrapper
+launches the kernel or raises. It takes the plain version
+(``sinkhorn.log_sinkhorn_uv``) only for a tensor on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gims_tpu_torch import _build
+from gims_tpu_torch.matcher import sinkhorn
+
+# calls of sinkhorn_uv_cuda that launched the kernel (each call runs
+# 2 * iters launches: a row pass and a column pass per iteration)
+launches = 0
+
+
+def sinkhorn_uv_cuda(Z: torch.Tensor, log_mu: torch.Tensor,
+                     log_nu: torch.Tensor, iters: int):
+    """(u, v) Sinkhorn potentials. Z (B, M1, N1), log_mu (B, M1),
+    log_nu (B, N1), all contiguous f32 on one device."""
+    global launches
+    if Z.device.type == "cpu":
+        return sinkhorn.log_sinkhorn_uv(Z, log_mu, log_nu, iters)
+    if Z.device.type != "cuda":
+        raise ValueError(f"sinkhorn_uv_cuda: unsupported device {Z.device}")
+    if Z.dim() != 3:
+        raise ValueError(f"Z must be (B, M1, N1), got {tuple(Z.shape)}")
+    b, m1, n1 = Z.shape
+    if tuple(log_mu.shape) != (b, m1) or tuple(log_nu.shape) != (b, n1):
+        raise ValueError(
+            f"marginal shapes {tuple(log_mu.shape)}, {tuple(log_nu.shape)} "
+            f"do not fit Z {tuple(Z.shape)}")
+    for name, t in (("Z", Z), ("log_mu", log_mu), ("log_nu", log_nu)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != Z.device:
+            raise ValueError(f"{name} is on {t.device}, Z on {Z.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    u = torch.empty((b, m1), dtype=torch.float32, device=Z.device)
+    v = torch.empty((b, n1), dtype=torch.float32, device=Z.device)
+    lib = _build.load()
+    with torch.cuda.device(Z.device):
+        stream = torch.cuda.current_stream(Z.device).cuda_stream
+        rc = lib.gims_sinkhorn_uv(Z.data_ptr(), log_mu.data_ptr(),
+                                  log_nu.data_ptr(), u.data_ptr(),
+                                  v.data_ptr(), b, m1, n1, int(iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"gims_sinkhorn_uv failed: cudaError {rc}")
+    launches += 1
+    return u, v
+
+
+def log_optimal_transport_cuda(scores: torch.Tensor, alpha, iters: int,
+                               row_mask: torch.Tensor,
+                               col_mask: torch.Tensor) -> torch.Tensor:
+    """Drop-in for sinkhorn.log_optimal_transport; returns the same
+    (B, M+1, N+1) log-coupling."""
+    couplings, log_mu, log_nu, norm = sinkhorn.dustbin_couplings(
+        scores, alpha, row_mask, col_mask)
+    u, v = sinkhorn_uv_cuda(couplings.contiguous(), log_mu.contiguous(),
+                            log_nu.contiguous(), iters)
+    Z = couplings + u[:, :, None] + v[:, None, :]
+    return Z - norm[:, None, None]

@@ -1,0 +1,138 @@
+"""Log-domain optimal transport (Sinkhorn) with dustbins, mask-aware.
+
+Port of ``gims_tpu/matcher/sinkhorn.py`` (reference: models/gmatcher.py:
+41-69): an (M+1)x(N+1) coupling in log space, dustbin row/col scored by a
+learned scalar, marginals from the *valid* counts, ``iters`` alternating
+row/col logsumexp normalizations, and a final +log(ms+ns) shift. Padded
+rows/cols carry zero transport mass.
+
+``log_sinkhorn_uv`` is the plain version of the CUDA kernel in
+``cuda_sinkhorn.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Finite stand-in for -inf: avoids (-inf)-(-inf) NaNs inside logsumexp
+# while still flushing exp() to exactly 0 in f32.
+NEG_INF = -1e9
+
+
+def masked_logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """logsumexp that treats entries <= NEG_INF/2 as absent.
+
+    Stable even when an entire slice is absent (returns NEG_INF there).
+    """
+    m = torch.amax(x, dim=dim, keepdim=True)
+    m_safe = torch.clamp(m, min=NEG_INF)
+    s = torch.sum(torch.exp(x - m_safe), dim=dim, keepdim=True)
+    out = m_safe.squeeze(dim) + torch.log(torch.clamp(s.squeeze(dim), min=1e-38))
+    return torch.clamp(out, min=NEG_INF)
+
+
+def log_sinkhorn_uv(Z: torch.Tensor, log_mu: torch.Tensor,
+                    log_nu: torch.Tensor, iters: int):
+    """Sinkhorn potentials (u, v) after `iters` row/col updates.
+
+    Z: (B, M1, N1); log_mu: (B, M1); log_nu: (B, N1).
+    u = log_mu - lse_j(Z + v), then v = log_nu - lse_i(Z + u).
+    """
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - masked_logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - masked_logsumexp(Z + u[:, :, None], dim=1)
+    return u, v
+
+
+def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor,
+                            log_nu: torch.Tensor, iters: int) -> torch.Tensor:
+    """Alternating row/col normalization in log space; returns Z + u + v."""
+    u, v = log_sinkhorn_uv(Z, log_mu, log_nu, iters)
+    return Z + u[:, :, None] + v[:, None, :]
+
+
+def dustbin_couplings(scores: torch.Tensor, alpha, row_mask: torch.Tensor,
+                      col_mask: torch.Tensor):
+    """Pad scores with dustbins and build the log-marginals.
+
+    Returns (couplings (B, M+1, N+1), log_mu (B, M+1), log_nu (B, N+1),
+    norm (B,)), with absent entries at NEG_INF.
+    """
+    b = scores.shape[0]
+    dt = scores.dtype
+    alpha = torch.as_tensor(alpha, dtype=dt, device=scores.device)
+    ms = row_mask.sum(dim=1).to(dt)
+    ns = col_mask.sum(dim=1).to(dt)
+    neg = torch.tensor(NEG_INF, dtype=dt, device=scores.device)
+
+    pair_ok = row_mask[:, :, None] & col_mask[:, None, :]
+    scores = torch.where(pair_ok, scores, neg)
+    bins0 = torch.where(row_mask, alpha, neg)[:, :, None]      # (B, M, 1)
+    bins1 = torch.where(col_mask, alpha, neg)[:, None, :]      # (B, 1, N)
+    corner = alpha.reshape(1, 1, 1).expand(b, 1, 1)
+    couplings = torch.cat([
+        torch.cat([scores, bins0], dim=2),
+        torch.cat([bins1, corner], dim=2),
+    ], dim=1)
+
+    norm = -torch.log(ms + ns)
+    log_mu = torch.cat([
+        torch.where(row_mask, norm[:, None], neg),
+        (torch.log(torch.clamp(ns, min=1e-38)) + norm)[:, None],
+    ], dim=1)
+    log_nu = torch.cat([
+        torch.where(col_mask, norm[:, None], neg),
+        (torch.log(torch.clamp(ms, min=1e-38)) + norm)[:, None],
+    ], dim=1)
+    return couplings, log_mu, log_nu, norm
+
+
+def log_optimal_transport(scores: torch.Tensor, alpha, iters: int,
+                          row_mask: torch.Tensor,
+                          col_mask: torch.Tensor) -> torch.Tensor:
+    """Dustbin-padded Sinkhorn honoring validity masks.
+
+    scores: (B, M, N); row_mask (B, M) / col_mask (B, N) bool.
+    Returns the (B, M+1, N+1) log-coupling; invalid rows/cols are ~NEG_INF.
+    """
+    couplings, log_mu, log_nu, norm = dustbin_couplings(
+        scores, alpha, row_mask, col_mask)
+    Z = log_sinkhorn_iterations(couplings, log_mu, log_nu, iters)
+    return Z - norm[:, None, None]
+
+
+def extract_matches(Z: torch.Tensor, row_mask: torch.Tensor,
+                    col_mask: torch.Tensor, match_threshold: float) -> dict:
+    """Mutual-max match extraction with confidence thresholding
+    (reference: models/gmatcher.py:284-294).
+
+    Returns (B, M)/(B, N) tensors: matches0, matches1 (int32, -1 = none),
+    matching_scores0, matching_scores1 (f32).
+    """
+    m, n = Z.shape[1] - 1, Z.shape[2] - 1
+    pair_ok = row_mask[:, :, None] & col_mask[:, None, :]
+    block = torch.where(pair_ok, Z[:, :m, :n],
+                        torch.tensor(NEG_INF, dtype=Z.dtype, device=Z.device))
+
+    max0 = torch.amax(block, dim=2)
+    indices0 = torch.argmax(block, dim=2)
+    indices1 = torch.argmax(block, dim=1)
+
+    ar0 = torch.arange(m, device=Z.device)[None, :]
+    ar1 = torch.arange(n, device=Z.device)[None, :]
+    mutual0 = (ar0 == torch.gather(indices1, 1, indices0)) & row_mask
+    mutual1 = (ar1 == torch.gather(indices0, 1, indices1)) & col_mask
+
+    zero = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    mscores0 = torch.where(mutual0, torch.exp(max0), zero)
+    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), zero)
+    valid0 = mutual0 & (mscores0 > match_threshold)
+    valid1 = mutual1 & torch.gather(valid0, 1, indices1)
+    return {
+        "matches0": torch.where(valid0, indices0, -1).to(torch.int32),
+        "matches1": torch.where(valid1, indices1, -1).to(torch.int32),
+        "matching_scores0": mscores0.float(),
+        "matching_scores1": mscores1.float(),
+    }

@@ -63,6 +63,8 @@ SMOKE = {
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "smoke: fast per-subsystem gate (pytest -m smoke)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped without one")
 
 
 def pytest_collection_modifyitems(config, items):

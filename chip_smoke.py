@@ -5,9 +5,14 @@
 
 Phases, one line each with its seconds:
   0 device: versions, the card's name and power limit; TF32 off.
-  1 build: the CUDA kernels under gims_tpu_torch/csrc/, one nvcc call.
-  2 the attention kernel against its plain PyTorch version on the card.
-  3 the Sinkhorn kernel against its plain PyTorch version on the card.
+  1 build: the CUDA kernels under gims_tpu_torch/csrc/, one nvcc process
+    per source, all at once; ptxas' registers, shared memory and spills per
+    kernel; the count of wgmma (HGMMA) instructions in the attention
+    kernels' SASS, which must not be 0 for the bf16 kernel.
+  2 the attention kernel against its plain PyTorch versions on the card.
+  3 the Sinkhorn kernels against their plain PyTorch version on the card:
+    the fused kernel at Z of 2049 and 8193 square, the streaming kernel at
+    24577 (the widest bucket).
   4 the slice: gims_tpu_torch.api.Matching with the staged checkpoint
     (weights/gims_tpu_sift_last.npz, 18 GNN layers, 256-d) serves four
     synthetic keypoint requests in an 800x600 frame (buckets 2048 and
@@ -28,6 +33,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,15 +53,22 @@ from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
 from gims_tpu_torch.synthetic import correct_share, synthetic_request  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")
-# one NVIDIA H100 SXM, from its data sheet: HBM bytes/s, peak FLOP/s
+# one NVIDIA H100 SXM, from its data sheet: HBM bytes/s, peak FLOP/s, and
+# the exponentials its MUFU units take per second (16 per clock per SM, 132
+# SMs, 1.98 GHz boost clock)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# attention output against the direct version in f32, element by element:
-# |out - ref| <= atol + rtol * |ref|. In bf16 that is the reference rounded
-# to bf16 (unit roundoff 2**-8) plus f32 summation-order slack; at the
-# trunk's shapes the outputs are ~0.02 (RMS), so a flat limit would not
-# hold the kernel to its plain version.
+EXP_PER_S = 132 * 16 * 1.98e9
+# The attention kernel, element by element: |out - ref| <= atol + rtol * |ref|.
+# f32: against the direct version, 1e-4 flat. bf16: against
+# masked_attention_tiled's unrounded f32 result, which rounds P to bf16 per
+# key tile as the kernel and the TPU kernel do (pallas_attention.py:75); the
+# limit is the output's one rounding (2**-8) plus f32 summation-order slack.
+# Against the direct version (P kept in f32) bf16 is held by its RMS error
+# relative to the output's RMS: the output's rounding alone gives about
+# 2**-8 / sqrt(3) (0.0023) and P's rounding less, so 2**-8 (0.0039).
 ATTN_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2.0 ** -8)}
+ATTN_BF16_REL_RMS = 2.0 ** -8
 SINKHORN_TOL = 2e-4
 SINKHORN_ITERS = 100
 NUM_LAYERS = 18
@@ -63,8 +76,11 @@ DEVICE = "cuda"
 # (B, N, M, masked key tail): the trunk's buckets 2048 and 8192 (both sides
 # stacked, B=2), and a key count that is not a multiple of the 64-key tile
 ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300))
-# (bucket, valid rows, valid cols) of the Sinkhorn input Z (bucket+1 square)
-SINKHORN_CASES = ((2048, 1800, 1750), (8192, 7000, 6900))
+# (bucket, valid rows, valid cols, iterations) of the Sinkhorn input Z
+# (bucket+1 square): the fused kernel (Z read once per iteration) at 2049
+# and 8193, the streaming kernel (twice) at 24577
+SINKHORN_CASES = ((2048, 1800, 1750, SINKHORN_ITERS), (8192, 7000, 6900, SINKHORN_ITERS),
+                  (24576, 22000, 21000, 3))
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
@@ -121,9 +137,60 @@ def device_phase():
     return smi
 
 
+def ptxas_report(log):
+    """{kernel: {registers, static_smem_bytes, spill_stores, spill_loads}} from
+    nvcc -Xptxas=-v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"(attn_tc_kernel|attn_f32_kernel|sinkhorn_fused_kernel|"
+                          r"sinkhorn_stream_kernel)(?:ILi(\d+)ELi(\d+)E)?", line)
+            name = (m.group(1) + (f"<{m.group(2)},{m.group(3)}>" if m.group(2) else "")) if m else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def hgmma_counts(lib_path):
+    """HGMMA (wgmma) instructions per attention kernel in the library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(attn_tc_kernel|attn_f32_kernel)", line)
+            name = m.group(1) if m else None
+            if name:
+                counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def build_phase():
     t0 = time.perf_counter()
     lib = _build.load()
+    if _build.build_log is None:
+        print("  ptxas: the library was built by an earlier process; no report", flush=True)
+    else:
+        for kernel, info in ptxas_report(_build.build_log).items():
+            print(f"  ptxas {kernel} {json.dumps(info)}", flush=True)
+    hgmma = hgmma_counts(lib._name)
+    print(f"  sass HGMMA {json.dumps(hgmma)}", flush=True)
+    if not hgmma.get("attn_tc_kernel"):
+        raise AssertionError(f"the bf16 attention kernel has no HGMMA instruction: {hgmma}")
     phase("1 build", t0, nvcc_seconds=f"{_build.build_seconds}",
           library=os.path.relpath(lib._name, REPO))
 
@@ -136,17 +203,27 @@ def attention_case(b, n, m, masked_tail, dtype, seed):
     mask = torch.ones((b, m), dtype=torch.bool, device=DEVICE)
     mask[:, m - masked_tail:] = False
     mask[1, : m // 7] = False  # masked keys at the head of one item too
-    out = cuda_attention.masked_attention_cuda(q, k, v, mask)
-    want = attention.masked_attention_direct(q.float(), k.float(), v.float(), mask)
+    out = cuda_attention.masked_attention_cuda(q, k, v, mask).float()
+    direct = attention.masked_attention_direct(q.float(), k.float(), v.float(), mask)
+    want = direct if dtype == torch.float32 else attention.masked_attention_tiled(
+        q, k, v, mask, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    diff = (out.float() - want).abs()
+    diff = (out - want).abs()
     atol, rtol = ATTN_TOL[dtype]
     excess = (diff - (atol + rtol * want.abs())).max().item()
     err = diff.max().item()
     if not (math.isfinite(err) and excess <= 0):
         raise AssertionError(f"attention kernel {dtype} B={b} N={n} M={m}: max abs err "
                              f"{err}, over atol {atol} + rtol {rtol} * |ref| by {excess}")
-    return q, k, v, mask, err
+    info = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        rel_rms = ((out - direct).pow(2).mean().sqrt() / direct.pow(2).mean().sqrt()).item()
+        info.update(max_abs_err_direct=(out - direct).abs().max().item(),
+                    rel_rms_err_direct=rel_rms)
+        if not rel_rms <= ATTN_BF16_REL_RMS:
+            raise AssertionError(f"attention kernel bf16 B={b} N={n} M={m}: RMS error "
+                                 f"against direct {rel_rms} > {ATTN_BF16_REL_RMS}")
+    return q, k, v, mask, info
 
 
 def attention_phase():
@@ -154,23 +231,26 @@ def attention_phase():
     rows = {}
     for b, n, m, tail in ATTN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, err = attention_case(b, n, m, tail, dtype, seed=n + m)
-            row = {"shape": f"B={b} N={n} M={m} H=4 D=64", "dtype": str(dtype)[6:],
-                   "max_abs_err": err}
+            q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m)
+            row = {"shape": f"B={b} N={n} M={m} H=4 D=64", "dtype": str(dtype)[6:], **info}
             if m % 64 == 0:  # the trunk's shapes: time them
                 esz = q.element_size()
                 nbytes = 2 * b * n * 4 * 64 * esz + 2 * b * m * 4 * 64 * esz + b * m
                 flops = 4 * b * 4 * n * m * 64
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+                # one exp2 per score on the MUFU units, beside the matrix products
+                row["exp_bound_ms"] = 1e3 * b * 4 * n * m / EXP_PER_S
                 row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
+                row["tflops"] = flops / row["ms"] / 1e9
                 row["plain_ms"] = cuda_ms(
-                    lambda: attention.masked_attention_direct(q, k, v, mask))
+                    lambda: attention.masked_attention_tiled(q, k, v, mask))
                 qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
                 bias = torch.zeros((b, 1, 1, m), dtype=dtype, device=DEVICE)
                 bias.masked_fill_(~mask[:, None, None, :], attention.NEG_INF)
                 row["library_ms"] = cuda_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=bias))
+                row["ratio_to_library"] = row["ms"] / row["library_ms"]
             rows[(n, m, row["dtype"])] = row
             print(f"  attention {json.dumps(row)}", flush=True)
             del q, k, v, mask
@@ -181,18 +261,18 @@ def attention_phase():
     return rows
 
 
-def sinkhorn_case(nb, n0, n1, seed):
+def sinkhorn_case(nb, n0, n1, iters, seed):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     scores = 2.0 * torch.randn((1, nb, nb), generator=g, device=DEVICE)
     row_mask = torch.arange(nb, device=DEVICE)[None] < n0
     col_mask = torch.arange(nb, device=DEVICE)[None] < n1
     alpha = torch.tensor(1.0, device=DEVICE)
+    # the couplings as the Matching path builds them for the kernel: rows of
+    # nb + 1 floats in a pitch of a multiple of 4
     couplings, log_mu, log_nu, _ = sinkhorn.dustbin_couplings(
-        scores, alpha, row_mask, col_mask)
-    got = cuda_sinkhorn.log_optimal_transport_cuda(
-        scores, alpha, SINKHORN_ITERS, row_mask, col_mask)
-    want = sinkhorn.log_optimal_transport(
-        scores, alpha, SINKHORN_ITERS, row_mask, col_mask)
+        scores, alpha, row_mask, col_mask, row_pitch=nb + 1 + -(nb + 1) % 4)
+    got = cuda_sinkhorn.log_optimal_transport_cuda(scores, alpha, iters, row_mask, col_mask)
+    want = sinkhorn.log_optimal_transport(scores, alpha, iters, row_mask, col_mask)
     torch.cuda.synchronize()
     rows = torch.cat([torch.nonzero(row_mask[0])[:, 0], torch.tensor([nb], device=DEVICE)])
     cols = torch.cat([torch.nonzero(col_mask[0])[:, 0], torch.tensor([nb], device=DEVICE)])
@@ -200,32 +280,35 @@ def sinkhorn_case(nb, n0, n1, seed):
     if not math.isfinite(err) or err > SINKHORN_TOL:
         raise AssertionError(f"Sinkhorn kernel Z ({nb + 1}x{nb + 1}): max abs err "
                              f"{err} > {SINKHORN_TOL}")
-    return couplings.contiguous(), log_mu.contiguous(), log_nu.contiguous(), err
+    return couplings, log_mu.contiguous(), log_nu.contiguous(), err
 
 
 def sinkhorn_phase():
     t0 = time.perf_counter()
     rows = {}
-    for nb, n0, n1 in SINKHORN_CASES:
-        z, mu, nu, err = sinkhorn_case(nb, n0, n1, seed=nb)
+    for nb, n0, n1, iters in SINKHORN_CASES:
+        z, mu, nu, err = sinkhorn_case(nb, n0, n1, iters, seed=nb)
         m1, n1p = z.shape[1], z.shape[2]
         # each input read once, each output written once (Z, marginals, u, v)
         nbytes = 4 * (m1 * n1p + 2 * (m1 + n1p))
         # per iteration and element: add potential, max, exp, accumulate, twice
-        flops = 2 * SINKHORN_ITERS * m1 * n1p * 4
+        flops = 2 * iters * m1 * n1p * 4
         b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
         z_read_ms = 1e3 * 4 * m1 * n1p / HBM_BPS
-        row = {"shape": f"Z=(1,{m1},{n1p}) iters={SINKHORN_ITERS}", "dtype": "float32",
+        row = {"shape": f"Z=(1,{m1},{n1p}) iters={iters}", "dtype": "float32",
                "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
                # bound_ms reads Z once, as if it stayed on the chip. Where Z
                # outgrows the 50 MB L2 (268 MB at bucket 8192), any design
-               # reads it from HBM once per iteration; the kernel's row and
-               # column passes read it twice
-               "one_pass_bound_ms": SINKHORN_ITERS * z_read_ms,
-               "two_pass_bound_ms": 2 * SINKHORN_ITERS * z_read_ms,
-               "ms": cuda_ms(lambda: cuda_sinkhorn.sinkhorn_uv_cuda(z, mu, nu, SINKHORN_ITERS), 3),
-               "plain_ms": cuda_ms(lambda: sinkhorn.log_sinkhorn_uv(z, mu, nu, SINKHORN_ITERS), 1),
+               # reads it from HBM once per iteration, as the fused kernel
+               # does; a row pass and a column pass read it twice
+               "z_reads_per_iter": cuda_sinkhorn.z_reads_per_iter(1, m1, n1p),
+               "one_pass_bound_ms": iters * z_read_ms,
+               "two_pass_bound_ms": 2 * iters * z_read_ms,
+               "ms": cuda_ms(lambda: cuda_sinkhorn.sinkhorn_uv_cuda(z, mu, nu, iters), 3),
+               "plain_ms": cuda_ms(lambda: sinkhorn.log_sinkhorn_uv(z, mu, nu, iters), 1),
                "library_ms": None}
+        # the kernel's reads of Z over its time
+        row["gbps"] = row["z_reads_per_iter"] * iters * 4 * m1 * n1p / row["ms"] / 1e6
         rows[nb] = row
         print(f"  sinkhorn {json.dumps(row)}", flush=True)
         del z, mu, nu
@@ -339,11 +422,11 @@ def main():
     kernels = [
         {"name": "masked_attention", "route": "cuda",
          "source": "gims_tpu_torch/csrc/attention.cu",
-         "replaces": "gims_tpu/matcher/pallas_attention.py:43",
+         "replaces": "gims_tpu/matcher/pallas_attention.py:42",
          "launches": launches["attention"], **a, "kernel_ms": a["ms"]},
         {"name": "sinkhorn_uv", "route": "cuda",
          "source": "gims_tpu_torch/csrc/sinkhorn.cu",
-         "replaces": "gims_tpu/matcher/pallas_sinkhorn.py:41",
+         "replaces": "gims_tpu/matcher/pallas_sinkhorn.py:40",
          "launches": launches["sinkhorn"], **s, "kernel_ms": s["ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,21 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-All sources under ``csrc/`` go through ONE nvcc call into a shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Each source under ``csrc/`` is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libgims_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas=-v -c -o <tmp>/<source>.o csrc/<source>.cu      (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libgims_kernels_<hash>.so ...
+
+One process per source keeps the build as long as its slowest source as
+sources are added.
 
 The library lands in ``gims_tpu_torch/_build/`` (listed in .gitignore)
 under a name keyed by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is. The build runs at first
-use, never at import.
+use, never at import. ``build_log`` keeps ptxas' report (registers, shared
+memory, spills of each kernel) of the build this process ran.
 """
 
 from __future__ import annotations
@@ -20,18 +26,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = None      # ptxas' report of that build
 
 
 def find_nvcc() -> str:
@@ -60,31 +68,41 @@ def library_path() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"libgims_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
+def _check(proc, cmd):
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return out
+
+
+def build() -> str:
     """Compile the sources if their library is not built yet; return its path."""
-    global build_seconds
+    global build_seconds, build_log
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = find_nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    try:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in sources()]
+        cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src] for src, obj in zip(sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]  # all sources at once
+        logs = [_check(proc, cmd) for proc, cmd in zip(procs, cmds)]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+        _check(subprocess.Popen(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+               link)
+        os.replace(os.path.join(tmp, "lib.so"), out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
     return out
 
 
@@ -108,5 +126,12 @@ def _declare(lib):
         + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
         + [i64]                    # key_mask batch stride
         + [f, p])                  # scale * log2(e), stream
+    lib.gims_sinkhorn_z_reads.restype = i
+    lib.gims_sinkhorn_z_reads.argtypes = [i, i, i]      # B, M1, N1
+    lib.gims_sinkhorn_scratch_len.restype = i64
+    lib.gims_sinkhorn_scratch_len.argtypes = [i, i, i]  # B, M1, N1
     lib.gims_sinkhorn_uv.restype = i
-    lib.gims_sinkhorn_uv.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.gims_sinkhorn_uv.argtypes = (
+        [p, p, p, p, p]            # Z, log_mu, log_nu, u, v
+        + [p, i64]                 # scratch, its float2 count
+        + [i, i, i, i, p])         # B, M1, N1, iters, stream

@@ -2,26 +2,54 @@
 //
 // Replaces the TPU kernel gims_tpu/matcher/pallas_attention.py::_attn_kernel
 // (reached through masked_attention_pallas): softmax(Q K^T * scale + bias) V
-// with a per-key bias of 0 (valid) or -1e9 (masked), online max and sum in
-// f32, PV accumulated in f32, output divided by max(l, 1e-30). Padded query
-// rows are computed like any other and masked by the caller.
+// with a per-key bias of 0 (valid) or -1e9 (masked), a base-2 online softmax
+// in f32 with scale*log2(e) applied to the f32 scores, P rounded to V's dtype
+// before P V (pallas_attention.py:75), P V accumulated in f32, and the output
+// divided by max(l, 1e-30). Keys at or past M get p = 0, so a row whose keys
+// are all masked gives the mean of its masked keys' V, as the direct version
+// does. Padded query rows are computed like any other and masked by the
+// caller. One C entry point, gims_attention_fwd; the dtype picks the kernel.
 //
 // What bounds it on the H100: 4*B*H*N*M*D operations (QK^T and PV, a
 // multiply and an add each) against 4*B*N*H*D + 2*(B*M*H*D) elements moved,
-// so it is bound by operations, not bytes, at every bucket the trunk uses
-// (N = M >= 2048, D = 64).
+// so it is bound by operations at every bucket the trunk uses (N = M >= 2048,
+// D = 64): 137 GFLOP at 8192, 0.139 ms on the bf16 tensor cores. At D = 64
+// the exponentials come close: B*H*N*M exp2 on the MUFU units (16 per clock
+// per SM) take about as long as the matrix products.
 //
-// The simple design: one block per (b*h, tile of 64 query rows), one thread
-// per query row holding its q row and its f32 accumulator in registers. The
-// block walks the keys in tiles of 64 staged in shared memory (converted to
-// f32 on load, so f32 and bf16 inputs share the inner loop); every thread
-// reads the same key row, which shared memory broadcasts. Scores are taken 16
-// keys at a time, so the running max and the accumulator are rescaled once
-// per 16 keys. Softmax is base 2: scale*log2(e) is folded into q. The kernel
-// reads the (B, N, H, D) layout through the strides it is given, handles M
-// that is not a multiple of the tile (keys past M get p = 0) and fully masked
-// keys. No tensor cores: wgmma and TMA are later work.
+// bf16: attn_tc_kernel, on the tensor cores.
+//   * One CTA per (b*h, tile of 128 query rows): two consumer warpgroups of
+//     64 rows each and one producer warp (288 threads, one CTA per SM).
+//   * The producer warp loads Q once, then K and V tiles of 128 keys through
+//     TMA (cp.async.bulk.tensor, 4-D tensor maps over the (B, N, H, D)
+//     layout with a box of {64, 1, rows, 1}: 128-byte rows, 128-byte
+//     swizzle) into a ring of 3 stages guarded by full/empty mbarriers. Its
+//     lanes also turn the tile's uint8 key mask into the additive bias (0,
+//     -1e9, or -inf past M, where TMA zero-fills K and V) in shared memory.
+//   * Each consumer warpgroup computes S = Q K^T for its 64 rows with wgmma
+//     (m64n128k16, both operands K-major in shared memory, f32 accumulators
+//     in registers), then the softmax in registers: s*scale*log2(e) + bias,
+//     the row max across the 4 lanes that share a row, one rescale of the
+//     running max, sum and output per key tile. P is rounded to bf16 in
+//     registers, where the accumulator layout of S is the A-operand layout
+//     of the next wgmma, and O += P V runs as wgmma m64n64k16 with A from
+//     registers and V (keys x D, D contiguous) read with the transpose flag.
+//   * Overlap: the two consumer warpgroups run the same loop independently,
+//     so one's exponentials (MUFU) issue while the other's wgmma runs.
+//   * Epilogue: O / max(l, 1e-30), rounded once to bf16, stored to
+//     (B, N, H, D) from registers.
+//   The host builds the three CUtensorMaps per call with
+//   cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint so that the
+//   library needs no -lcuda. The wrapper guarantees a unit D stride and
+//   16-byte aligned bases and strides, as TMA requires.
+//
+// f32: attn_f32_kernel, scalar FMAs (the tensor cores would round to TF32,
+// which the port keeps off). One block per (b*h, tile of 64 query rows), one
+// thread per query row holding q and its f32 accumulator in registers; key
+// tiles of 64 staged in shared memory, scores 16 keys at a time. It reads
+// any strides.
 
+#include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,27 +57,25 @@
 
 namespace {
 
-constexpr int kD = 64;    // head dim
-constexpr int kBQ = 64;   // query rows per block (one thread each)
-constexpr int kBK = 64;   // keys per shared-memory tile
-constexpr int kCH = 16;   // keys per online-softmax update
+constexpr int kD = 64;  // head dim
 constexpr float kNegInf = -1e9f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kMaxDevices = 64;
 
 struct Strides {
   long long b, n, h, d;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kBQ) attn_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ key_mask, T* __restrict__ out, int N, int M,
-    int H, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb,
-    float scale_log2) {
+// ------------------------------------------------------------ f32 kernel
+
+constexpr int kBQ = 64;   // query rows per block (one thread each)
+constexpr int kBK = 64;   // keys per shared-memory tile
+constexpr int kCH = 16;   // keys per online-softmax update
+
+__global__ void __launch_bounds__(kBQ) attn_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
+    float* __restrict__ out, int N, int M, int H, Strides qs, Strides ks,
+    Strides vs, Strides os, long long mask_sb, float scale_log2) {
   __shared__ __align__(16) float k_tile[kBK][kD];
   __shared__ __align__(16) float v_tile[kBK][kD];
   __shared__ float bias[kBK];
@@ -61,17 +87,17 @@ __global__ void __launch_bounds__(kBQ) attn_fwd_kernel(
 
   float qr[kD];
   float acc[kD];
-  const T* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
+  const float* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    qr[d] = row_ok ? to_f32(qp[d * qs.d]) * scale_log2 : 0.f;
+    qr[d] = row_ok ? qp[d * qs.d] * scale_log2 : 0.f;
     acc[d] = 0.f;
   }
   float m_run = kNegInf;
   float l_run = 0.f;
 
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
   const uint8_t* mb = key_mask + b * mask_sb;
 
   for (int k0 = 0; k0 < M; k0 += kBK) {
@@ -82,8 +108,8 @@ __global__ void __launch_bounds__(kBQ) attn_fwd_kernel(
       const int key = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (key < M) {
-        kv = to_f32(kb[key * ks.n + d * ks.d]);
-        vv = to_f32(vb[key * vs.n + d * vs.d]);
+        kv = kb[key * ks.n + d * ks.d];
+        vv = vb[key * vs.n + d * vs.d];
       }
       k_tile[j][d] = kv;
       v_tile[j][d] = vv;
@@ -138,28 +164,412 @@ __global__ void __launch_bounds__(kBQ) attn_fwd_kernel(
 
   if (row_ok) {
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    T* op = out + b * os.b + (long long)row * os.n + h * os.h;
+    float* op = out + b * os.b + (long long)row * os.n + h * os.h;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) store(op + d * os.d, acc[d] * inv);
+    for (int d = 0; d < kD; ++d) op[d * os.d] = acc[d] * inv;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* key_mask,
-           void* out, int B, int N, int M, int H, Strides qs, Strides ks,
-           Strides vs, Strides os, long long mask_sb, float scale_log2,
-           cudaStream_t stream) {
+// ------------------------------------------------ bf16 tensor-core kernel
+
+constexpr int kWgRows = 64;                       // query rows per consumer warpgroup
+constexpr int kConsumers = 2;                     // consumer warpgroups per CTA
+constexpr int kTcRows = kWgRows * kConsumers;     // 128 query rows per CTA
+constexpr int kTcKeys = 128;                      // keys per tile
+constexpr int kStages = 3;                        // K/V ring depth
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + one producer warp
+constexpr uint32_t kTileBytes = kTcKeys * kD * 2;     // one K or V tile, bf16
+
+// Every tile is 1024-byte aligned: the 128-byte swizzle repeats every 8 rows
+// of 128 bytes, and both TMA and wgmma take the pattern from address bits.
+struct __align__(1024) TcSmem {
+  __nv_bfloat16 q[kTcRows * kD];
+  __nv_bfloat16 k[kStages][kTcKeys * kD];
+  __nv_bfloat16 v[kStages][kTcKeys * kD];
+  float bias[kStages][kTcKeys];
+  uint64_t full[kStages];   // producer -> consumers: K, V and bias landed
+  uint64_t empty[kStages];  // consumers -> producer: stage free again
+  uint64_t q_full;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier has left phase `parity`. A wait that never ends is a
+// fault of the kernel: trap after ~2^26 polls (seconds) instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 26)) __trap();
+  }
+}
+
+// One box of the 4-D tensor map {D, H, N, B} into shared memory; completion
+// is reported to `bar` as transaction bytes. Rows past N are zero-filled.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int h, int n0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(n0), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile whose rows are
+// 128 bytes: start address >> 4, leading offset 1 (unused by this layout),
+// stride 1024 bytes between groups of 8 rows, layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = (smem_u32(tile) & 0x3FFFF) >> 4;
+  return addr | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 128, f32) = A (64 x 16) * B (16 x 128) (+ D where scale_d != 0); A and B
+// K-major in shared memory, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64); B
+// MN-major in shared memory, 128-byte swizzled, read with the transpose flag.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ key_mask,
+    __nv_bfloat16* __restrict__ out, int N, int M, int H, long long osb, long long osn,
+    long long osh, long long mask_sb, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  TcSmem& sm = *reinterpret_cast<TcSmem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * kTcRows;
+  const int n_tiles = (M + kTcKeys - 1) / kTcKeys;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);                // the producer warp's 32 lanes
+      mbar_init(&sm.empty[s], kConsumerWarps);   // one arrival per consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: Q once, then K, V and the key bias per tile ----
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.q_full, kTcRows * kD * 2);
+      tma_load(sm.q, &q_map, &sm.q_full, h, q0, b);
+    }
+    const uint8_t* mb = key_mask + b * mask_sb;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);  // round 0 passes at once
+      const int key0 = t * kTcKeys;
+      for (int i = lane; i < kTcKeys; i += 32) {
+        const int key = key0 + i;
+        sm.bias[s][i] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
+        tma_load(sm.k[s], &k_map, &sm.full[s], h, key0, b);
+        tma_load(sm.v[s], &v_map, &sm.full[s], h, key0, b);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: 64 query rows ----
+    const int wg = warp / 4;
+    const int r_lo = 16 * (warp % 4) + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+    const int cq = lane % 4;                      // its column pairs: 8j + 2cq, +1
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_lo = kNegInf, m_hi = kNegInf;  // running max (base 2)
+    float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sum
+
+    mbar_wait(&sm.q_full, 0);
+    const uint64_t q_desc = sw128_desc(sm.q + wg * kWgRows * kD);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(&sm.full[s], (t / kStages) & 1);
+
+      // S = Q K^T: 64 x 128 f32, four k-steps of 16 over D
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      const uint64_t k_desc = sw128_desc(sm.k[s]);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        wgmma_m64n128k16_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);  // +32 bytes per step
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // online softmax, base 2; sc[4j + 0/1] are row r_lo, sc[4j + 2/3] row r_lo + 8,
+      // at columns 8j + 2cq and 8j + 2cq + 1
+      const float* bias = sm.bias[s];
+      float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * cq);
+        sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale_log2, bj.x);
+        sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, bj.y);
+        sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale_log2, bj.x);
+        sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale_log2, bj.y);
+        mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      mx_lo = quad_max(mx_lo);
+      mx_hi = quad_max(mx_hi);
+      const float corr_lo = exp2f(m_lo - mx_lo);
+      const float corr_hi = exp2f(m_hi - mx_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      uint32_t p[32];  // P in bf16 pairs: the A fragments of P V
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float p0 = exp2f(sc[4 * j + 0] - m_lo);
+        const float p1 = exp2f(sc[4 * j + 1] - m_lo);
+        const float p2 = exp2f(sc[4 * j + 2] - m_hi);
+        const float p3 = exp2f(sc[4 * j + 3] - m_hi);
+        sum_lo += p0 + p1;  // l sums the f32 p, as the TPU kernel does
+        sum_hi += p2 + p3;
+        p[2 * j + 0] = pack_bf16(p0, p1);
+        p[2 * j + 1] = pack_bf16(p2, p3);
+      }
+      l_lo = l_lo * corr_lo + sum_lo;
+      l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 0] *= corr_lo;
+        o[4 * j + 1] *= corr_lo;
+        o[4 * j + 2] *= corr_hi;
+        o[4 * j + 3] *= corr_hi;
+      }
+
+      // O += P V: eight k-steps of 16 keys; V rows are 128 bytes, so a step
+      // advances the descriptor by 16 * 128 bytes
+      const uint64_t v_desc = sw128_desc(sm.v[s]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+        wgmma_m64n64k16_rs(o, p[4 * kk + 0], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                           v_desc + 128 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+
+    const float den_lo = fmaxf(quad_sum(l_lo), 1e-30f);
+    const float den_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+    const int row_lo = q0 + wg * kWgRows + r_lo;
+    const int row_hi = row_lo + 8;
+    __nv_bfloat16* ob = out + b * osb + h * osh + 2 * cq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (row_lo < N) {
+        *reinterpret_cast<uint32_t*>(ob + row_lo * osn + 8 * j) =
+            pack_bf16(o[4 * j + 0] / den_lo, o[4 * j + 1] / den_lo);
+      }
+      if (row_hi < N) {
+        *reinterpret_cast<uint32_t*>(ob + row_hi * osn + 8 * j) =
+            pack_bf16(o[4 * j + 2] / den_hi, o[4 * j + 3] / den_hi);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (no -lcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A (B, N, H, D=64) bf16 tensor with unit D stride as the 4-D map {D, H, N, B},
+// box {64, 1, rows, 1}, 128-byte swizzle, zero fill out of bounds.
+bool encode_bnhd(EncodeTiledFn encode, CUtensorMap* map, const void* base, int B, int N, int H,
+                 const Strides& st, int rows) {
+  const cuuint64_t dims[4] = {kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.n * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {kD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                int B, int N, int M, int H, const Strides& qs, const Strides& ks,
+                const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
+                cudaStream_t stream) {
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_bnhd(encode, &q_map, q, B, N, H, qs, kTcRows) ||
+      !encode_bnhd(encode, &k_map, k, B, M, H, ks, kTcKeys) ||
+      !encode_bnhd(encode, &v_map, v, B, M, H, vs, kTcKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = static_cast<int>(sizeof(TcSmem)) + 1024;  // + alignment slack
+  // the shared-memory limit is raised once per device, not on every call
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= kMaxDevices || !raised[dev])) {
+    err = cudaFuncSetAttribute(attn_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kTcRows - 1) / kTcRows, B * H);
+  attn_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<const uint8_t*>(key_mask),
+      static_cast<__nv_bfloat16*>(out), N, M, H, os.b, os.n, os.h, mask_sb, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+               int B, int N, int M, int H, const Strides& qs, const Strides& ks,
+               const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
+               cudaStream_t stream) {
   const dim3 grid((N + kBQ - 1) / kBQ, B * H);
-  attn_fwd_kernel<T><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(key_mask),
-      static_cast<T*>(out), N, M, H, qs, ks, vs, os, mask_sb, scale_log2);
+  attn_f32_kernel<<<grid, kBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(key_mask), static_cast<float*>(out), N, M, H, qs, ks, vs, os,
+      mask_sb, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (scalar kernel, any strides), 1 = bfloat16 (tensor-core
+// kernel: unit D stride, 16-byte aligned bases and strides). Returns a
+// cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int dtype, int B, int N, int M, int H, int D, long long qsb,
@@ -174,12 +584,11 @@ extern "C" int gims_attention_fwd(
       vs{vsb, vsn, vsh, vsd}, os{osb, osn, osh, osd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(q, k, v, key_mask, out, B, N, M, H, qs, ks, vs, os,
-                         mask_sb, scale_log2, st);
+    return launch_f32(q, k, v, key_mask, out, B, N, M, H, qs, ks, vs, os, mask_sb, scale_log2, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, key_mask, out, B, N, M, H, qs, ks,
-                                 vs, os, mask_sb, scale_log2, st);
+    return launch_bf16(q, k, v, key_mask, out, B, N, M, H, qs, ks, vs, os, mask_sb, scale_log2,
+                       st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,9 +4,11 @@ Port of ``gims_tpu/matcher/attention.py``:
 
 * ``masked_attention_direct`` materializes (B, H, N, M) scores;
 * ``masked_attention_flash`` streams a softmax over key blocks, so the
-  N x M score matrix never exists in full.
+  N x M score matrix never exists in full;
+* ``masked_attention_tiled`` repeats the arithmetic of the TPU kernel and of
+  the CUDA kernel in ``cuda_attention.py`` tile by tile. It is that kernel's
+  plain version.
 
-Both are the plain versions of the CUDA kernel in ``cuda_attention.py``.
 Scores are scaled by 1/sqrt(head_dim), masked keys get NEG_INF
 (reference: models/gmatcher.py:35-39).
 """
@@ -18,6 +20,8 @@ import math
 import torch
 
 NEG_INF = -1e9
+LOG2E = 1.4426950408889634
+KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel
 FLASH_THRESHOLD = 4096
 FLASH_BLOCK = 1024
 
@@ -59,6 +63,42 @@ def masked_attention_flash(q, k, v, key_mask, block_size=FLASH_BLOCK):
         mx = mx_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)  # back to (B, N, H, D)
+
+
+def masked_attention_tiled(q, k, v, key_mask, block_k=KERNEL_BLOCK_K,
+                           out_dtype=None):
+    """The arithmetic of ``gims_tpu/matcher/pallas_attention.py::_attn_kernel``
+    and of the CUDA kernel, one key tile of ``block_k`` at a time.
+
+    Scores are products of the inputs summed in f32 (never rounded to the
+    input dtype), times scale*log2(e), plus a bias of 0 or NEG_INF per key;
+    a base-2 running max starts at NEG_INF; the running sum takes the f32 p,
+    and P is rounded to v's dtype before P V, which is summed in f32; the
+    output is acc / max(l, 1e-30). Keys past M are absent (p = 0). Returns
+    (B, N, H, D) in ``out_dtype`` (q's dtype by default): pass float32 to
+    get the result before its one rounding.
+    """
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    c = LOG2E / math.sqrt(d)
+    qt = q.permute(0, 2, 1, 3).float()                # (B, H, N, D)
+    acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, n), dtype=torch.float32, device=q.device)
+    mx = torch.full((b, h, n), NEG_INF, dtype=torch.float32, device=q.device)
+    for start in range(0, m, block_k):
+        kc = k[:, start:start + block_k].permute(0, 2, 1, 3).float()
+        vc = v[:, start:start + block_k].permute(0, 2, 1, 3)
+        bias = torch.where(key_mask[:, start:start + block_k], 0.0, NEG_INF)
+        s = torch.einsum("bhnd,bhcd->bhnc", qt, kc) * c + bias[:, None, None, :]
+        mx_new = torch.maximum(mx, s.amax(dim=-1))
+        corr = torch.exp2(mx - mx_new)
+        p = torch.exp2(s - mx_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhnc,bhcd->bhnd", p.to(v.dtype).float(), vc.float())
+        acc = acc * corr[..., None] + pv
+        mx = mx_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype)
 
 
 def masked_attention(q, k, v, key_mask, impl: str = "auto"):

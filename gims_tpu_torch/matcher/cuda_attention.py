@@ -1,11 +1,13 @@
 """Masked multi-head attention through the hand-written CUDA kernel.
 
 Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
-(``csrc/attention.cu``) reads the (B, N, H, D) layout through strides, so
-no transposed copies are made, and takes f32 or bf16 inputs with f32
-accumulation; the output has q's dtype. On a CUDA tensor the wrapper
-launches the kernel or raises. It takes the plain version
-(``attention.masked_attention_flash``) only for a tensor on the CPU.
+(``csrc/attention.cu``) reads the (B, N, H, D) layout in place, so no
+transposed copies are made: bf16 on the tensor cores through TMA, f32 with
+scalar FMAs, both with f32 accumulation; the output has q's dtype. On a
+CUDA tensor the wrapper launches the kernel or raises: q, k and v must have
+a unit D stride and 16-byte aligned bases and strides (what TMA reads), and
+are never copied to make them so. It takes the plain version
+(``attention.masked_attention_tiled``) only for a tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -17,12 +19,22 @@ import torch
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import attention
 
-LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the one head width the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # calls of masked_attention_cuda that launched the kernel
 launches = 0
+
+
+def check_layout(name: str, t: torch.Tensor):
+    """Raise unless `t` (B, N, H, D) has a unit D stride and a 16-byte
+    aligned base and strides, as the kernel's tensor maps need."""
+    if t.stride(3) != 1:
+        raise ValueError(f"{name} must have a unit D stride, got strides {t.stride()}")
+    esz = t.element_size()
+    if t.data_ptr() % 16 or any(st * esz % 16 for st in t.stride()[:3]):
+        raise ValueError(f"{name}: base and strides must be 16-byte aligned "
+                         f"(strides {t.stride()}, {esz}-byte elements)")
 
 
 def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +43,7 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, N, H, D) in q's dtype."""
     global launches
     if q.device.type == "cpu":
-        return attention.masked_attention_flash(q, k, v, key_mask)
+        return attention.masked_attention_tiled(q, k, v, key_mask)
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention_cuda: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -53,6 +65,8 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("k", k), ("v", v), ("key_mask", key_mask)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_layout(name, t)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
@@ -61,7 +75,7 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             out.data_ptr(), _DTYPES[q.dtype], b, n, m, h, d,
             *q.stride(), *k.stride(), *v.stride(), *out.stride(),
-            key_mask.stride(0), LOG2E / math.sqrt(d), stream)
+            key_mask.stride(0), attention.LOG2E / math.sqrt(d), stream)
     if rc != 0:
         raise RuntimeError(f"gims_attention_fwd failed: cudaError {rc}")
     launches += 1

@@ -54,36 +54,47 @@ def log_sinkhorn_iterations(Z: torch.Tensor, log_mu: torch.Tensor,
 
 
 def dustbin_couplings(scores: torch.Tensor, alpha, row_mask: torch.Tensor,
-                      col_mask: torch.Tensor):
+                      col_mask: torch.Tensor, row_pitch: int | None = None):
     """Pad scores with dustbins and build the log-marginals.
 
     Returns (couplings (B, M+1, N+1), log_mu (B, M+1), log_nu (B, N+1),
-    norm (B,)), with absent entries at NEG_INF.
+    norm (B,)), with absent entries at NEG_INF. With ``row_pitch`` (at
+    least N+1) the couplings are a view of a (B, M+1, row_pitch) buffer
+    whose columns past N are left unset: the layout the CUDA kernel reads.
     """
     b = scores.shape[0]
     dt = scores.dtype
     alpha = torch.as_tensor(alpha, dtype=dt, device=scores.device)
     ms = row_mask.sum(dim=1).to(dt)
     ns = col_mask.sum(dim=1).to(dt)
-    neg = torch.tensor(NEG_INF, dtype=dt, device=scores.device)
+    # NEG_INF stays a Python scalar: a tensor made from it on the card
+    # would be a host-to-device copy, which waits for the whole stream
 
     pair_ok = row_mask[:, :, None] & col_mask[:, None, :]
-    scores = torch.where(pair_ok, scores, neg)
-    bins0 = torch.where(row_mask, alpha, neg)[:, :, None]      # (B, M, 1)
-    bins1 = torch.where(col_mask, alpha, neg)[:, None, :]      # (B, 1, N)
-    corner = alpha.reshape(1, 1, 1).expand(b, 1, 1)
-    couplings = torch.cat([
-        torch.cat([scores, bins0], dim=2),
-        torch.cat([bins1, corner], dim=2),
-    ], dim=1)
+    scores = torch.where(pair_ok, scores, NEG_INF)
+    bins0 = torch.where(row_mask, alpha, NEG_INF)[:, :, None]      # (B, M, 1)
+    bins1 = torch.where(col_mask, alpha, NEG_INF)[:, None, :]      # (B, 1, N)
+    if row_pitch is None:
+        corner = alpha.reshape(1, 1, 1).expand(b, 1, 1)
+        couplings = torch.cat([
+            torch.cat([scores, bins0], dim=2),
+            torch.cat([bins1, corner], dim=2),
+        ], dim=1)
+    else:
+        m, n = scores.shape[1], scores.shape[2]
+        couplings = scores.new_empty((b, m + 1, row_pitch))[:, :, : n + 1]
+        couplings[:, :m, :n] = scores
+        couplings[:, :m, n:] = bins0
+        couplings[:, m:, :n] = bins1
+        couplings[:, m, n] = alpha
 
     norm = -torch.log(ms + ns)
     log_mu = torch.cat([
-        torch.where(row_mask, norm[:, None], neg),
+        torch.where(row_mask, norm[:, None], NEG_INF),
         (torch.log(torch.clamp(ns, min=1e-38)) + norm)[:, None],
     ], dim=1)
     log_nu = torch.cat([
-        torch.where(col_mask, norm[:, None], neg),
+        torch.where(col_mask, norm[:, None], NEG_INF),
         (torch.log(torch.clamp(ms, min=1e-38)) + norm)[:, None],
     ], dim=1)
     return couplings, log_mu, log_nu, norm
@@ -113,8 +124,7 @@ def extract_matches(Z: torch.Tensor, row_mask: torch.Tensor,
     """
     m, n = Z.shape[1] - 1, Z.shape[2] - 1
     pair_ok = row_mask[:, :, None] & col_mask[:, None, :]
-    block = torch.where(pair_ok, Z[:, :m, :n],
-                        torch.tensor(NEG_INF, dtype=Z.dtype, device=Z.device))
+    block = torch.where(pair_ok, Z[:, :m, :n], NEG_INF)
 
     max0 = torch.amax(block, dim=2)
     indices0 = torch.argmax(block, dim=2)

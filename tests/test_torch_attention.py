@@ -75,3 +75,59 @@ def test_bf16_plain_versions_close_to_f32():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.numpy(),
                                rtol=5e-2, atol=5e-2)
+
+
+def kernel_inputs(seed, b=2, n=256, m=200, h=4, d=64):
+    """The CUDA kernel's head width, a ragged last key tile (200 = 128 + 72)
+    and item 1 with its first 40 keys masked."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(b, x, h, d).astype(np.float32) for x in (n, m, m))
+    mask = np.ones((b, m), bool)
+    mask[1, :40] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_matches_pallas_interpret(dtype):
+    """masked_attention_tiled against the Pallas kernel in interpret mode at
+    the CUDA kernel's key tile (block_k=128).
+
+    f32: summation order only, 2e-5. bf16: both round P to bf16 before
+    P V, from f32 scores summed in another order, so a p that lies near a
+    rounding midpoint may round one bf16 ulp (<= 2**-7 p) apart; over a row
+    that is at most 2**-7 * (P |V|) / l. Per element the limit is that term
+    plus the output's one rounding (2**-8 |ref|, the tiled version's
+    unrounded f32 result) plus 1e-4 for f32 summation order."""
+    q, k, v, mask = kernel_inputs(3)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = masked_attention_pallas(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), jnp.asarray(mask),
+        block_k=attention.KERNEL_BLOCK_K, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    qt, kt, vt, mt = (x.to(tdt) if x.is_floating_point() else x
+                      for x in torch_args(q, k, v, mask))
+    got = attention.masked_attention_tiled(qt, kt, vt, mt, out_dtype=torch.float32).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        p_abs_v = attention.masked_attention_tiled(qt, kt, vt.abs(), mt,
+                                                   out_dtype=torch.float32).numpy()
+        limit = 1e-4 + 2.0 ** -8 * np.abs(got) + 2.0 ** -7 * p_abs_v
+        assert np.all(np.abs(got - want) <= limit)
+        # and the two agree far inside that limit almost everywhere
+        assert np.mean(np.abs(got - want) <= 1e-4 + 2.0 ** -8 * np.abs(got)) > 0.999
+
+
+def test_tiled_equals_direct_f32():
+    """In f32 the tiled version is the direct one up to summation order,
+    with a fully masked item (the mean of its V) and a ragged key tile."""
+    q, k, v, mask = kernel_inputs(4, n=70, m=300)
+    mask[0] = False
+    args = torch_args(q, k, v, mask)
+    want = attention.masked_attention_direct(*args)
+    got = attention.masked_attention_tiled(*args)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[0].numpy(),
+                               np.broadcast_to(v[0].mean(0), got[0].shape),
+                               rtol=2e-5, atol=2e-5)

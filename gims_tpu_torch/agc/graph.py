@@ -52,29 +52,37 @@ def cosine_similarity_matrix(descs: torch.Tensor) -> torch.Tensor:
     return torch.matmul(normed, normed.transpose(-1, -2))
 
 
-def kth_smallest_masked(values: torch.Tensor, mask: torch.Tensor, k) -> torch.Tensor:
-    """Exact k-th (0-indexed) smallest of values[mask]; 0.0 when the mask
-    is empty (reference: agc.py:367-380, np.partition).
+def kth_smallest_masked(values: torch.Tensor, mask: torch.Tensor,
+                        k: torch.Tensor) -> torch.Tensor:
+    """Exact k-th (0-indexed) smallest of values[mask] per item; 0.0 where
+    the mask is empty (reference: agc.py:367-380, np.partition).
 
-    A full sort, not torch.kthvalue: on CUDA kthvalue selects a single
-    slice with one thread block, which takes hundreds of ms for the ~33M
-    similarities of the 8192 bucket, while a device radix sort takes a
-    few ms (scripts/profile_torch_matching.py)."""
-    sel = values[mask]
-    if sel.numel() == 0:
-        return torch.zeros((), dtype=torch.float32, device=values.device)
-    k = min(max(int(k), 0), sel.numel() - 1)
-    return torch.sort(sel.float()).values[k]
+    values, mask (B, ...) and k (B,) int. Each item is sorted whole with its masked entries at +inf and read at its
+    k, clipped to its count: no per-item host loop or boolean gather, so
+    the host never waits for the card here. A full sort, not
+    torch.kthvalue: on CUDA kthvalue selects a single slice with one
+    thread block, which takes hundreds of ms for the ~33M similarities of
+    the 8192 bucket, while a device radix sort takes a few ms
+    (scripts/profile_torch_matching.py)."""
+    mask = mask.flatten(1)
+    flat = torch.where(mask, values.flatten(1).float(), float("inf"))
+    count = mask.sum(dim=1)
+    k = torch.minimum(k.long().clamp(min=0), (count - 1).clamp(min=0))
+    kth = torch.gather(torch.sort(flat, dim=1).values, 1, k[:, None])[:, 0]
+    return torch.where(count > 0, kth, 0.0)
 
 
-def percentile_k(num_valid: int, percentile: float) -> int:
-    """In-graph rank rule of the JAX build when no rank is passed: the
-    pair count times percentile/100 in f32, floored and clipped."""
-    count = num_valid * (num_valid - 1) // 2
-    k = int(np.floor(np.float32(count) * np.float32(percentile / 100.0)))
-    if k >= count:
-        k = count - 1
-    return max(k, 0)
+def percentile_k(num_valid: torch.Tensor, percentile: float) -> torch.Tensor:
+    """In-graph rank rule of the JAX build when no rank is passed, on the
+    device: the pair count times percentile/100 in f32, floored and
+    clipped. num_valid (B,) int; returns (B,) int64."""
+    nv = num_valid.long()
+    count = nv * (nv - 1) // 2
+    pct = torch.full(count.shape, float(np.float32(percentile / 100.0)),
+                     dtype=torch.float32, device=count.device)
+    k = torch.floor(count.float() * pct).long()
+    k = torch.where(k >= count, count - 1, k)
+    return k.clamp(min=0)
 
 
 def connected_components(adj: torch.Tensor, valid: torch.Tensor,
@@ -83,38 +91,36 @@ def connected_components(adj: torch.Tensor, valid: torch.Tensor,
 
     adj (B, N, N) bool, valid (B, N). Returns (B, N) int32 labels: each
     component is labeled by its minimum node index, invalid nodes by N.
-    Stops when no label changes, after at most `rounds` rounds beyond the
-    first.
+    Runs one round and then `rounds` more, all on the device. The JAX
+    build stops early once a round changes no label; a round of converged
+    labels changes none (each node already holds its component's minimum,
+    and so does every neighbour), so the fixed count gives the same labels
+    without asking the host whether to go on.
     """
     n = adj.shape[-1]
-    sentinel = torch.tensor(n, dtype=torch.int32, device=adj.device)
     idx = torch.arange(n, dtype=torch.int32, device=adj.device)
-    label = torch.where(valid, idx, sentinel)
+    label = torch.where(valid, idx, n)
+    # the (B, N, N) neighbour labels in int16 where N fits: half the bytes
+    small = torch.int16 if n < 2 ** 15 else torch.int32
 
     def one_round(label):
-        neigh = torch.where(adj, label[:, None, :], sentinel)
-        label = torch.minimum(label, torch.where(valid, neigh.amin(dim=-1), sentinel))
+        neigh = torch.where(adj, label.to(small)[:, None, :], n).amin(dim=-1)
+        label = torch.minimum(label, torch.where(valid, neigh.int(), n))
         for _ in range(3):
             safe = torch.clamp(label, max=n - 1).long()
-            jumped = torch.where(label < n, torch.gather(label, 1, safe), sentinel)
+            jumped = torch.where(label < n, torch.gather(label, 1, safe), n)
             label = torch.minimum(label, jumped)
         return label
 
-    label = one_round(label)
-    for _ in range(rounds):
-        new = one_round(label)
-        changed = bool((new != label).any())
-        label = new
-        if not changed:
-            break
+    for _ in range(rounds + 1):
+        label = one_round(label)
     return label
 
 
 def _first_min_index(values: torch.Tensor, mask: torch.Tensor, dim: int = -1):
     """(min, first argmin) over a masked axis; sentinel = axis length."""
     n = values.shape[dim]
-    big = torch.tensor(BIG, dtype=values.dtype, device=values.device)
-    mn = torch.where(mask, values, big).amin(dim=dim, keepdim=True)
+    mn = torch.where(mask, values, BIG).amin(dim=dim, keepdim=True)
     hit = mask & (values == mn)
     shape = [1] * values.dim()
     shape[dim] = n
@@ -174,7 +180,7 @@ def _reconnect_components(adj, kpts, d2, labels, kept, buckets=4096):
     lab, comp_ids, nnc_safe, link_ok = _component_links_head(kpts, labels, kept, C)
 
     # md[b, c, v] = min over kept u of component c of d2[b, u, v]
-    d2_rows = torch.where(kept[:, :, None], d2, torch.tensor(BIG, device=d2.device))
+    d2_rows = torch.where(kept[:, :, None], d2, BIG)
     md = torch.full((b * (C + 1), n), float("inf"), dtype=d2.dtype, device=d2.device)
     seg = (lab + torch.arange(b, device=d2.device)[:, None] * (C + 1)).reshape(-1)
     with warnings.catch_warnings():  # index_reduce_ is marked beta
@@ -194,12 +200,16 @@ def _reconnect_components(adj, kpts, d2, labels, kept, buckets=4096):
     u_l_safe = torch.clamp(u_l, max=n - 1)
     ok = link_ok & (v_l < n) & (u_l < n)
 
-    bi, li = torch.nonzero(ok, as_tuple=True)
-    u, v = u_l_safe[bi, li], v_l_safe[bi, li]
-    adj = adj.clone()
-    adj[bi, u, v] = True
-    adj[bi, v, u] = True
-    return adj
+    # set both directions of every link by a max-scatter over all (B, C+1)
+    # slots, the skipped ones adding 0: no nonzero(), whose size the host
+    # would have to wait for
+    base = torch.arange(b, device=d2.device)[:, None] * (n * n)
+    lin = torch.cat([base + u_l_safe * n + v_l_safe,
+                     base + v_l_safe * n + u_l_safe]).reshape(-1)
+    flat = adj.to(torch.uint8).reshape(-1)
+    flat.scatter_reduce_(0, lin, torch.cat([ok, ok]).reshape(-1).to(torch.uint8),
+                         "amax")
+    return flat.view(b, n, n).bool()
 
 
 def _check_impls(threshold_impl, cc_impl, reconnect_impl, agc_impl="dense"):
@@ -232,7 +242,7 @@ def build_graph(
     kpts (B, N, 2) f32, descs (B, N, D) f32 (unnormalized), valid (B, N)
     bool; one set without the batch axis is accepted and returned without
     it. `k` is the optional rank of the percentile threshold per set
-    (``pipeline.percentile_rank`` of the valid count); without it the rank
+    (``pipeline.percentile_rank`` of the valid counts); without it the rank
     follows the JAX build's in-graph f32 rule.
     """
     _check_impls(threshold_impl, cc_impl, reconnect_impl)
@@ -253,16 +263,14 @@ def build_graph(
     # --- percentile threshold over the valid upper triangle ---
     triu = pair_valid & (idx[:, None] < idx[None, :])
     if k is None:
-        nvs = valid.sum(dim=1).tolist()
-        ks = [percentile_k(int(nv), percentile) for nv in nvs]
+        k = percentile_k(valid.sum(dim=1), percentile)
     else:
-        ks = [int(x) for x in (k.tolist() if torch.is_tensor(k) else k)]
-    threshold = torch.stack([kth_smallest_masked(sim[i], triu[i], ks[i])
-                             for i in range(bsz)])
+        k = torch.as_tensor(k, device=dev).reshape(bsz)
+    threshold = kth_smallest_masked(sim, triu, k)
 
     # --- candidate edges: within radius AND similarity >= threshold ---
-    r = torch.tensor(radius, dtype=torch.float32, device=dev)
-    adj = pair_valid & off_diag & (d2 <= r * r) & (sim >= threshold[:, None, None])
+    r2 = float(np.float32(radius) * np.float32(radius))  # f32, as JAX squares it
+    adj = pair_valid & off_diag & (d2 <= r2) & (sim >= threshold[:, None, None])
 
     # --- connect isolated nodes to the nearest spatial neighbor ---
     degree = adj.sum(dim=2)

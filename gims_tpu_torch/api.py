@@ -128,14 +128,16 @@ class Matching:
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x))[None].to(self.device)
 
-        k0 = pipeline.percentile_rank(f0["n"], acfg.percentile)
-        k1 = pipeline.percentile_rank(f1["n"], acfg.percentile)
+        valid0, valid1 = dev(f0["valid"]), dev(f1["valid"])
+        # the exact percentile ranks, computed on the device from the masks
+        k0 = pipeline.percentile_rank(valid0.sum(dim=1), acfg.percentile)
+        k1 = pipeline.percentile_rank(valid1.sum(dim=1), acfg.percentile)
         t1 = time.perf_counter()
         out = pipeline.forward_match(
             self.model, acfg,
-            dev(f0["kpts_host"]), dev(f0["desc"]), dev(f0["valid"]),
-            dev(f1["kpts_host"]), dev(f1["desc"]), dev(f1["valid"]),
-            image_shape, k0=[k0], k1=[k1],
+            dev(f0["kpts_host"]), dev(f0["desc"]), valid0,
+            dev(f1["kpts_host"]), dev(f1["desc"]), valid1,
+            image_shape, k0=k0, k1=k1,
             radius=acfg.radius, min_size=acfg.min_size,
         )
         keys = ["kept0", "kept1", "matches0", "matches1",

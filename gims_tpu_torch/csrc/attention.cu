@@ -10,6 +10,12 @@
 // does. Padded query rows are computed like any other and masked by the
 // caller. One C entry point, gims_attention_fwd; the dtype picks the kernel.
 //
+// Head widths: any D up to 128. Both kernels work on column blocks of 64:
+// one block for D <= 64, two for D <= 128. Columns from D up to the block's
+// end are read as zeros (TMA's out-of-bounds fill, or a bounds test in the
+// f32 kernel), which add nothing to Q K^T and give output columns that are
+// not stored. So D = 32 does the work of D = 64.
+//
 // What bounds it on the H100: 4*B*H*N*M*D operations (QK^T and PV, a
 // multiply and an add each) against 4*B*N*H*D + 2*(B*M*H*D) elements moved,
 // so it is bound by operations at every bucket the trunk uses (N = M >= 2048,
@@ -23,7 +29,8 @@
 //   * The producer warp loads Q once, then K and V tiles of 128 keys through
 //     TMA (cp.async.bulk.tensor, 4-D tensor maps over the (B, N, H, D)
 //     layout with a box of {64, 1, rows, 1}: 128-byte rows, 128-byte
-//     swizzle) into a ring of 3 stages guarded by full/empty mbarriers. Its
+//     swizzle; one box per 64-column block) into a ring of 3 stages (2 at
+//     two column blocks, for shared memory) guarded by full/empty mbarriers. Its
 //     lanes also turn the tile's uint8 key mask into the additive bias (0,
 //     -1e9, or -inf past M, where TMA zero-fills K and V) in shared memory.
 //   * Each consumer warpgroup computes S = Q K^T for its 64 rows with wgmma
@@ -32,8 +39,9 @@
 //     the row max across the 4 lanes that share a row, one rescale of the
 //     running max, sum and output per key tile. P is rounded to bf16 in
 //     registers, where the accumulator layout of S is the A-operand layout
-//     of the next wgmma, and O += P V runs as wgmma m64n64k16 with A from
-//     registers and V (keys x D, D contiguous) read with the transpose flag.
+//     of the next wgmma, and O += P V runs as wgmma m64n64k16 per column
+//     block with A from registers and V (keys x 64, columns contiguous) read
+//     with the transpose flag.
 //   * Overlap: the two consumer warpgroups run the same loop independently,
 //     so one's exponentials (MUFU) issue while the other's wgmma runs.
 //   * Epilogue: O / max(l, 1e-30), rounded once to bf16, stored to
@@ -45,9 +53,9 @@
 //
 // f32: attn_f32_kernel, scalar FMAs (the tensor cores would round to TF32,
 // which the port keeps off). One block per (b*h, tile of 64 query rows), one
-// thread per query row holding q and its f32 accumulator in registers; key
-// tiles of 64 staged in shared memory, scores 16 keys at a time. It reads
-// any strides.
+// thread per query row holding q and its f32 accumulator in registers (at
+// 128 columns they spill); key tiles of 64 (32 at 128 columns) staged in
+// shared memory, scores 16 keys at a time. It reads any strides.
 
 #include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -57,7 +65,8 @@
 
 namespace {
 
-constexpr int kD = 64;  // head dim
+constexpr int kBlockD = 64;   // columns per block of the head dim
+constexpr int kMaxD = 128;    // widest head dim: two blocks
 constexpr float kNegInf = -1e9f;
 constexpr int kMaxDevices = 64;
 
@@ -68,14 +77,16 @@ struct Strides {
 // ------------------------------------------------------------ f32 kernel
 
 constexpr int kBQ = 64;   // query rows per block (one thread each)
-constexpr int kBK = 64;   // keys per shared-memory tile
 constexpr int kCH = 16;   // keys per online-softmax update
 
+// kD: the head dim rounded up to a column block; columns from D on are zeros.
+template <int kD>
 __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
-    float* __restrict__ out, int N, int M, int H, Strides qs, Strides ks,
+    float* __restrict__ out, int N, int M, int H, int D, Strides qs, Strides ks,
     Strides vs, Strides os, long long mask_sb, float scale_log2) {
+  constexpr int kBK = 64 * 64 / kD;  // keys per shared-memory tile (32 KB of K and V)
   __shared__ __align__(16) float k_tile[kBK][kD];
   __shared__ __align__(16) float v_tile[kBK][kD];
   __shared__ float bias[kBK];
@@ -90,7 +101,7 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
   const float* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    qr[d] = row_ok ? qp[d * qs.d] * scale_log2 : 0.f;
+    qr[d] = row_ok && d < D ? qp[d * qs.d] * scale_log2 : 0.f;
     acc[d] = 0.f;
   }
   float m_run = kNegInf;
@@ -107,7 +118,7 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
       const int d = idx % kD;
       const int key = k0 + j;
       float kv = 0.f, vv = 0.f;
-      if (key < M) {
+      if (key < M && d < D) {
         kv = kb[key * ks.n + d * ks.d];
         vv = vb[key * vs.n + d * vs.d];
       }
@@ -166,7 +177,9 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
     const float inv = 1.f / fmaxf(l_run, 1e-30f);
     float* op = out + b * os.b + (long long)row * os.n + h * os.h;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) op[d * os.d] = acc[d] * inv;
+    for (int d = 0; d < kD; ++d) {
+      if (d < D) op[d * os.d] = acc[d] * inv;
+    }
   }
 }
 
@@ -176,20 +189,27 @@ constexpr int kWgRows = 64;                       // query rows per consumer war
 constexpr int kConsumers = 2;                     // consumer warpgroups per CTA
 constexpr int kTcRows = kWgRows * kConsumers;     // 128 query rows per CTA
 constexpr int kTcKeys = 128;                      // keys per tile
-constexpr int kStages = 3;                        // K/V ring depth
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + one producer warp
-constexpr uint32_t kTileBytes = kTcKeys * kD * 2;     // one K or V tile, bf16
+constexpr uint32_t kTileBytes = kTcKeys * kBlockD * 2;  // one K or V column block, bf16
 
-// Every tile is 1024-byte aligned: the 128-byte swizzle repeats every 8 rows
-// of 128 bytes, and both TMA and wgmma take the pattern from address bits.
+// K/V ring depth: 3 stages at one column block, 2 at two (shared memory).
+template <int NB>
+struct Ring {
+  static constexpr int kStages = NB == 1 ? 3 : 2;
+};
+
+// NB column blocks of 64. Every tile is 1024-byte aligned: the 128-byte
+// swizzle repeats every 8 rows of 128 bytes, and both TMA and wgmma take the
+// pattern from address bits.
+template <int NB>
 struct __align__(1024) TcSmem {
-  __nv_bfloat16 q[kTcRows * kD];
-  __nv_bfloat16 k[kStages][kTcKeys * kD];
-  __nv_bfloat16 v[kStages][kTcKeys * kD];
-  float bias[kStages][kTcKeys];
-  uint64_t full[kStages];   // producer -> consumers: K, V and bias landed
-  uint64_t empty[kStages];  // consumers -> producer: stage free again
+  __nv_bfloat16 q[NB][kTcRows * kBlockD];
+  __nv_bfloat16 k[Ring<NB>::kStages][NB][kTcKeys * kBlockD];
+  __nv_bfloat16 v[Ring<NB>::kStages][NB][kTcKeys * kBlockD];
+  float bias[Ring<NB>::kStages][kTcKeys];
+  uint64_t full[Ring<NB>::kStages];   // producer -> consumers: K, V and bias landed
+  uint64_t empty[Ring<NB>::kStages];  // consumers -> producer: stage free again
   uint64_t q_full;
 };
 
@@ -230,14 +250,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One box of the 4-D tensor map {D, H, N, B} into shared memory; completion
-// is reported to `bar` as transaction bytes. Rows past N are zero-filled.
+// One box of the 4-D tensor map {D, H, N, B} into shared memory, from column
+// d0; completion is reported to `bar` as transaction bytes (the whole box).
+// Rows past N and columns past D are zero-filled.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int h, int n0, int b) {
+                                         int d0, int h, int n0, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(n0), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d0), "r"(h), "r"(n0), "r"(b)
       : "memory");
 }
 
@@ -320,13 +341,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+template <int NB>
 __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ key_mask,
-    __nv_bfloat16* __restrict__ out, int N, int M, int H, long long osb, long long osn,
+    __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, long long osb, long long osn,
     long long osh, long long mask_sb, float scale_log2) {
+  constexpr int kStages = Ring<NB>::kStages;
   extern __shared__ uint8_t smem_raw[];
-  TcSmem& sm = *reinterpret_cast<TcSmem*>(
+  TcSmem<NB>& sm = *reinterpret_cast<TcSmem<NB>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int b = blockIdx.y / H;
@@ -349,8 +372,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
   if (warp == kConsumerWarps) {
     // ---- producer warp: Q once, then K, V and the key bias per tile ----
     if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.q_full, kTcRows * kD * 2);
-      tma_load(sm.q, &q_map, &sm.q_full, h, q0, b);
+      mbar_arrive_expect_tx(&sm.q_full, NB * kTcRows * kBlockD * 2);
+      for (int c = 0; c < NB; ++c) tma_load(sm.q[c], &q_map, &sm.q_full, kBlockD * c, h, q0, b);
     }
     const uint8_t* mb = key_mask + b * mask_sb;
     for (int t = 0; t < n_tiles; ++t) {
@@ -362,9 +385,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
         sm.bias[s][i] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.full[s], 2 * kTileBytes);
-        tma_load(sm.k[s], &k_map, &sm.full[s], h, key0, b);
-        tma_load(sm.v[s], &v_map, &sm.full[s], h, key0, b);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * NB * kTileBytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(sm.k[s][c], &k_map, &sm.full[s], kBlockD * c, h, key0, b);
+          tma_load(sm.v[s][c], &v_map, &sm.full[s], kBlockD * c, h, key0, b);
+        }
       } else {
         mbar_arrive(&sm.full[s]);
       }
@@ -374,29 +399,37 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     const int wg = warp / 4;
     const int r_lo = 16 * (warp % 4) + lane / 4;  // this thread's rows: r_lo, r_lo + 8
     const int cq = lane % 4;                      // its column pairs: 8j + 2cq, +1
-    float o[32];
+    float o[NB][32];  // O's column block c: columns 64c + 8j + 2cq, +1
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int c = 0; c < NB; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    }
     float m_lo = kNegInf, m_hi = kNegInf;  // running max (base 2)
     float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sum
 
     mbar_wait(&sm.q_full, 0);
-    const uint64_t q_desc = sw128_desc(sm.q + wg * kWgRows * kD);
+    uint64_t q_desc[NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) q_desc[c] = sw128_desc(sm.q[c] + wg * kWgRows * kBlockD);
 
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kStages;
       mbar_wait(&sm.full[s], (t / kStages) & 1);
 
-      // S = Q K^T: 64 x 128 f32, four k-steps of 16 over D
+      // S = Q K^T: 64 x 128 f32, four k-steps of 16 per column block
       float sc[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] = 0.f;
-      const uint64_t k_desc = sw128_desc(sm.k[s]);
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        wgmma_m64n128k16_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);  // +32 bytes per step
+      for (int c = 0; c < NB; ++c) {
+        const uint64_t k_desc = sw128_desc(sm.k[s][c]);
+#pragma unroll
+        for (int kk = 0; kk < kBlockD / 16; ++kk) {  // +32 bytes per step
+          wgmma_m64n128k16_ss(sc, q_desc[c] + 2 * kk, k_desc + 2 * kk, c + kk);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -438,26 +471,33 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
       l_lo = l_lo * corr_lo + sum_lo;
       l_hi = l_hi * corr_hi + sum_hi;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[4 * j + 0] *= corr_lo;
-        o[4 * j + 1] *= corr_lo;
-        o[4 * j + 2] *= corr_hi;
-        o[4 * j + 3] *= corr_hi;
+      for (int c = 0; c < NB; ++c) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 0] *= corr_lo;
+          o[c][4 * j + 1] *= corr_lo;
+          o[c][4 * j + 2] *= corr_hi;
+          o[c][4 * j + 3] *= corr_hi;
+        }
+        fence_regs(o[c]);
       }
 
-      // O += P V: eight k-steps of 16 keys; V rows are 128 bytes, so a step
-      // advances the descriptor by 16 * 128 bytes
-      const uint64_t v_desc = sw128_desc(sm.v[s]);
-      fence_regs(o);
+      // O += P V: eight k-steps of 16 keys per column block; V rows are 128
+      // bytes, so a step advances the descriptor by 16 * 128 bytes
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-        wgmma_m64n64k16_rs(o, p[4 * kk + 0], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                           v_desc + 128 * kk);
+      for (int c = 0; c < NB; ++c) {
+        const uint64_t v_desc = sw128_desc(sm.v[s][c]);
+#pragma unroll
+        for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+          wgmma_m64n64k16_rs(o[c], p[4 * kk + 0], p[4 * kk + 1], p[4 * kk + 2],
+                             p[4 * kk + 3], v_desc + 128 * kk);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(o);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_regs(o[c]);
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[s]);
     }
@@ -468,14 +508,19 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     const int row_hi = row_lo + 8;
     __nv_bfloat16* ob = out + b * osb + h * osh + 2 * cq;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (row_lo < N) {
-        *reinterpret_cast<uint32_t*>(ob + row_lo * osn + 8 * j) =
-            pack_bf16(o[4 * j + 0] / den_lo, o[4 * j + 1] / den_lo);
-      }
-      if (row_hi < N) {
-        *reinterpret_cast<uint32_t*>(ob + row_hi * osn + 8 * j) =
-            pack_bf16(o[4 * j + 2] / den_hi, o[4 * j + 3] / den_hi);
+    for (int c = 0; c < NB; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = kBlockD * c + 8 * j;  // + 2cq; D is a multiple of 8
+        if (col >= D) continue;
+        if (row_lo < N) {
+          *reinterpret_cast<uint32_t*>(ob + row_lo * osn + col) =
+              pack_bf16(o[c][4 * j + 0] / den_lo, o[c][4 * j + 1] / den_lo);
+        }
+        if (row_hi < N) {
+          *reinterpret_cast<uint32_t*>(ob + row_hi * osn + col) =
+              pack_bf16(o[c][4 * j + 2] / den_hi, o[c][4 * j + 3] / den_hi);
+        }
       }
     }
   }
@@ -506,14 +551,15 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (B, N, H, D=64) bf16 tensor with unit D stride as the 4-D map {D, H, N, B},
-// box {64, 1, rows, 1}, 128-byte swizzle, zero fill out of bounds.
+// A (B, N, H, D) bf16 tensor with unit D stride as the 4-D map {D, H, N, B},
+// box {64, 1, rows, 1} (one column block), 128-byte swizzle, zero fill out
+// of bounds (rows past N, columns past D).
 bool encode_bnhd(EncodeTiledFn encode, CUtensorMap* map, const void* base, int B, int N, int H,
-                 const Strides& st, int rows) {
-  const cuuint64_t dims[4] = {kD, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+                 int D, const Strides& st, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.n * 2,
                                  (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {kD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {kBlockD, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -521,55 +567,58 @@ bool encode_bnhd(EncodeTiledFn encode, CUtensorMap* map, const void* base, int B
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int NB>
 int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, void* out,
-                int B, int N, int M, int H, const Strides& qs, const Strides& ks,
+                int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
                 const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
                 cudaStream_t stream) {
-  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1) {
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_bnhd(encode, &q_map, q, B, N, H, qs, kTcRows) ||
-      !encode_bnhd(encode, &k_map, k, B, M, H, ks, kTcKeys) ||
-      !encode_bnhd(encode, &v_map, v, B, M, H, vs, kTcKeys)) {
+  if (!encode_bnhd(encode, &q_map, q, B, N, H, D, qs, kTcRows) ||
+      !encode_bnhd(encode, &k_map, k, B, M, H, D, ks, kTcKeys) ||
+      !encode_bnhd(encode, &v_map, v, B, M, H, D, vs, kTcKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = static_cast<int>(sizeof(TcSmem)) + 1024;  // + alignment slack
+  const int smem = static_cast<int>(sizeof(TcSmem<NB>)) + 1024;  // + alignment slack
   // the shared-memory limit is raised once per device, not on every call
   static bool raised[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev >= kMaxDevices || !raised[dev])) {
-    err = cudaFuncSetAttribute(attn_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(attn_tc_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kTcRows - 1) / kTcRows, B * H);
-  attn_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+  attn_tc_kernel<NB><<<grid, kTcThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<const uint8_t*>(key_mask),
-      static_cast<__nv_bfloat16*>(out), N, M, H, os.b, os.n, os.h, mask_sb, scale_log2);
+      static_cast<__nv_bfloat16*>(out), N, M, H, D, os.b, os.n, os.h, mask_sb, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kD>
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, void* out,
-               int B, int N, int M, int H, const Strides& qs, const Strides& ks,
+               int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
                const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
                cudaStream_t stream) {
   const dim3 grid((N + kBQ - 1) / kBQ, B * H);
-  attn_f32_kernel<<<grid, kBQ, 0, stream>>>(
+  attn_f32_kernel<kD><<<grid, kBQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(key_mask), static_cast<float*>(out), N, M, H, qs, ks, vs, os,
-      mask_sb, scale_log2);
+      static_cast<const uint8_t*>(key_mask), static_cast<float*>(out), N, M, H, D, qs, ks, vs,
+      os, mask_sb, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (scalar kernel, any strides), 1 = bfloat16 (tensor-core
-// kernel: unit D stride, 16-byte aligned bases and strides). Returns a
-// cudaError_t (0 = launched).
+// kernel: unit D stride, 16-byte aligned bases and strides, so D a multiple
+// of 8). D from 1 to 128. Returns a cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int dtype, int B, int N, int M, int H, int D, long long qsb,
@@ -577,18 +626,20 @@ extern "C" int gims_attention_fwd(
     long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
-  if (D != kD || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535) {
+  if (D <= 0 || D > kMaxD || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{qsb, qsn, qsh, qsd}, ks{ksb, ksn, ksh, ksd},
       vs{vsb, vsn, vsh, vsd}, os{osb, osn, osh, osd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool one_block = D <= kBlockD;
   if (dtype == 0) {
-    return launch_f32(q, k, v, key_mask, out, B, N, M, H, qs, ks, vs, os, mask_sb, scale_log2, st);
+    return (one_block ? launch_f32<kBlockD> : launch_f32<kMaxD>)(
+        q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
   }
   if (dtype == 1) {
-    return launch_bf16(q, k, v, key_mask, out, B, N, M, H, qs, ks, vs, os, mask_sb, scale_log2,
-                       st);
+    return (one_block ? launch_bf16<1> : launch_bf16<2>)(
+        q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,375 @@
+"""Fused pair matching: uint8 gray image pairs in, matches out.
+
+Port of the dense_gray path of ``gims_tpu/fused.py``, the path the JAX
+package's bench runs. A batch of pairs goes through each stage as one
+batch:
+
+  gray pyramid -> dense DoG candidates (frontend/detect_device.py)
+  -> per-octave top-k keypoint budgets (static shapes, masks for validity)
+  -> the gray CAR-HyNet over pyramid layers 1..3 of each octave, fully
+     convolutionally, and bilinear descriptor sampling at the keypoints
+  -> AGC -> trunk compaction to the kept keypoints -> GMatcher (K1 once
+     per GNN layer) -> Sinkhorn (K2) -> mutual-max extraction.
+
+Per-octave budgets replace a global response sort: octave o gets a fixed
+share of the keypoint budget, its candidates are picked by within-octave
+top-k, and downstream masks treat the concatenation as any padded keypoint
+set. The patch-warp, colour-dense and device-SIFT descriptor sources, the
+approximate top-k and the multi-device split are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from gims_tpu_torch.carhynet.convert import load_variables as load_car_variables
+from gims_tpu_torch.carhynet.model import CARHyNet
+from gims_tpu_torch.config import AGCConfig, FrontendConfig, MatcherConfig
+from gims_tpu_torch.core.bucketing import compact_indices
+from gims_tpu_torch.core.device import resolve_device
+from gims_tpu_torch.frontend.detect_device import (
+    _octave_candidates,
+    gray_pyramid,
+    top_k_stable,
+)
+from gims_tpu_torch.frontend.pyramid import num_octaves
+from gims_tpu_torch.matcher import pipeline
+from gims_tpu_torch.matcher.convert import load_variables
+from gims_tpu_torch.matcher.gmatcher import GMatcher
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TODO = "is not ported yet; see ROADMAP.md"
+
+
+def octave_budgets(h: int, w: int, total: int,
+                   upsample: bool = True) -> Tuple[int, ...]:
+    """Static per-octave keypoint budgets: ~4x decay, 32 minimum, summing
+    to exactly `total` (remainder to octave 0, where most detections are)."""
+    bh, bw = (2 * h, 2 * w) if upsample else (h, w)
+    n_oct = num_octaves(bh, bw)
+    raw = [max(32, total // (2 * 4**o)) for o in range(n_oct)]
+    # octave areas shrink 4x per level; never budget more than the plane
+    raw = [min(b, 3 * (bh >> o) * (bw >> o)) for o, b in enumerate(raw)]
+    raw[0] -= sum(raw) - total
+    if raw[0] < 32:
+        raise ValueError(f"budget {total} too small for {n_oct} octaves")
+    return tuple(raw)
+
+
+def _dense_sample(maps, px, py, layer, valid,
+                  dense_layers: Tuple[int, ...] = (1, 2, 3)):
+    """Bilinear descriptor sampling from (B, L, mh, mw, D) dense maps (one
+    map per entry of `dense_layers`; a keypoint at another layer samples
+    the nearest map). px, py (B, K) are octave pixel coordinates; the
+    stride-4 SAME-padded map has a +2 px centre offset. Returns (B, K, D)
+    L2-normalized descriptors, 0 where `valid` (B, K) f32 is 0."""
+    b, nl, mh, mw, d = maps.shape
+    flat = maps.reshape(-1, d)
+    # nearest map per layer value 0..4, first on ties
+    lc = layer.clamp(0, 4)
+    lidx = torch.zeros_like(layer)
+    best = (lc - dense_layers[0]).abs()
+    for j, dl in enumerate(dense_layers[1:], start=1):
+        dist = (lc - dl).abs()
+        lidx = torch.where(dist < best, j, lidx)
+        best = torch.minimum(best, dist)
+    base = torch.arange(b, device=maps.device)[:, None] * (nl * mh * mw)
+    mx = (px - 2.0) / 4.0
+    my = (py - 2.0) / 4.0
+    x0 = torch.floor(mx)
+    y0 = torch.floor(my)
+    fx = mx - x0
+    fy = my - y0
+    acc = 0.0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xx = (x0.int() + dx).clamp(0, mw - 1)
+            yy = (y0.int() + dy).clamp(0, mh - 1)
+            rows = base + lidx * (mh * mw) + yy * mw + xx
+            wx = (1.0 - fx) if dx == 0 else fx
+            wy = (1.0 - fy) if dy == 0 else fy
+            acc = acc + flat[rows.long()] * (wx * wy * valid)[..., None]
+    norm = torch.sqrt(torch.sum(acc * acc, dim=-1, keepdim=True) + 1e-10)
+    return acc / norm
+
+
+def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: CARHyNet):
+    """(B, H, W) uint8 gray images -> keypoints (B, T, 2) in input pixels
+    (1e6 where invalid), scores (B, T), valid (B, T), descriptors (B, T, 256),
+    T = sum(budgets).
+
+    The gray CAR-HyNet runs over the detection pyramid's layers
+    `fe.dense_layers` of every octave from `first_map_oct` on while the
+    octave is at least 16 px on its short side; an octave without maps
+    samples the nearest one that has them at scaled coordinates. With the
+    2x-upsampled base, octave 0 gets no maps of its own."""
+    ddt = _DTYPES[fe.dense_dtype]
+    with record_function("gims.frontend.pyramid"):
+        octs = gray_pyramid(images_u8, fe.upsample)
+    if fe.upsample:
+        first_map_oct = 1 if len(octs) > 1 else 0
+    else:
+        first_map_oct = min(fe.dense_first_map_oct, len(octs) - 1)
+    b = images_u8.shape[0]
+    layers = list(fe.dense_layers)
+    maps = {}
+    with record_function("gims.frontend.cnn"):
+        for o in range(first_map_oct, len(octs)):
+            ho, wo = octs[o].shape[-2:]
+            if min(ho, wo) < 16:
+                break
+            levels = octs[o][:, layers].reshape(b * len(layers), 1, ho, wo)
+            x = levels.to(ddt) / 255.0
+            if x.is_cuda:
+                x = x.contiguous(memory_format=torch.channels_last)
+            m = car_model(x)                                 # (B*L, mh, mw, D)
+            maps[o] = m.reshape((b, len(layers)) + m.shape[1:])
+
+    kp_list, sc_list, va_list, de_list = [], [], [], []
+    for o, gauss in enumerate(octs):
+        k_o = budgets[o]
+        with record_function("gims.frontend.detect"):
+            cand = _octave_candidates(gauss, fe.contrast_threshold, fe.edge_threshold)
+            _, _, hh, wh = cand["score"].shape
+            score = cand["score"].reshape(b, -1)
+            k_sel = min(k_o, score.shape[1])
+            top_v, top_i = top_k_stable(score, k_sel)
+            li = top_i // (hh * wh)
+            rem = top_i % (hh * wh)
+            yi = rem // wh
+            xi = rem % wh
+
+            def g(name):
+                return torch.gather(cand[name].reshape(b, -1), 1, top_i)
+
+            layer = (li + 1).int()
+            px = xi.float() + g("offx")                   # octave coordinates
+            py = yi.float() + g("offy")
+            valid = top_v > 0
+        with record_function("gims.frontend.sample"):
+            src = min(max(o, min(maps)), max(maps))
+            f = 2.0 ** (o - src)  # octave-o coordinates -> octave-src coordinates
+            desc = _dense_sample(maps[src], px * f, py * f, layer, valid.float(),
+                                 fe.dense_layers)
+            scale_mult = float(2 ** (o - 1)) if fe.upsample else float(2 ** o)
+            kp = torch.stack([px * scale_mult, py * scale_mult], dim=-1)
+            kp = torch.where(valid[..., None], kp, 1e6)
+            sc = torch.where(valid, top_v, 0.0)
+            if k_sel < k_o:
+                pad = k_o - k_sel
+                kp = torch.cat([kp, kp.new_full((b, pad, 2), 1e6)], dim=1)
+                sc = torch.cat([sc, sc.new_zeros((b, pad))], dim=1)
+                valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
+                desc = torch.cat([desc, desc.new_zeros((b, pad, desc.shape[-1]))], dim=1)
+        kp_list.append(kp)
+        sc_list.append(sc)
+        va_list.append(valid)
+        de_list.append(desc)
+
+    valid = torch.cat(va_list, dim=1)
+    desc = torch.cat(de_list, dim=1)
+    desc = torch.where(valid[..., None], torch.cat([desc, desc], dim=-1), 0.0)
+    return torch.cat(kp_list, dim=1), torch.cat(sc_list, dim=1), valid, desc
+
+
+def _pack(out):
+    """Outputs as the JAX package's compact transport carries them:
+    keypoints as 1/16-px fixed point (uint16), match indices as int16,
+    scores as float16; ``collect_batch`` decodes them."""
+    for s in ("0", "1"):
+        out["keypoints" + s] = torch.clamp(
+            out["keypoints" + s] * 16.0, 0, 65535).to(torch.int32).to(torch.uint16)
+        out["matches" + s] = out["matches" + s].to(torch.int16)
+        out["matching_scores" + s] = out["matching_scores" + s].to(torch.float16)
+        out["scores" + s] = out["scores" + s].to(torch.float16)
+    return out
+
+
+@torch.no_grad()
+def fused_match_batch(model: GMatcher, car_model: CARHyNet, acfg: AGCConfig,
+                      fe: FrontendConfig, budgets, imgs0_u8, imgs1_u8,
+                      h: int, w: int, compact_transport: bool = False,
+                      compact_to: Optional[int] = None):
+    """B pairs through every stage at once. imgs0_u8/imgs1_u8 are
+    (B, H, W) uint8 gray stacks on the model's device; both sides are
+    extracted as one batch of 2B images."""
+    b = imgs0_u8.shape[0]
+    kp, sc, va, de = _extract_side(torch.cat([imgs0_u8, imgs1_u8]), budgets, fe,
+                                   car_model)
+    out = pipeline.forward_match(
+        model, acfg, kp[:b], de[:b], va[:b], kp[b:], de[b:], va[b:],
+        image_shape=(h, w), compact_to=compact_to,
+        scores0=sc[:b], scores1=sc[b:])
+    out.update(keypoints0=kp[:b], keypoints1=kp[b:], scores0=sc[:b], scores1=sc[b:])
+    return _pack(out) if compact_transport else out
+
+
+class FusedMatching:
+    """Pair matcher over uint8 gray images: detection, descriptors and the
+    matcher in one call per batch.
+
+    config keys mirror the JAX package's ``FusedMatching``. On CUDA the
+    defaults follow the JAX accelerator branch for what the port has: the
+    bf16 trunk, the Sinkhorn kernel, the bf16 CNN and, above 3072
+    keypoints, trunk compaction to half the budget rounded up to 1024. On
+    the CPU the JAX CPU defaults apply (f32 trunk, plain Sinkhorn, no
+    compaction). The approximate and band knobs default to their exact
+    builds; asked for explicitly they raise, as does any descriptor
+    source but ``dense_gray`` (the port's default) and ``devices=``.
+    `variables` / `car_variables` are flax variables trees of numpy arrays
+    (``matcher.convert.load_gims_checkpoint``,
+    ``carhynet.convert.load_car_checkpoint``); without them the networks
+    are randomly initialized from `seed`.
+    """
+
+    def __init__(self, config=None, variables=None, car_variables=None,
+                 seed: int = 0, total_keypoints: int = 12288, devices=None,
+                 device: Optional[str] = None):
+        self.device = resolve_device(device)
+        on_cuda = self.device.type == "cuda"
+        config = dict(config or {})
+        if devices is not None:
+            raise NotImplementedError(f"FusedMatching(devices=...) {TODO}")
+        for key, exact in (("topk_impl", "exact"), ("threshold_impl", "exact"),
+                           ("agc_impl", "dense"), ("cc_impl", "dense"),
+                           ("reconnect_impl", "exact"),
+                           ("descriptor_source", "dense_gray")):
+            if config.get(key, exact) != exact:
+                raise NotImplementedError(
+                    f"FusedMatching {key}={config[key]!r} {TODO} (only {exact!r})")
+        if variables is None and config.get("init_scheme", "default") != "default":
+            raise NotImplementedError(
+                f"init_scheme={config['init_scheme']!r} {TODO}")
+        self.mcfg = MatcherConfig(
+            sinkhorn_iterations=config.get("sinkhorn_iterations", 20),
+            match_threshold=config.get("match_threshold", 0.02),
+            attention_dtype=config.get(
+                "attention_dtype", "bfloat16" if on_cuda else "float32"),
+            attention_impl=config.get("attention_impl", "auto"),
+            use_pallas_sinkhorn=config.get("use_pallas_sinkhorn", on_cuda),
+        )
+        self.acfg = AGCConfig(
+            radius=float(config.get("radius", 15.0)),
+            percentile=float(config.get("percentile", 2.0)),
+            min_size=int(config.get("min_size", 7)),
+            reconnect_buckets=int(config.get("reconnect_buckets", 4096)),
+        )
+        self.fe = FrontendConfig(
+            descriptor_source="dense_gray",
+            dense_dtype=config.get("dense_dtype", "bfloat16"),
+            upsample=bool(config.get("upsample", True)),
+            dense_layers=tuple(config.get("dense_layers", (1, 2, 3))),
+            dense_first_map_oct=int(config.get("dense_first_map_oct", 0)),
+        )
+        self.total = total_keypoints
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = GMatcher(self.mcfg)
+            car_model = CARHyNet(dense=True, in_channels=1)
+        if variables is not None:
+            load_variables(model, variables)
+        if car_variables is not None:
+            load_car_variables(car_model, car_variables)
+        self.model = model.to(self.device).eval()
+        self.car_model = car_model.to(self.device, _DTYPES[self.fe.dense_dtype]).eval()
+        if on_cuda:
+            self.car_model = self.car_model.to(memory_format=torch.channels_last)
+        self.compact_transport = bool(config.get("compact_transport", True))
+        # trunk bucket after AGC kept-compaction (None = no compaction):
+        # AGC keeps about half the detection budget at the eval knobs
+        if "compact_to" in config:
+            self.compact_to = config["compact_to"]
+        elif on_cuda and total_keypoints > 3072:
+            self.compact_to = ((total_keypoints // 2 + 1023) // 1024) * 1024
+        else:
+            self.compact_to = None
+        self.timings = {}
+
+    def resolved_config(self) -> dict:
+        """The knob set this instance runs, every device default resolved."""
+        return {
+            "backend": self.device.type,
+            "matcher": dataclasses.asdict(self.mcfg),
+            "agc": dataclasses.asdict(self.acfg),
+            "frontend": dataclasses.asdict(self.fe),
+            "total_keypoints": self.total,
+            "compact_to": self.compact_to,
+            "compact_transport": self.compact_transport,
+            "descriptor_in_channels": self.car_model.in_channels,
+            "dense_model": True,
+        }
+
+    def _upload(self, imgs):
+        if torch.is_tensor(imgs):
+            return imgs.to(self.device)
+        if not hasattr(imgs, "shape"):
+            imgs = np.stack(imgs)
+        imgs = np.asarray(imgs)
+        if imgs.ndim != 3 or imgs.dtype != np.uint8:
+            raise ValueError("FusedMatching takes (B, H, W) uint8 gray images, "
+                             f"got {imgs.dtype} {imgs.shape}")
+        return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+
+    def dispatch(self, img0, img1):
+        """Upload one pair and queue its work; returns device outputs."""
+        return self.dispatch_batch([img0], [img1])
+
+    def dispatch_batch(self, imgs0, imgs1):
+        """Upload B same-shape pairs (sequences of (H, W) uint8 images, or
+        (B, H, W) stacks) and queue their work as one batch; returns the
+        device outputs (batch first)."""
+        imgs0, imgs1 = self._upload(imgs0), self._upload(imgs1)
+        h, w = int(imgs0.shape[1]), int(imgs0.shape[2])
+        budgets = octave_budgets(h, w, self.total, self.fe.upsample)
+        return fused_match_batch(
+            self.model, self.car_model, self.acfg, self.fe, budgets,
+            imgs0, imgs1, h, w, self.compact_transport, self.compact_to)
+
+    def __call__(self, img0, img1):
+        t0 = time.perf_counter()
+        host = self.collect(self.dispatch(img0, img1))
+        self.timings = {"total": time.perf_counter() - t0}
+        return host
+
+    def collect(self, out):
+        """One readout of a single pair, compacted to the reference's dict."""
+        return self.collect_batch(out)[0]
+
+    def collect_batch(self, out):
+        """One readout; returns a list of B per-pair dicts, each compacted
+        to the reference contract (leading batch dim of 1)."""
+        keys = ["kept0", "kept1", "matches0", "matches1",
+                "matching_scores0", "matching_scores1",
+                "keypoints0", "keypoints1", "scores0", "scores1"]
+        host = {k: out[k].cpu().numpy() for k in keys}
+        if host["keypoints0"].dtype == np.uint16:  # compact transport
+            for s in ("0", "1"):
+                host["keypoints" + s] = host["keypoints" + s].astype(np.float32) / 16.0
+                host["matching_scores" + s] = host["matching_scores" + s].astype(np.float32)
+                host["scores" + s] = host["scores" + s].astype(np.float32)
+
+        def remap(matches, new_other):
+            m = matches.astype(np.int64)
+            return np.where(m >= 0, new_other[np.clip(m, 0, None)], -1)
+
+        preds = []
+        for b in range(host["kept0"].shape[0]):
+            new0, old0 = compact_indices(host["kept0"][b])
+            new1, old1 = compact_indices(host["kept1"][b])
+            preds.append({
+                "keypoints0": host["keypoints0"][b][old0][None],
+                "keypoints1": host["keypoints1"][b][old1][None],
+                "scores0": host["scores0"][b][old0][None],
+                "scores1": host["scores1"][b][old1][None],
+                "matches0": remap(host["matches0"][b][old0], new1).astype(np.int32)[None],
+                "matches1": remap(host["matches1"][b][old1], new0).astype(np.int32)[None],
+                "matching_scores0": host["matching_scores0"][b][old0][None],
+                "matching_scores1": host["matching_scores1"][b][old1][None],
+            })
+        return preds

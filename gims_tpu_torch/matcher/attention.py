@@ -22,6 +22,7 @@ import torch
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
 KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel
+KERNEL_MAX_HEAD_DIM = 128  # the widest head the CUDA kernel takes
 FLASH_THRESHOLD = 4096
 FLASH_BLOCK = 1024
 
@@ -104,10 +105,12 @@ def masked_attention_tiled(q, k, v, key_mask, block_k=KERNEL_BLOCK_K,
 def masked_attention(q, k, v, key_mask, impl: str = "auto"):
     """Dispatch.
 
-    On a CUDA tensor "auto" and "pallas" launch the CUDA kernel at every
-    key count. "direct" and "flash" force the plain versions. On the CPU
-    "auto" takes direct up to FLASH_THRESHOLD keys and flash above, as the
-    JAX package does off the TPU. "ring" (multi-device) is not ported yet.
+    On a CUDA tensor "auto" and "pallas" launch the CUDA kernel, at every
+    key count and head width up to KERNEL_MAX_HEAD_DIM; the kernel's
+    wrapper raises at a wider head. "direct" and "flash" force the plain
+    versions. On the CPU "auto" takes
+    direct up to FLASH_THRESHOLD keys and flash above, as the JAX package
+    does off the TPU. "ring" (multi-device) is not ported yet.
     """
     if impl == "ring":
         raise NotImplementedError(

@@ -3,7 +3,8 @@
 Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
 (``csrc/attention.cu``) reads the (B, N, H, D) layout in place, so no
 transposed copies are made: bf16 on the tensor cores through TMA, f32 with
-scalar FMAs, both with f32 accumulation; the output has q's dtype. On a
+scalar FMAs, both with f32 accumulation; the output has q's dtype. Head
+widths up to 128 (in bf16 a multiple of 8, for TMA's 16-byte strides). On a
 CUDA tensor the wrapper launches the kernel or raises: q, k and v must have
 a unit D stride and 16-byte aligned bases and strides (what TMA reads), and
 are never copied to make them so. It takes the plain version
@@ -19,7 +20,7 @@ import torch
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import attention
 
-HEAD_DIM = 64  # the one head width the kernel is built for
+MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one or two column blocks of 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # calls of masked_attention_cuda that launched the kernel
@@ -53,8 +54,8 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (b, m, h, d) or tuple(v.shape) != (b, m, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head dim {d} unsupported (kernel is built for {HEAD_DIM})")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported (the kernel takes 1 to {MAX_HEAD_DIM})")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
                         "of float32, bfloat16")

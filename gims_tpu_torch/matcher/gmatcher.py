@@ -33,7 +33,10 @@ def normalize_keypoints(kpts, height: int, width: int, mode: str = "standard"):
         h_eff, w_eff = float(width), 3.0
     else:
         h_eff, w_eff = float(height), float(width)
-    size = torch.tensor([w_eff, h_eff], dtype=torch.float32, device=kpts.device)
+    # filled on the device: torch.tensor of host values would be a copy
+    # that waits for the stream
+    size = torch.empty(2, dtype=torch.float32, device=kpts.device)
+    size[0], size[1] = w_eff, h_eff
     center = size / 2.0
     scaling = torch.amax(size) * 0.7
     return (kpts - center) / scaling

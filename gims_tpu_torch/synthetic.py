@@ -1,10 +1,11 @@
-"""Synthetic keypoint requests with known ground truth, made with numpy.
+"""Synthetic requests and image pairs with known ground truth, made with numpy.
 
 A request of the staged ``Matching`` API (``api.py``) in which view 1 is a
 known homography of view 0. The descriptors are SIFT-like: 128
 non-negative values, L2-normed, then duplicated to 256 as the staged
-frontend does for SIFT (``gims_tpu/frontend/feature.py``). Nothing here
-needs an image library.
+frontend does for SIFT (``gims_tpu/frontend/feature.py``). And gray image
+pairs for ``FusedMatching`` in which view 1 is view 0 warped by a known
+homography (``synthetic_image_pair``). Nothing here needs an image library.
 """
 
 from __future__ import annotations
@@ -81,3 +82,76 @@ def correct_share(pred, H, px=3.0):
     err = np.linalg.norm(warp(H, pred["keypoints0"][0][i])
                          - pred["keypoints1"][0][m[i]], axis=1)
     return float(np.mean(err < px))
+
+
+# ---------------------------------------------------------------- image pairs
+
+
+def _resize_bilinear(img, h, w):
+    """(h0, w0) f32 -> (h, w), bilinear with half-pixel centres."""
+    h0, w0 = img.shape
+
+    def axis(n_out, n_in):
+        x = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0, n_in - 1)
+        i0 = np.floor(x).astype(np.int64)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        return i0, i1, (x - i0).astype(np.float32)
+
+    y0, y1, fy = axis(h, h0)
+    x0, x1, fx = axis(w, w0)
+    rows = img[y0] * (1 - fy)[:, None] + img[y1] * fy[:, None]
+    return rows[:, x0] * (1 - fx) + rows[:, x1] * fx
+
+
+def _gaussian_blur(img, sigma):
+    """Separable Gaussian blur, reflect-101 borders, radius 4 sigma."""
+    r = int(np.ceil(4 * sigma))
+    t = np.arange(-r, r + 1)
+    k = np.exp(-t**2 / (2 * sigma**2))
+    k = (k / k.sum()).astype(np.float32)
+    for axis in (0, 1):
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (r, r)
+        p = np.pad(img, pad, mode="reflect")
+        n = img.shape[axis]
+        img = sum(k[i] * np.take(p, np.arange(i, i + n), axis=axis)
+                  for i in range(2 * r + 1))
+    return img
+
+
+def warp_image(img, H):
+    """img (h, w) warped by the homography H (view-0 xy -> view-1 xy):
+    every output pixel samples the input bilinearly at H^-1 of its
+    coordinates; pixels that map outside the input are 0."""
+    h, w = img.shape
+    yy, xx = np.mgrid[0:h, 0:w]
+    src = warp(np.linalg.inv(H), np.stack([xx.ravel(), yy.ravel()], 1).astype(np.float64))
+    sx, sy = src[:, 0], src[:, 1]
+    inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+    x0 = np.clip(np.floor(sx).astype(np.int64), 0, w - 2)
+    y0 = np.clip(np.floor(sy).astype(np.int64), 0, h - 2)
+    fx, fy = sx - x0, sy - y0
+    val = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+           + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+    return np.where(inside, val, 0.0).reshape(h, w)
+
+
+def synthetic_image_pair(seed, frame=FRAME):
+    """Two (h, w) uint8 gray views with a known homography H, as the JAX
+    package's bench makes its pairs, with numpy only: a random texture of
+    a quarter of the resolution, upsampled, blurred (sigma 1.2), and a copy
+    rotated by up to 15 degrees and scaled by 0.85-1.1 about the centre.
+    Returns (img0, img1, H)."""
+    rng = np.random.RandomState(1000 + seed)
+    h, w = frame
+    low = rng.randint(0, 255, (h // 4, w // 4)).astype(np.float32)
+    img = _gaussian_blur(_resize_bilinear(low, h, w), 1.2)
+    ang = np.deg2rad(rng.uniform(-15, 15))
+    s = rng.uniform(0.85, 1.1)
+    c = np.array([[1, 0, -w / 2], [0, 1, -h / 2], [0, 0, 1]], np.float64)
+    a = np.array([[s * np.cos(ang), s * np.sin(ang), 0],
+                  [-s * np.sin(ang), s * np.cos(ang), 0], [0, 0, 1]])
+    H = np.linalg.inv(c) @ a @ c
+    img1 = warp_image(img, H)
+    as_u8 = lambda x: np.clip(np.rint(x), 0, 255).astype(np.uint8)  # noqa: E731
+    return as_u8(img), as_u8(img1), H

@@ -84,11 +84,12 @@ def test_build_graph_clusters_reconnect():
 
 def test_run_agc_batched_with_host_rank():
     """The pipeline's batched AGC over both sides of a pair, with the
-    host-side percentile rank, equals the JAX vmapped build."""
+    exact percentile rank (JAX's host rule, the port's on the device),
+    equals the JAX vmapped build."""
     sets = [make_set(s, 256, n) for s, n in ((3, 230), (4, 190))]
     kpts, descs, valid = (np.stack(x) for x in zip(*sets))
     ks = [jpipeline.percentile_rank(int(v.sum()), 2.0) for v in valid]
-    assert ks == [tpipeline.percentile_rank(int(v.sum()), 2.0) for v in valid]
+    assert ks == tpipeline.percentile_rank(torch.from_numpy(valid).sum(dim=1), 2.0).tolist()
     jadj, jkept, _ = jpipeline.run_agc(
         jnp.asarray(kpts), jnp.asarray(descs), jnp.asarray(valid),
         JAGCConfig(), jnp.asarray(ks, jnp.int32), radius=15.0, min_size=7)
@@ -122,9 +123,9 @@ def test_kth_smallest_exact():
     mask = rng.rand(40, 40) < 0.5
     for k in (0, 17, int(mask.sum()) - 1):
         want = np.sort(vals[mask])[k]
-        got = tgraph.kth_smallest_masked(torch.from_numpy(vals),
-                                         torch.from_numpy(mask), k)
-        assert float(got) == want
+        got = tgraph.kth_smallest_masked(torch.from_numpy(vals)[None],
+                                         torch.from_numpy(mask)[None], torch.tensor([k]))
+        assert float(got[0]) == want
         jgot = jgraph.kth_smallest_masked(jnp.asarray(vals), jnp.asarray(mask),
                                           jnp.int32(k), lo=-0.001, hi=1.001)
         assert float(jgot) == want
@@ -139,3 +140,59 @@ def test_unported_agc_impls_raise(knob):
         tpipeline.run_agc(torch.from_numpy(kpts)[None],
                           torch.from_numpy(descs)[None],
                           torch.from_numpy(valid)[None], AGCConfig(**knob))
+
+
+def test_kth_smallest_batched_matches_per_item():
+    """One sort per item with masked entries at +inf, read at each item's
+    k (clipped to its count), equals the per-item order statistic; an
+    empty mask gives 0."""
+    rng = np.random.RandomState(2)
+    vals = rng.randn(4, 30, 30).astype(np.float32)
+    mask = rng.rand(4, 30, 30) < 0.3
+    mask[2] = False
+    ks = np.array([0, 111, 5, 10 ** 6])
+    got = tgraph.kth_smallest_masked(torch.from_numpy(vals), torch.from_numpy(mask),
+                                     torch.from_numpy(ks))
+    for i in range(4):
+        sel = np.sort(vals[i][mask[i]])
+        want = 0.0 if sel.size == 0 else sel[min(ks[i], sel.size - 1)]
+        assert float(got[i]) == want
+
+
+def test_percentile_ranks_on_device_match_host_rules():
+    """The device ranks equal JAX's host rule ``percentile_rank`` (float64)
+    and JAX's in-graph f32 rule, also past 2**24 pairs where f32 rounds."""
+    counts = np.array([0, 1, 2, 3, 50, 460, 1800, 6144, 7000, 16384, 24576])
+    for pct in (2.0, 7.0, 0.5):
+        dev = tpipeline.percentile_rank(torch.from_numpy(counts), pct)
+        assert dev.tolist() == [jpipeline.percentile_rank(int(c), pct) for c in counts]
+        got = tgraph.percentile_k(torch.from_numpy(counts), pct)
+        for c, k in zip(counts, got.tolist()):
+            nv = jnp.int32(c)
+            count = (nv * (nv - 1)) // 2
+            want = jnp.floor(count.astype(jnp.float32) * jnp.float32(pct / 100.0)).astype(jnp.int32)
+            want = max(int(jnp.where(want >= count, count - 1, want)), 0)
+            assert k == want, (c, pct)
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 20])
+def test_connected_components_fixed_rounds_equal_early_exit(rounds):
+    """The port runs 1 + rounds rounds; JAX stops once a round changes no
+    label, within the same cap. A long path does not converge in the
+    smaller caps, a random graph converges early: equal labels either way."""
+    n = 200
+    path = np.zeros((n, n), bool)
+    i = np.arange(n - 1)
+    path[i, i + 1] = path[i + 1, i] = True
+    rng = np.random.RandomState(rounds)
+    rand = rng.rand(n, n) < 0.01
+    rand = rand | rand.T
+    np.fill_diagonal(rand, False)
+    valid = rng.rand(n) < 0.9
+    for adj in (path, rand):
+        adj = adj & valid[:, None] & valid[None, :]
+        want = np.asarray(jgraph.connected_components(
+            jnp.asarray(adj), jnp.asarray(valid), rounds))
+        got = tgraph.connected_components(torch.from_numpy(adj)[None],
+                                          torch.from_numpy(valid)[None], rounds)[0]
+        np.testing.assert_array_equal(got.numpy(), want)

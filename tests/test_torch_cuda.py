@@ -18,13 +18,22 @@ block (f32 sums in another order over the iterations), for both of its
 kernels: the fused one (rows up to 14340 columns) and the streaming one.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from gims_tpu_torch.carhynet.convert import load_car_checkpoint, load_variables
+from gims_tpu_torch.carhynet.model import CARHyNet
 from gims_tpu_torch.config import MatcherConfig
+from gims_tpu_torch.frontend.detect_device import gray_pyramid
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, sinkhorn
 from gims_tpu_torch.matcher.gmatcher import GMatcher
+from gims_tpu_torch.synthetic import synthetic_image_pair
+
+CAR_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "weights", "gims_tpu_dense_gray_e2e_car.npz")
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +112,9 @@ def test_attention_kernel_fully_masked_item(cuda, dtype):
     (24576, [22000], [21000], 3),
     # more batch items than the card has blocks: the streaming kernel
     (64, [60] * 140, [50] * 140, 50),
+    # the fused image path: 8 pairs, compacted to 3072, 20 iterations
+    (3072, [2900, 3072, 2500, 3000, 2800, 3072, 2700, 2950],
+     [2950, 3000, 2600, 3072, 2750, 3050, 2800, 2900], 20),
 ])
 def test_sinkhorn_kernel_vs_plain(cuda, nb, ms, ns, iters):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -126,10 +138,10 @@ def test_sinkhorn_kernel_vs_plain(cuda, nb, ms, ns, iters):
 
 
 def test_wrappers_refuse_what_they_do_not_take(cuda):
-    q = torch.randn((1, 8, 4, 32), device=cuda)
+    q = torch.randn((1, 8, 4, 160), device=cuda)
     mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
-        cuda_attention.masked_attention_cuda(q, q, q, mask)  # head dim 32
+        cuda_attention.masked_attention_cuda(q, q, q, mask)  # head dim 160 > 128
     z = torch.randn((1, 9, 9), device=cuda)
     with pytest.raises(TypeError):
         cuda_sinkhorn.sinkhorn_uv_cuda(z.double(), z[:, :, 0].double(), z[:, 0].double(), 3)
@@ -157,3 +169,69 @@ def test_gmatcher_kernels_vs_plain(cuda):
             outs.append(model(kpts, desc, adj, kept, kpts, desc, adj, kept)["Z"])
     valid = outs[1] > -1e8
     assert (outs[0][valid] - outs[1][valid]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_attention_auto_by_head_width(cuda, d):
+    """On the card "auto" launches the kernel at every head width up to 128
+    (one or two column blocks of 64; 32 reads zeros past its end), in f32
+    and bf16; the wrapper raises at a wider head. f32 against the direct
+    version, 1e-4. bf16 against the tiled version: every element within the
+    output's rounding rule plus one bf16 ulp of every rounded P (2**-7 times
+    the attention of |v|: where a p lies at a rounding boundary the kernel
+    and the tiled version, whose f32 p differ in the last bits, round it
+    apart), and at least 99.9% of the elements within the rounding rule
+    alone, as tests/test_torch_attention.py holds the tiled version to the
+    TPU kernel; by RMS against the direct version as above."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, x, 4, d), generator=g, device=cuda) for x in (300, 517, 517))
+    mask = torch.rand((2, 517), generator=g, device=cuda) < 0.8
+    direct = attention.masked_attention_direct(q, k, v, mask)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        before = cuda_attention.launches
+        out = attention.masked_attention(qd, kd, vd, mask, impl="auto")
+        torch.cuda.synchronize()
+        assert cuda_attention.launches == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        if dtype == torch.float32:
+            assert (out - direct).abs().max().item() <= 1e-4
+        else:
+            want = attention.masked_attention_tiled(qd, kd, vd, mask, out_dtype=torch.float32)
+            p_abs_v = attention.masked_attention_tiled(qd, kd, vd.abs(), mask,
+                                                       out_dtype=torch.float32)
+            diff = (out.float() - want).abs()
+            tight = 1e-4 + 2.0 ** -8 * want.abs()
+            assert (diff <= tight + 2.0 ** -7 * p_abs_v).all()
+            assert (diff <= tight).float().mean().item() >= 0.999
+            bf_direct = attention.masked_attention_direct(qd.float(), kd.float(), vd.float(), mask)
+            err = out.float() - bf_direct
+            assert err.pow(2).mean().sqrt() <= 2.0 ** -8 * bf_direct.pow(2).mean().sqrt()
+    wide = torch.randn((2, 300, 4, 160), generator=g, device=cuda)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match="head dim"):
+            attention.masked_attention(wide, wide, wide, torch.ones_like(mask[:, :300]),
+                                       impl=impl)
+
+
+def test_dense_cnn_bf16_vs_f32(cuda):
+    """The gray CAR-HyNet's dense maps over an 800x600 pyramid's octave 0
+    (layers 1-3), bf16 against f32, on the card: mean cosine of the
+    descriptors >= 0.995 (the JAX package's bound for its bf16 CNN), so the
+    RMS of the difference of the unit descriptors <= 0.1, and the worst
+    descriptor's cosine >= 0.97."""
+    img, _, _ = synthetic_image_pair(0)
+    octs = gray_pyramid(torch.from_numpy(img)[None].to(cuda), upsample=False)
+    levels = octs[0][0, 1:4, None] / 255.0                   # (3, 1, 600, 800)
+    maps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = CARHyNet(dense=True, in_channels=1)
+        load_variables(model, load_car_checkpoint(CAR_WEIGHTS))
+        model = model.to(cuda, dtype).eval()
+        with torch.no_grad():
+            maps[dtype] = model(levels.to(dtype)).reshape(-1, 128)
+    cos = (maps[torch.float32] * maps[torch.bfloat16]).sum(dim=1)
+    rms = (maps[torch.float32] - maps[torch.bfloat16]).pow(2).sum(dim=1).mean().sqrt()
+    assert maps[torch.bfloat16].dtype == torch.float32
+    assert cos.mean().item() >= 0.995 and rms.item() <= 0.1
+    assert cos.min().item() >= 0.97

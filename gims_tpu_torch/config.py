@@ -29,16 +29,17 @@ class AGCConfig:
     # cap on connected-component label-propagation rounds
     cc_rounds: int = 20
     # "exact" = k-th order statistic of all valid upper-triangle
-    # similarities; "approx" (strided rows) is not ported yet
+    # similarities; "approx" = of every threshold_stride-th row
     threshold_impl: str = "exact"
     threshold_stride: int = 4
-    # "dense" min-label propagation; "sparse" is not ported yet
+    # "dense" min-label propagation over (N, N); "sparse" over a
+    # cc_degree neighbour list; "band" over the band build's band
     cc_impl: str = "dense"
     cc_degree: int = 32
-    # "exact" closest-pair reconnect; "centroid" is not ported yet
+    # "exact" closest-pair reconnect; "centroid" through the centroids
     reconnect_impl: str = "exact"
     reconnect_buckets: int = 4096
-    # "dense" (N, N) build; "band" is not ported yet
+    # "dense" (N, N) build; "band" x-sorted band of band_halfwidth
     agc_impl: str = "dense"
     band_halfwidth: int = 512
 

@@ -1,7 +1,7 @@
 """DoG keypoint candidates on the device, for batches of gray images.
 
 Port of the parts of ``gims_tpu/frontend/detect_device.py`` that the fused
-dense_gray path runs (no orientations):
+dense_gray and devsift paths run:
 
   1. gray base (BGR2GRAY weights, or an already-gray image), optional 2x
      bilinear upsample (OpenCV firstOctave = -1), initial blur to sigma 1.6;
@@ -9,7 +9,9 @@ dense_gray path runs (no orientations):
      2x-subsampled layer 3 of the one before;
   3. DoG; 26-neighbour extrema by 3x3 max/min pooling over scale triplets;
   4. one dense Newton step of the 3x3x3 quadratic fit per pixel with
-     OpenCV's contrast and edge tests.
+     OpenCV's contrast and edge tests;
+  5. for devsift, an orientation per pixel of detection layers 1..3 from
+     Gaussian-smoothed central gradients (``_orientation_maps``).
 
 The blurs are separable f32 convolutions with REFLECT_101 borders
 (``pyramid.sep_blur``, TF32 off). The JAX package runs them as banded
@@ -79,11 +81,12 @@ def _pool3(x: torch.Tensor, op: str) -> torch.Tensor:
 
 
 def _octave_candidates(gauss: torch.Tensor, contrast_threshold: float,
-                       edge_threshold: float):
+                       edge_threshold: float, ori=None):
     """Dense per-pixel extrema fit for one octave of a batch.
 
     gauss (B, 6, H, W). Returns a dict of (B, 3, H, W) maps: score
-    (|contrast|, -1 where rejected), offx, offy, offs. Derivatives wrap
+    (|contrast|, -1 where rejected), offx, offy, offs, and "angle" = `ori`
+    where the caller passes orientation maps. Derivatives wrap
     around the image edges (``torch.roll``, as ``jnp.roll``); the
     IMG_BORDER mask rejects every pixel the wrap reaches."""
     dog = gauss[:, 1:] - gauss[:, :-1]            # (B, 5, H, W)
@@ -139,12 +142,39 @@ def _octave_candidates(gauss: torch.Tensor, contrast_threshold: float,
 
     ok = is_ext & converged & contrast_ok & edge_ok & inside
     score = torch.where(ok, contr.abs(), -1.0)
-    return {"score": score, "offx": offx, "offy": offy, "offs": offs}
+    out = {"score": score, "offx": offx, "offy": offy, "offs": offs}
+    if ori is not None:
+        out["angle"] = ori
+    return out
+
+
+def _orientation_maps(gauss: torch.Tensor) -> torch.Tensor:
+    """(B, 6, H, W) octave -> (B, 3, H, W) angle per pixel of detection
+    layers 1..3, in degrees.
+
+    The mean gradient smoothed by a Gaussian of sigma 1.5 * 1.6 * 2^(l/3)
+    (OpenCV's SIFT_ORI_SIG_FCTR times the layer's scale), with cv2's angle
+    convention: 360 - atan2(-gy, gx), y up. Central differences wrap at the
+    image edge (``torch.roll``, as ``jnp.roll``); the smoothing folds
+    REFLECT_101 (``pyramid.sep_blur``), the function of the JAX package's
+    band matrices. ``%`` is ``torch.remainder`` (jnp's sign rule)."""
+    angles = []
+    for layer in range(1, N_OCTAVE_LAYERS + 1):
+        g = gauss[:, layer]
+        gx = (torch.roll(g, -1, dims=-1) - torch.roll(g, 1, dims=-1)) * 0.5
+        gy = (torch.roll(g, -1, dims=-2) - torch.roll(g, 1, dims=-2)) * 0.5
+        kern = gaussian_kernel_1d(1.5 * SIGMA * 2.0 ** (layer / N_OCTAVE_LAYERS))
+        ori = torch.rad2deg(torch.atan2(-sep_blur(gy, kern), sep_blur(gx, kern)))
+        angles.append(torch.remainder(360.0 - torch.remainder(ori, 360.0), 360.0))
+    return torch.stack(angles, dim=1)
 
 
 def top_k_stable(score: torch.Tensor, k: int):
     """Top k of each row of (B, N), ties by lower index first, as
     ``jax.lax.top_k``: a stable descending sort, so the order of equal
-    scores never depends on the device's selection algorithm."""
+    scores never depends on the device's selection algorithm. It also
+    serves ``topk_impl="approx"``: ``jax.lax.approx_max_k`` has no PyTorch
+    counterpart (XLA lowers it to an exact top-k off the TPU), so the port
+    selects exactly and claims no recall figure for it."""
     vals, idx = torch.sort(score, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]

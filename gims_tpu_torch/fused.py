@@ -1,21 +1,26 @@
 """Fused pair matching: uint8 gray image pairs in, matches out.
 
-Port of the dense_gray path of ``gims_tpu/fused.py``, the path the JAX
-package's bench runs. A batch of pairs goes through each stage as one
-batch:
+Port of the dense_gray and devsift paths of ``gims_tpu/fused.py``, the two
+configurations the JAX package's bench runs. A batch of pairs goes through
+each stage as one batch:
 
   gray pyramid -> dense DoG candidates (frontend/detect_device.py)
   -> per-octave top-k keypoint budgets (static shapes, masks for validity)
-  -> the gray CAR-HyNet over pyramid layers 1..3 of each octave, fully
-     convolutionally, and bilinear descriptor sampling at the keypoints
-  -> AGC -> trunk compaction to the kept keypoints -> GMatcher (K1 once
-     per GNN layer) -> Sinkhorn (K2) -> mutual-max extraction.
+  -> descriptors, by `descriptor_source`:
+     "dense_gray": the gray CAR-HyNet over pyramid layers 1..3 of each
+       octave, fully convolutionally, and bilinear sampling at the
+       keypoints;
+     "devsift": orientation maps, then SIFT descriptors from the
+       pyramid's gradients (frontend/sift_descriptor.py), no CNN;
+  -> AGC (dense or band build) -> trunk compaction to the kept keypoints
+  -> GMatcher (K1 once per GNN layer) -> Sinkhorn (K2) -> mutual-max
+  extraction.
 
 Per-octave budgets replace a global response sort: octave o gets a fixed
 share of the keypoint budget, its candidates are picked by within-octave
 top-k, and downstream masks treat the concatenation as any padded keypoint
-set. The patch-warp, colour-dense and device-SIFT descriptor sources, the
-approximate top-k and the multi-device split are not ported yet and raise.
+set. The patch-warp and colour-dense descriptor sources and the
+multi-device split are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -30,15 +35,23 @@ from torch.profiler import record_function
 
 from gims_tpu_torch.carhynet.convert import load_variables as load_car_variables
 from gims_tpu_torch.carhynet.model import CARHyNet
+from gims_tpu_torch.agc.graph import check_impls
 from gims_tpu_torch.config import AGCConfig, FrontendConfig, MatcherConfig
 from gims_tpu_torch.core.bucketing import compact_indices
 from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.frontend.detect_device import (
     _octave_candidates,
+    _orientation_maps,
     gray_pyramid,
     top_k_stable,
 )
-from gims_tpu_torch.frontend.pyramid import num_octaves
+from gims_tpu_torch.frontend.pyramid import N_OCTAVE_LAYERS, SIGMA, num_octaves
+from gims_tpu_torch.frontend.sift_descriptor import (
+    DESC_CHUNK,
+    _descr_chunk,
+    grad_levels,
+    quad_blocks_from_levels,
+)
 from gims_tpu_torch.matcher import pipeline
 from gims_tpu_torch.matcher.convert import load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
@@ -99,46 +112,89 @@ def _dense_sample(maps, px, py, layer, valid,
     return acc / norm
 
 
-def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: CARHyNet):
+def _devsift_describe(octs, o, fe: FrontendConfig, tables, px, py, layer, offs, angle,
+                      valid):
+    """SIFT descriptors of octave o's keypoints (B, K) -> (B, K, 128), unit
+    norm. With `dense_first_map_oct` >= 1 and the upsampled base, octave 0's
+    keypoints describe from octave 1's gradients at halved coordinates and
+    support (the upsampled octave holds no image content octave 1 lacks).
+    The gradient table is bf16 (0..255 images lose ~0.4% relative, under
+    the descriptor's integer rounding) and built once per octave into
+    `tables`. Keypoints go in chunks of DESC_CHUNK."""
+    share = fe.upsample and o == 0 and fe.dense_first_map_oct >= 1 and len(octs) > 1
+    src = 1 if share else o
+    f_sh = 0.5 if share else 1.0
+    if src not in tables:
+        tables[src] = quad_blocks_from_levels(grad_levels(octs[src]).to(torch.bfloat16))
+    gq = tables[src]
+    lvh, lvw = octs[src].shape[-2:]
+    size_oct = SIGMA * 2.0 ** ((layer.float() + offs) / N_OCTAVE_LAYERS) * 2.0
+    cols = [(layer - 1).int(), px * f_sh, py * f_sh, size_oct * 0.5 * f_sh, angle,
+            valid.float()]
+    k = px.shape[1]
+    pad = -k % DESC_CHUNK
+    if pad:
+        fills = (0, 0.0, 0.0, 1.0, 0.0, 0.0)
+        cols = [torch.cat([c, c.new_full((c.shape[0], pad), f)], dim=1)
+                for c, f in zip(cols, fills)]
+    chunks = [_descr_chunk(gq, lvh, lvw, *(c[:, i:i + DESC_CHUNK] for c in cols),
+                           s=fe.sift_samples)
+              for i in range(0, k + pad, DESC_CHUNK)]
+    raw = torch.cat(chunks, dim=1)[:, :k]
+    # unit-norm 128-d, what the SIFT-trained matcher weights consume
+    return raw / torch.sqrt(torch.sum(raw * raw, dim=-1, keepdim=True) + 1e-10)
+
+
+def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: Optional[CARHyNet]):
     """(B, H, W) uint8 gray images -> keypoints (B, T, 2) in input pixels
     (1e6 where invalid), scores (B, T), valid (B, T), descriptors (B, T, 256),
     T = sum(budgets).
 
-    The gray CAR-HyNet runs over the detection pyramid's layers
+    dense_gray: the gray CAR-HyNet runs over the detection pyramid's layers
     `fe.dense_layers` of every octave from `first_map_oct` on while the
     octave is at least 16 px on its short side; an octave without maps
     samples the nearest one that has them at scaled coordinates. With the
-    2x-upsampled base, octave 0 gets no maps of its own."""
-    ddt = _DTYPES[fe.dense_dtype]
+    2x-upsampled base, octave 0 gets no maps of its own. devsift
+    (`car_model` None): orientation maps per octave and SIFT descriptors
+    from the pyramid's gradients."""
+    devsift = fe.descriptor_source == "devsift"
     with record_function("gims.frontend.pyramid"):
         octs = gray_pyramid(images_u8, fe.upsample)
-    if fe.upsample:
-        first_map_oct = 1 if len(octs) > 1 else 0
-    else:
-        first_map_oct = min(fe.dense_first_map_oct, len(octs) - 1)
     b = images_u8.shape[0]
-    layers = list(fe.dense_layers)
     maps = {}
-    with record_function("gims.frontend.cnn"):
-        for o in range(first_map_oct, len(octs)):
-            ho, wo = octs[o].shape[-2:]
-            if min(ho, wo) < 16:
-                break
-            levels = octs[o][:, layers].reshape(b * len(layers), 1, ho, wo)
-            x = levels.to(ddt) / 255.0
-            if x.is_cuda:
-                x = x.contiguous(memory_format=torch.channels_last)
-            m = car_model(x)                                 # (B*L, mh, mw, D)
-            maps[o] = m.reshape((b, len(layers)) + m.shape[1:])
+    if not devsift:
+        ddt = _DTYPES[fe.dense_dtype]
+        if fe.upsample:
+            first_map_oct = 1 if len(octs) > 1 else 0
+        else:
+            first_map_oct = min(fe.dense_first_map_oct, len(octs) - 1)
+        layers = list(fe.dense_layers)
+        with record_function("gims.frontend.cnn"):
+            for o in range(first_map_oct, len(octs)):
+                ho, wo = octs[o].shape[-2:]
+                if min(ho, wo) < 16:
+                    break
+                levels = octs[o][:, layers].reshape(b * len(layers), 1, ho, wo)
+                x = levels.to(ddt) / 255.0
+                if x.is_cuda:
+                    x = x.contiguous(memory_format=torch.channels_last)
+                m = car_model(x)                                 # (B*L, mh, mw, D)
+                maps[o] = m.reshape((b, len(layers)) + m.shape[1:])
 
+    tables = {}
     kp_list, sc_list, va_list, de_list = [], [], [], []
     for o, gauss in enumerate(octs):
         k_o = budgets[o]
+        if devsift:
+            with record_function("gims.frontend.orientation"):
+                ori = _orientation_maps(gauss)
         with record_function("gims.frontend.detect"):
-            cand = _octave_candidates(gauss, fe.contrast_threshold, fe.edge_threshold)
+            cand = _octave_candidates(gauss, fe.contrast_threshold, fe.edge_threshold,
+                                      ori if devsift else None)
             _, _, hh, wh = cand["score"].shape
             score = cand["score"].reshape(b, -1)
             k_sel = min(k_o, score.shape[1])
+            # topk_impl "approx" selects exactly too (top_k_stable)
             top_v, top_i = top_k_stable(score, k_sel)
             li = top_i // (hh * wh)
             rem = top_i % (hh * wh)
@@ -152,21 +208,26 @@ def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: CARHyNet):
             px = xi.float() + g("offx")                   # octave coordinates
             py = yi.float() + g("offy")
             valid = top_v > 0
-        with record_function("gims.frontend.sample"):
-            src = min(max(o, min(maps)), max(maps))
-            f = 2.0 ** (o - src)  # octave-o coordinates -> octave-src coordinates
-            desc = _dense_sample(maps[src], px * f, py * f, layer, valid.float(),
-                                 fe.dense_layers)
-            scale_mult = float(2 ** (o - 1)) if fe.upsample else float(2 ** o)
-            kp = torch.stack([px * scale_mult, py * scale_mult], dim=-1)
-            kp = torch.where(valid[..., None], kp, 1e6)
-            sc = torch.where(valid, top_v, 0.0)
-            if k_sel < k_o:
-                pad = k_o - k_sel
-                kp = torch.cat([kp, kp.new_full((b, pad, 2), 1e6)], dim=1)
-                sc = torch.cat([sc, sc.new_zeros((b, pad))], dim=1)
-                valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
-                desc = torch.cat([desc, desc.new_zeros((b, pad, desc.shape[-1]))], dim=1)
+        if devsift:
+            with record_function("gims.frontend.describe"):
+                desc = _devsift_describe(octs, o, fe, tables, px, py, layer, g("offs"),
+                                         g("angle"), valid)
+        else:
+            with record_function("gims.frontend.sample"):
+                src = min(max(o, min(maps)), max(maps))
+                f = 2.0 ** (o - src)  # octave-o coordinates -> octave-src coordinates
+                desc = _dense_sample(maps[src], px * f, py * f, layer, valid.float(),
+                                     fe.dense_layers)
+        scale_mult = float(2 ** (o - 1)) if fe.upsample else float(2 ** o)
+        kp = torch.stack([px * scale_mult, py * scale_mult], dim=-1)
+        kp = torch.where(valid[..., None], kp, 1e6)
+        sc = torch.where(valid, top_v, 0.0)
+        if k_sel < k_o:
+            pad = k_o - k_sel
+            kp = torch.cat([kp, kp.new_full((b, pad, 2), 1e6)], dim=1)
+            sc = torch.cat([sc, sc.new_zeros((b, pad))], dim=1)
+            valid = torch.cat([valid, valid.new_zeros((b, pad))], dim=1)
+            desc = torch.cat([desc, desc.new_zeros((b, pad, desc.shape[-1]))], dim=1)
         kp_list.append(kp)
         sc_list.append(sc)
         va_list.append(valid)
@@ -192,7 +253,7 @@ def _pack(out):
 
 
 @torch.no_grad()
-def fused_match_batch(model: GMatcher, car_model: CARHyNet, acfg: AGCConfig,
+def fused_match_batch(model: GMatcher, car_model: Optional[CARHyNet], acfg: AGCConfig,
                       fe: FrontendConfig, budgets, imgs0_u8, imgs1_u8,
                       h: int, w: int, compact_transport: bool = False,
                       compact_to: Optional[int] = None):
@@ -215,13 +276,17 @@ class FusedMatching:
     matcher in one call per batch.
 
     config keys mirror the JAX package's ``FusedMatching``. On CUDA the
-    defaults follow the JAX accelerator branch for what the port has: the
-    bf16 trunk, the Sinkhorn kernel, the bf16 CNN and, above 3072
+    defaults follow the JAX accelerator branch (``gims_tpu/fused.py``): the
+    bf16 trunk, the Sinkhorn kernel, the bf16 CNN, the band AGC build
+    (half-width 512) with the strided threshold (stride 4) and the centroid
+    reconnect (1024 buckets), ``topk_impl="approx"`` (an exact stable
+    selection here, see ``detect_device.top_k_stable``) and, above 3072
     keypoints, trunk compaction to half the budget rounded up to 1024. On
-    the CPU the JAX CPU defaults apply (f32 trunk, plain Sinkhorn, no
-    compaction). The approximate and band knobs default to their exact
-    builds; asked for explicitly they raise, as does any descriptor
-    source but ``dense_gray`` (the port's default) and ``devices=``.
+    the CPU the JAX CPU defaults apply (f32 trunk, plain Sinkhorn, the
+    dense exact AGC, no compaction). Every knob can be set in `config`.
+    `descriptor_source` is "dense_gray" (the port's default) or "devsift"
+    (no CNN; `car_variables` unused); "carhynet", "dense", ``devices=`` and
+    a weightless ``init_scheme`` other than "default" raise.
     `variables` / `car_variables` are flax variables trees of numpy arrays
     (``matcher.convert.load_gims_checkpoint``,
     ``carhynet.convert.load_car_checkpoint``); without them the networks
@@ -236,13 +301,11 @@ class FusedMatching:
         config = dict(config or {})
         if devices is not None:
             raise NotImplementedError(f"FusedMatching(devices=...) {TODO}")
-        for key, exact in (("topk_impl", "exact"), ("threshold_impl", "exact"),
-                           ("agc_impl", "dense"), ("cc_impl", "dense"),
-                           ("reconnect_impl", "exact"),
-                           ("descriptor_source", "dense_gray")):
-            if config.get(key, exact) != exact:
-                raise NotImplementedError(
-                    f"FusedMatching {key}={config[key]!r} {TODO} (only {exact!r})")
+        source = config.get("descriptor_source", "dense_gray")
+        if source not in ("dense_gray", "devsift"):
+            raise NotImplementedError(
+                f"FusedMatching descriptor_source={source!r} {TODO} "
+                "(only 'dense_gray' and 'devsift')")
         if variables is None and config.get("init_scheme", "default") != "default":
             raise NotImplementedError(
                 f"init_scheme={config['init_scheme']!r} {TODO}")
@@ -258,28 +321,45 @@ class FusedMatching:
             radius=float(config.get("radius", 15.0)),
             percentile=float(config.get("percentile", 2.0)),
             min_size=int(config.get("min_size", 7)),
-            reconnect_buckets=int(config.get("reconnect_buckets", 4096)),
+            threshold_impl=config.get("threshold_impl", "approx" if on_cuda else "exact"),
+            threshold_stride=int(config.get("threshold_stride", 4)),
+            cc_impl=config.get("cc_impl", "dense"),
+            cc_degree=int(config.get("cc_degree", 32)),
+            reconnect_impl=config.get("reconnect_impl", "centroid" if on_cuda else "exact"),
+            reconnect_buckets=int(config.get("reconnect_buckets", 1024 if on_cuda else 4096)),
+            agc_impl=config.get("agc_impl", "band" if on_cuda else "dense"),
+            band_halfwidth=int(config.get("band_halfwidth", 512)),
         )
+        check_impls(agc_impl=self.acfg.agc_impl, threshold_impl=self.acfg.threshold_impl,
+                    cc_impl=self.acfg.cc_impl, reconnect_impl=self.acfg.reconnect_impl)
+        topk = config.get("topk_impl", "approx" if on_cuda else "exact")
+        if topk not in ("exact", "approx"):
+            raise ValueError(f"topk_impl={topk!r}: 'exact' or 'approx'")
         self.fe = FrontendConfig(
-            descriptor_source="dense_gray",
+            descriptor_source=source,
             dense_dtype=config.get("dense_dtype", "bfloat16"),
+            topk_impl=topk,
             upsample=bool(config.get("upsample", True)),
             dense_layers=tuple(config.get("dense_layers", (1, 2, 3))),
             dense_first_map_oct=int(config.get("dense_first_map_oct", 0)),
+            sift_samples=int(config.get("sift_samples", 16)),
         )
         self.total = total_keypoints
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = GMatcher(self.mcfg)
-            car_model = CARHyNet(dense=True, in_channels=1)
+            car_model = CARHyNet(dense=True, in_channels=1) if source == "dense_gray" else None
         if variables is not None:
             load_variables(model, variables)
-        if car_variables is not None:
-            load_car_variables(car_model, car_variables)
         self.model = model.to(self.device).eval()
-        self.car_model = car_model.to(self.device, _DTYPES[self.fe.dense_dtype]).eval()
-        if on_cuda:
-            self.car_model = self.car_model.to(memory_format=torch.channels_last)
+        # devsift describes from the pyramid's gradients: no CNN
+        self.car_model = None
+        if car_model is not None:
+            if car_variables is not None:
+                load_car_variables(car_model, car_variables)
+            self.car_model = car_model.to(self.device, _DTYPES[self.fe.dense_dtype]).eval()
+            if on_cuda:
+                self.car_model = self.car_model.to(memory_format=torch.channels_last)
         self.compact_transport = bool(config.get("compact_transport", True))
         # trunk bucket after AGC kept-compaction (None = no compaction):
         # AGC keeps about half the detection budget at the eval knobs
@@ -301,8 +381,9 @@ class FusedMatching:
             "total_keypoints": self.total,
             "compact_to": self.compact_to,
             "compact_transport": self.compact_transport,
-            "descriptor_in_channels": self.car_model.in_channels,
-            "dense_model": True,
+            "descriptor_in_channels": (self.car_model.in_channels
+                                       if self.car_model is not None else None),
+            "dense_model": self.car_model is not None,
         }
 
     def _upload(self, imgs):

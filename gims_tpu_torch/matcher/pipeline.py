@@ -2,8 +2,9 @@
 
 Port of ``gims_tpu/matcher/pipeline.py`` (reference: models/gmatcher.py:
 219-307), inference only, with the trunk compaction of the fused path
-(``compact_to``). The keypoint-axis sharding, deferred-unpermute and
-precomputed-adjacency (Delaunay) options are not ported yet and raise.
+(``compact_to``) and the band build's deferred un-permutation. The
+keypoint-axis sharding and precomputed-adjacency (Delaunay) options are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 from torch.profiler import record_function
 
-from gims_tpu_torch.agc.graph import _check_impls, build_graph
+from gims_tpu_torch.agc.graph import build_graph, build_graph_band, check_impls
 from gims_tpu_torch.config import AGCConfig
 from gims_tpu_torch.matcher import sinkhorn
 from gims_tpu_torch.matcher.gmatcher import GMatcher, normalize_keypoints
@@ -21,20 +22,32 @@ from gims_tpu_torch.matcher.gmatcher import GMatcher, normalize_keypoints
 
 def run_agc(kpts, descs, valid, acfg: AGCConfig, k=None,
             radius=None, min_size=None, defer_unpermute=False):
-    """Batched dense AGC. kpts (B,N,2), descs (B,N,D), valid (B,N); `k` the
-    optional per-item percentile rank (B,). Returns (adj, kept, None)."""
-    _check_impls(acfg.threshold_impl, acfg.cc_impl, acfg.reconnect_impl,
-                 acfg.agc_impl)
-    if defer_unpermute:
-        raise NotImplementedError("defer_unpermute belongs to the band AGC "
-                                  "build, not ported yet; see ROADMAP.md")
+    """Batched AGC. kpts (B,N,2), descs (B,N,D), valid (B,N); `k` the
+    optional per-item exact percentile rank (B,), which the band build and
+    the approximate threshold do not use. Returns (adj, kept, inv): inv is
+    None except in band defer_unpermute mode, where adj stays in sorted-x
+    space and adj_caller[b, i, j] == adj[b, inv[b, i], inv[b, j]]."""
+    check_impls(agc_impl=acfg.agc_impl, threshold_impl=acfg.threshold_impl,
+                cc_impl=acfg.cc_impl, reconnect_impl=acfg.reconnect_impl)
+    radius = acfg.radius if radius is None else radius
+    min_size = acfg.min_size if min_size is None else min_size
+    if acfg.agc_impl == "band":
+        out = build_graph_band(
+            kpts, descs, valid, radius=radius, percentile=acfg.percentile,
+            min_size=min_size, cc_rounds=acfg.cc_rounds,
+            threshold_stride=acfg.threshold_stride,
+            band_halfwidth=acfg.band_halfwidth,
+            reconnect_impl=acfg.reconnect_impl,
+            reconnect_buckets=acfg.reconnect_buckets,
+            defer_unpermute=defer_unpermute,
+            cc_impl="band" if acfg.cc_impl == "band" else "dense")
+        return out.adj, out.kept, out.inv
     out = build_graph(
-        kpts, descs, valid,
-        radius=acfg.radius if radius is None else radius,
-        percentile=acfg.percentile,
-        min_size=acfg.min_size if min_size is None else min_size,
-        cc_rounds=acfg.cc_rounds, k=k,
-        threshold_impl=acfg.threshold_impl, cc_impl=acfg.cc_impl,
+        kpts, descs, valid, radius=radius, percentile=acfg.percentile,
+        min_size=min_size, cc_rounds=acfg.cc_rounds, k=k,
+        threshold_impl=acfg.threshold_impl,
+        threshold_stride=acfg.threshold_stride,
+        cc_impl=acfg.cc_impl, cc_degree=acfg.cc_degree,
         reconnect_impl=acfg.reconnect_impl,
         reconnect_buckets=acfg.reconnect_buckets,
     )
@@ -53,7 +66,7 @@ def percentile_rank(num_valid: torch.Tensor, percentile: float) -> torch.Tensor:
     return torch.where(count <= 0, 0, k)
 
 
-def _compact_side(kpts, desc, adj, kept, scores, nc: int):
+def _compact_side(kpts, desc, adj, kept, scores, nc: int, inv=None):
     """Gather the kept keypoints of one side into a static (B, nc) bucket.
 
     AGC keeps about half the detection budget at the eval knobs, so the
@@ -61,7 +74,11 @@ def _compact_side(kpts, desc, adj, kept, scores, nc: int):
     a bucket sized for the kept set. Order: kept keypoints first, by
     detection score descending, ties by index (a stable sort); overflow
     beyond nc drops the lowest-score kept keypoints. Returns
-    (idx (B, nc), kpts_c, desc_c, adj_c, kept_c)."""
+    (idx (B, nc), kpts_c, desc_c, adj_c, kept_c).
+
+    inv (band defer_unpermute): adj is in sorted-x space with
+    adj_caller[i, j] == adj[inv[i], inv[j]]; composing inv into the gather
+    gives the same adj_c without the caller-order (N, N) matrix."""
     b, n = kept.shape
     sc = torch.zeros(kept.shape, dtype=torch.float32, device=kept.device) \
         if scores is None else scores
@@ -73,7 +90,9 @@ def _compact_side(kpts, desc, adj, kept, scores, nc: int):
     def rows(x):
         return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
-    adj_c = torch.gather(rows(adj), 2, idx[:, None, :].expand(-1, idx.shape[1], -1))
+    ci = idx if inv is None else torch.gather(inv, 1, idx)
+    adj_rows = torch.gather(adj, 1, ci[..., None].expand(-1, -1, adj.shape[-1]))
+    adj_c = torch.gather(adj_rows, 2, ci[:, None, :].expand(-1, ci.shape[1], -1))
     return idx, rows(kpts), rows(desc), adj_c, kept_c
 
 
@@ -133,6 +152,13 @@ def forward_match(
         raise NotImplementedError("shard_axis (keypoint-axis sharding) is not "
                                   "ported yet; see ROADMAP.md")
     mcfg = model.config
+    nb0, nb1 = kpts0.shape[1], kpts1.shape[1]
+    compact = compact_to is not None and compact_to < max(nb0, nb1)
+    # band + compaction: the adjacency stays in sorted-x space and its
+    # un-permutation folds into the compaction gather (bit-identical; two
+    # (N, N) passes fewer per side)
+    defer = acfg.agc_impl == "band" and compact
+    inv0 = inv1 = None
     with record_function("gims.agc"):
         if kpts0.shape == kpts1.shape:
             # same bucket on both sides: one batched AGC over the stacked pair
@@ -141,23 +167,25 @@ def forward_match(
             if k0 is not None and k1 is not None:
                 kk = torch.cat([torch.as_tensor(k, device=kpts0.device).reshape(-1)
                                 for k in (k0, k1)])
-            adj, kept, _ = run_agc(torch.cat([kpts0, kpts1]),
-                                   torch.cat([desc0, desc1]),
-                                   torch.cat([valid0, valid1]),
-                                   acfg, kk, radius, min_size)
+            adj, kept, inv = run_agc(torch.cat([kpts0, kpts1]),
+                                     torch.cat([desc0, desc1]),
+                                     torch.cat([valid0, valid1]),
+                                     acfg, kk, radius, min_size, defer_unpermute=defer)
             adj0, adj1, kept0, kept1 = adj[:b], adj[b:], kept[:b], kept[b:]
+            if inv is not None:
+                inv0, inv1 = inv[:b], inv[b:]
         else:
-            adj0, kept0, _ = run_agc(kpts0, desc0, valid0, acfg, k0, radius, min_size)
-            adj1, kept1, _ = run_agc(kpts1, desc1, valid1, acfg, k1, radius, min_size)
+            adj0, kept0, inv0 = run_agc(kpts0, desc0, valid0, acfg, k0, radius, min_size,
+                                        defer_unpermute=defer)
+            adj1, kept1, inv1 = run_agc(kpts1, desc1, valid1, acfg, k1, radius, min_size,
+                                        defer_unpermute=defer)
 
-    nb0, nb1 = kpts0.shape[1], kpts1.shape[1]
-    compact = compact_to is not None and compact_to < max(nb0, nb1)
     if compact:
         with record_function("gims.compact"):
             idx0, kpts0, desc0, adj0, kept0 = _compact_side(
-                kpts0, desc0, adj0, kept0, scores0, int(compact_to))
+                kpts0, desc0, adj0, kept0, scores0, int(compact_to), inv0)
             idx1, kpts1, desc1, adj1, kept1 = _compact_side(
-                kpts1, desc1, adj1, kept1, scores1, int(compact_to))
+                kpts1, desc1, adj1, kept1, scores1, int(compact_to), inv1)
 
     h, w = image_shape
     kpts0n = normalize_keypoints(kpts0, h, w, mcfg.normalization)

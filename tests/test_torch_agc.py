@@ -1,11 +1,16 @@
-"""AGC, dense build: the PyTorch port against the JAX package on the CPU.
+"""AGC: the PyTorch port against the JAX package on the CPU.
 
-The same numpy inputs go through ``gims_tpu.agc.graph.build_graph`` and
-``gims_tpu_torch.agc.graph.build_graph``. Adjacency and kept masks are
-integer outputs and must be bit-equal; the threshold is one element of the
-same similarity matrix and must be equal to f32 rounding of the matmul
-(1e-6).
+The same numpy inputs go through ``gims_tpu.agc.graph`` and
+``gims_tpu_torch.agc.graph``: the dense build (exact or strided threshold,
+exact or centroid reconnect, dense or sparse components), the band build
+and its helpers, the label rounds of all three layouts, ``band_coverage``
+and the pipeline around them. Adjacency, kept masks, labels and the band
+build's ``inv`` are integer outputs and must be bit-equal; the threshold
+is one element of each side's own similarity matrix and must be equal to
+f32 rounding of the row norms (1e-6).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -15,9 +20,13 @@ import jax.numpy as jnp
 from gims_tpu.agc import graph as jgraph
 from gims_tpu.config import AGCConfig as JAGCConfig
 from gims_tpu.matcher import pipeline as jpipeline
+from gims_tpu_torch.agc import band as tband
 from gims_tpu_torch.agc import graph as tgraph
-from gims_tpu_torch.config import AGCConfig
+from gims_tpu_torch.agc import labels as tlabels
+from gims_tpu_torch.config import AGCConfig, MatcherConfig
 from gims_tpu_torch.matcher import pipeline as tpipeline
+from gims_tpu_torch.matcher.gmatcher import GMatcher
+from gims_tpu_torch.synthetic import synthetic_request
 
 
 def make_set(seed, nb, n, radius=15.0, d=128):
@@ -131,15 +140,30 @@ def test_kth_smallest_exact():
         assert float(jgot) == want
 
 
-@pytest.mark.parametrize("knob", [dict(agc_impl="band"), dict(cc_impl="sparse"),
-                                  dict(threshold_impl="approx"),
-                                  dict(reconnect_impl="centroid")])
-def test_unported_agc_impls_raise(knob):
-    kpts, descs, valid = make_set(0, 128, 100)
-    with pytest.raises(NotImplementedError):
-        tpipeline.run_agc(torch.from_numpy(kpts)[None],
-                          torch.from_numpy(descs)[None],
-                          torch.from_numpy(valid)[None], AGCConfig(**knob))
+@pytest.mark.parametrize("case", ["precomputed_adj", "delaunay_request", "shard_axis",
+                                  "unknown_build"])
+def test_unported_agc_impls_raise(case):
+    """What is still unported around AGC raises and names ROADMAP.md: a
+    precomputed (Delaunay) adjacency, a Delaunay request, keypoint-axis
+    sharding. A build name the JAX package does not have raises too."""
+    kpts, descs, valid = (torch.from_numpy(x)[None] for x in make_set(0, 128, 100))
+    if case == "unknown_build":
+        with pytest.raises(ValueError, match="agc_impl"):
+            tpipeline.run_agc(kpts, descs, valid, AGCConfig(agc_impl="tiled"))
+        return
+    if case == "delaunay_request":
+        from gims_tpu_torch.api import Matching
+        m = Matching(device="cpu")
+        req, _ = synthetic_request(0, 100)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            m({**req, "delaunay": True})
+        return
+    kw = ({"adj0": torch.zeros((1, 128, 128), dtype=torch.bool)} if case == "precomputed_adj"
+          else {"shard_axis": "kp"})
+    model = GMatcher(MatcherConfig(num_gnn_layers=2)).eval()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
+                                image_shape=(600, 800), **kw)
 
 
 def test_kth_smallest_batched_matches_per_item():
@@ -175,12 +199,31 @@ def test_percentile_ranks_on_device_match_host_rules():
             assert k == want, (c, pct)
 
 
+def band_of(adj, wh):
+    """Forward band (N, wh) of a symmetric adjacency whose edges lie within
+    wh sorted positions: band[i, m] = adj[i, i + 1 + m]."""
+    n = adj.shape[0]
+    j = np.arange(n)[:, None] + 1 + np.arange(wh)[None, :]
+    return np.where(j < n, adj[np.arange(n)[:, None], np.minimum(j, n - 1)], False)
+
+
+def neighbour_list_of(adj, cap):
+    """(nbr_idx, nbr_ok) (N, cap): each node's first `cap` neighbours by index;
+    a node with more neighbours keeps only those (the push covers the rest
+    where the other end kept the edge)."""
+    n = adj.shape[0]
+    key = np.where(adj, np.arange(n)[None, :], n + np.arange(n)[None, :])
+    nbr = np.argsort(key, axis=1, kind="stable")[:, :cap].astype(np.int32)
+    return nbr, np.take_along_axis(adj, nbr, axis=1)
+
+
 @pytest.mark.parametrize("rounds", [0, 1, 2, 20])
 def test_connected_components_fixed_rounds_equal_early_exit(rounds):
-    """The port runs 1 + rounds rounds; JAX stops once a round changes no
-    label, within the same cap. A long path does not converge in the
-    smaller caps, a random graph converges early: equal labels either way."""
-    n = 200
+    """JAX stops once a round changes no label, within the cap of 1 + rounds
+    rounds; so does the port, for the dense, band and sparse loops alike. A
+    long path does not converge in the smaller caps, a random graph
+    converges early: the labels are equal either way, capped or not."""
+    n = 256
     path = np.zeros((n, n), bool)
     i = np.arange(n - 1)
     path[i, i + 1] = path[i + 1, i] = True
@@ -188,11 +231,268 @@ def test_connected_components_fixed_rounds_equal_early_exit(rounds):
     rand = rng.rand(n, n) < 0.01
     rand = rand | rand.T
     np.fill_diagonal(rand, False)
+    near = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) <= 64
     valid = rng.rand(n) < 0.9
-    for adj in (path, rand):
+    for adj in (path, rand, rand & near):
         adj = adj & valid[:, None] & valid[None, :]
         want = np.asarray(jgraph.connected_components(
             jnp.asarray(adj), jnp.asarray(valid), rounds))
         got = tgraph.connected_components(torch.from_numpy(adj)[None],
                                           torch.from_numpy(valid)[None], rounds)[0]
         np.testing.assert_array_equal(got.numpy(), want)
+        nbr, ok = neighbour_list_of(adj, 4)
+        want = np.asarray(jgraph.connected_components_sparse(
+            jnp.asarray(nbr), jnp.asarray(ok), jnp.asarray(valid), rounds))
+        got = tgraph.connected_components_sparse(
+            torch.from_numpy(nbr)[None], torch.from_numpy(ok)[None],
+            torch.from_numpy(valid)[None], rounds)[0]
+        np.testing.assert_array_equal(got.numpy(), want)
+        if adj is not rand:  # the band holds edges within 64 positions only
+            band = band_of(adj, 128)
+            want = np.asarray(jgraph.connected_components_band(
+                jnp.asarray(band), jnp.asarray(valid), rounds))
+            got = tgraph.connected_components_band(torch.from_numpy(band)[None],
+                                                   torch.from_numpy(valid)[None], rounds)[0]
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_label_rounds_stop_early(monkeypatch):
+    """The rounds stop at the first round that changes no label, as JAX's
+    loop does: on a path of 64 nodes, a few rounds of the cap of 21."""
+    n = 64
+    adj = np.zeros((1, n, n), bool)
+    adj[0, np.arange(n - 1), np.arange(1, n)] = True
+    adj = torch.from_numpy(adj | adj.transpose(0, 2, 1))
+    valid = torch.ones((1, n), dtype=torch.bool)
+    # the rounds to the fixpoint, one at a time
+    one_round = tlabels._round_fn("dense", adj, valid, None)
+    label, settle = torch.arange(n, dtype=torch.int32)[None], 0
+    while True:
+        new = one_round(label)
+        settle += 1
+        if torch.equal(new, label):
+            break
+        label = new
+    calls = []
+    real = tlabels._round_fn
+
+    def counting(*args):
+        fn = real(*args)
+        return lambda lab: calls.append(1) or fn(lab)
+
+    monkeypatch.setattr(tlabels, "_round_fn", counting)
+    got = tlabels.propagate("dense", adj, valid, 20)
+    assert (got == 0).all()
+    assert len(calls) == settle < 21
+
+
+# ---------------------------------------------------------------- other builds
+# Integer and bool outputs (adj, kept, labels, inv) must be bit-equal. The
+# threshold is one element of each side's own similarity matrix: XLA and
+# PyTorch sum the row norms in different orders, so it may differ by one
+# f32 ulp (1e-6); the matrix products themselves agree bit for bit.
+THR_TOL = 1e-6
+SIFT_LAST = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "weights", "gims_tpu_sift_last.npz")
+
+
+def layout_set(kind, seed, nb, n, d=16):
+    """n keypoints padded to nb. "full": spread over a 4000 px wide strip,
+    so every radius pair lies within 128 x-sorted positions; "slab": a 20 px
+    wide vertical slab, so at nb = 384 many pairs fall outside the window."""
+    rng = np.random.RandomState(seed)
+    kpts = np.full((nb, 2), 1e6, np.float32)
+    if kind == "full":
+        kpts[:n] = np.stack([rng.rand(n) * 4000, rng.rand(n) * 200], axis=1)
+    else:
+        kpts[:n] = np.stack([rng.rand(n) * 20, rng.rand(n) * 600], axis=1)
+    descs = np.zeros((nb, d), np.float32)
+    descs[:n] = rng.randn(n, d)
+    valid = np.arange(nb) < n
+    return kpts, descs, valid
+
+
+def both_builds(fn_name, kpts, descs, valid, **kw):
+    jout = getattr(jgraph, fn_name)(jnp.asarray(kpts), jnp.asarray(descs), jnp.asarray(valid),
+                                    **kw)
+    tout = getattr(tgraph, fn_name)(torch.from_numpy(kpts), torch.from_numpy(descs),
+                                    torch.from_numpy(valid), **kw)
+    return jout, tout
+
+
+def assert_same_graph(jout, tout, inv=False):
+    for key in ("adj", "kept", "labels") + (("inv",) if inv else ()):
+        np.testing.assert_array_equal(getattr(tout, key).numpy(), np.asarray(getattr(jout, key)),
+                                      err_msg=key)
+    np.testing.assert_allclose(float(tout.threshold), float(jout.threshold),
+                               rtol=0, atol=THR_TOL)
+
+
+@pytest.mark.parametrize("seed,nb,n", [(3, 256, 230), (4, 512, 470)])
+def test_approx_threshold_matches_jax(seed, nb, n):
+    """threshold_impl="approx", stride 4: the order statistic of every 4th
+    row's valid upper triangle, ranked by the subsample's own count."""
+    kpts, descs, valid = make_set(seed, nb, n)
+    jout, tout = both_builds("build_graph", kpts, descs, valid, radius=15.0, percentile=2.0,
+                             min_size=7, threshold_impl="approx", threshold_stride=4)
+    assert_same_graph(jout, tout)
+    exact = tgraph.build_graph(torch.from_numpy(kpts), torch.from_numpy(descs),
+                               torch.from_numpy(valid), radius=15.0, percentile=2.0, min_size=7)
+    assert float(exact.threshold) != float(tout.threshold)  # the subsample is another set
+
+
+@pytest.mark.parametrize("buckets", [1024, 3])
+def test_centroid_reconnect_matches_jax(buckets):
+    """reconnect_impl="centroid" on far-apart clusters, where the reconnect
+    adds links; 3 buckets make overflow components share the last one."""
+    rng = np.random.RandomState(42)
+    pts = [rng.rand(c, 2).astype(np.float32) * 30 + [x, y]
+           for x, y, c in [(0, 0, 30), (500, 0, 25), (0, 500, 12),
+                           (500, 500, 9), (250, 250, 8)]]
+    n = sum(len(p) for p in pts)
+    kpts = np.full((128, 2), 1e6, np.float32)
+    kpts[:n] = np.concatenate(pts)
+    descs = np.zeros((128, 8), np.float32)
+    descs[:n] = rng.randn(n, 8)
+    valid = np.arange(128) < n
+    kw = dict(radius=40.0, percentile=5.0, min_size=6, reconnect_buckets=buckets)
+    jout, tout = both_builds("build_graph", kpts, descs, valid, reconnect_impl="centroid", **kw)
+    assert_same_graph(jout, tout)
+    d2 = ((kpts[:, None] - kpts[None]) ** 2).sum(-1)
+    assert (tout.adj.numpy() & (d2 > 40.0 ** 2)).any()  # links between clusters
+
+
+@pytest.mark.parametrize("nb,n", [(128, 110), (384, 350)])
+def test_band_helpers_match_jax(nb, n):
+    """The band views, bit-equal to the JAX package's reshape constructions;
+    at 128 rows _band_to_dense takes JAX's fallback branch, at 384 its fast
+    (128-row block) branch."""
+    rng = np.random.RandomState(nb)
+    wh = 128
+    band = rng.rand(nb, wh) < 0.05
+    band &= (np.arange(nb)[:, None] + 1 + np.arange(wh)[None, :]) < nb
+    tb = torch.from_numpy(band)[None]
+    np.testing.assert_array_equal(tband._band_to_dense(tb)[0].numpy(),
+                                  np.asarray(jgraph._band_to_dense(jnp.asarray(band))))
+    np.testing.assert_array_equal(tband._band_shear_bwd(tb)[0].numpy(),
+                                  np.asarray(jgraph._band_shear_bwd(jnp.asarray(band))))
+    vec = rng.randint(0, n, nb).astype(np.int32)
+    for fn in ("_window_values_fwd", "_window_values_bwd"):
+        want = np.asarray(getattr(jgraph, fn)(jnp.asarray(vec), nb, 128, wh, n))
+        got = getattr(tband, fn)(torch.from_numpy(vec)[None], wh, n)[0].numpy()
+        np.testing.assert_array_equal(got, want, err_msg=fn)
+    blocks = rng.randn(nb // 128, 128, 128 + wh).astype(np.float32)
+    np.testing.assert_array_equal(tband._diag_band(torch.from_numpy(blocks)[None])[0].numpy(),
+                                  np.asarray(jgraph._diag_band(jnp.asarray(blocks))))
+
+
+@pytest.mark.parametrize("cc_impl,defer,reconnect", [("band", True, "centroid"),
+                                                     ("dense", False, "exact")])
+@pytest.mark.parametrize("kind", ["full", "slab"])
+@pytest.mark.parametrize("nb,n", [(128, 110), (384, 350)])
+def test_build_graph_band_matches_jax(nb, n, kind, cc_impl, defer, reconnect):
+    """build_graph_band at band_halfwidth 128: adj, kept, labels (and inv
+    with defer_unpermute) bit-equal to JAX's, with the window covering every
+    radius pair ("full") and not ("slab", coverage below 1 at 384 rows)."""
+    kpts, descs, valid = layout_set(kind, nb + n, nb, n)
+    cov = tgraph.band_coverage(torch.from_numpy(kpts), torch.from_numpy(valid), 15.0, 128)
+    assert cov["pairs_in_radius"] > 0
+    assert (cov["coverage"] == 1.0) == (kind == "full" or nb == 128)
+    jout, tout = both_builds("build_graph_band", kpts, descs, valid, radius=15.0,
+                             percentile=5.0, min_size=5, band_halfwidth=128,
+                             reconnect_impl=reconnect, cc_impl=cc_impl,
+                             defer_unpermute=defer)
+    assert tout.kept.any() and tout.adj.any()
+    assert_same_graph(jout, tout, inv=defer)
+
+
+def test_band_equals_dense_approx_at_full_coverage():
+    """Where the window covers every radius pair, the band build equals the
+    dense build with the same strided threshold and reconnect (as
+    tests/test_agc.py holds them in JAX)."""
+    kpts, descs, valid = layout_set("full", 8, 384, 350)
+    kw = dict(radius=15.0, percentile=5.0, min_size=5, reconnect_impl="centroid",
+              reconnect_buckets=1024)
+    t = [torch.from_numpy(x) for x in (kpts, descs, valid)]
+    band = tgraph.build_graph_band(*t, band_halfwidth=128, threshold_stride=4, **kw)
+    dense = tgraph.build_graph(*t, threshold_impl="approx", threshold_stride=4, **kw)
+    jdense = jgraph.build_graph(*(jnp.asarray(x) for x in (kpts, descs, valid)),
+                                threshold_impl="approx", threshold_stride=4, **kw)
+    assert float(band.threshold) == float(dense.threshold)
+    for key in ("adj", "kept", "labels"):
+        np.testing.assert_array_equal(getattr(band, key).numpy(), getattr(dense, key).numpy())
+        np.testing.assert_array_equal(getattr(band, key).numpy(), np.asarray(getattr(jdense, key)))
+
+
+@pytest.mark.parametrize("kind", ["full", "slab"])
+def test_band_coverage_matches_jax(kind):
+    kpts, descs, valid = layout_set(kind, 21, 384, 350)
+    for hw in (128, 383):
+        want = jgraph.band_coverage(jnp.asarray(kpts), jnp.asarray(valid), 15.0, hw)
+        got = tgraph.band_coverage(torch.from_numpy(kpts), torch.from_numpy(valid), 15.0, hw)
+        assert got == want
+
+
+@pytest.mark.parametrize("case", ["star_overflow", "random"])
+def test_sparse_cc_matches_jax(case):
+    """cc_impl="sparse": a hub of 40 spokes with cc_degree 8 (the push
+    carries the edges the hub's list dropped, tests/test_agc.py), and a
+    random set at the eval knobs."""
+    if case == "star_overflow":
+        n = 41
+        kpts = np.zeros((n, 2), np.float32)
+        ang = np.linspace(0, 2 * np.pi, n - 1, endpoint=False)
+        kpts[1:, 0] = 10 * np.cos(ang)
+        kpts[1:, 1] = 10 * np.sin(ang)
+        descs = np.ones((n, 4), np.float32)
+        valid = np.ones(n, bool)
+        kw = dict(radius=11.0, percentile=2.0, min_size=2, cc_degree=8)
+    else:
+        kpts, descs, valid = make_set(9, 256, 230)
+        kw = dict(radius=15.0, percentile=2.0, min_size=7, cc_degree=16)
+    jout, tout = both_builds("build_graph", kpts, descs, valid, cc_impl="sparse", **kw)
+    assert_same_graph(jout, tout)
+    if case == "star_overflow":
+        assert (tout.labels == 0).all() and tout.kept.all()
+
+
+def test_forward_match_band_compaction_matches_jax():
+    """The staged checkpoint (18 layers, 256-d) on a 512-bucket request,
+    band AGC with the approximate threshold and the centroid reconnect,
+    compacted to 256: the adjacency stays in sorted space and inv folds
+    into the compaction gather. kept and matches equal to JAX's, matching
+    scores 1e-4."""
+    from gims_tpu.core.bucketing import pad_keypoint_set
+    from gims_tpu.config import MatcherConfig as JMatcherConfig
+    from gims_tpu_torch.matcher.convert import load_gims_checkpoint, load_variables
+    import jax
+
+    variables = load_gims_checkpoint(SIFT_LAST)
+    frame = (120, 160)
+    req, _ = synthetic_request(7, 450, frame)
+    sides = []
+    for s in "01":
+        kp, de, sc, va = pad_keypoint_set(req["keypoints" + s], req["descriptors" + s],
+                                          req["scores" + s])
+        sides.append((kp[None], de[None], va[None], sc[None]))
+    (kp0, de0, va0, sc0), (kp1, de1, va1, sc1) = sides
+    knobs = dict(radius=15.0, percentile=2.0, min_size=7, agc_impl="band",
+                 threshold_impl="approx", reconnect_impl="centroid", reconnect_buckets=1024)
+    jmcfg = JMatcherConfig(sinkhorn_iterations=20, match_threshold=0.02)
+    want = jpipeline.forward_match(
+        jax.tree_util.tree_map(jnp.asarray, variables), jmcfg, JAGCConfig(**knobs),
+        *(jnp.asarray(x) for x in (kp0, de0, va0, kp1, de1, va1)),
+        image_shape=frame, compact_to=256, scores0=jnp.asarray(sc0), scores1=jnp.asarray(sc1))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    model = GMatcher(MatcherConfig(sinkhorn_iterations=20, match_threshold=0.02)).eval()
+    load_variables(model, variables)
+    got = tpipeline.forward_match(
+        model, AGCConfig(**knobs), *(torch.from_numpy(x) for x in (kp0, de0, va0, kp1, de1, va1)),
+        image_shape=frame, compact_to=256, scores0=torch.from_numpy(sc0),
+        scores1=torch.from_numpy(sc1))
+    assert int(want["kept0"].sum()) == 256  # overflow dropped some
+    assert (want["matches0"] >= 0).sum() > 100
+    for key in ("kept0", "kept1", "matches0", "matches1"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key], err_msg=key)
+    for key in ("matching_scores0", "matching_scores1"):
+        np.testing.assert_allclose(got[key].numpy(), want[key], atol=1e-4, rtol=0)

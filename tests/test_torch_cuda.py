@@ -235,3 +235,117 @@ def test_dense_cnn_bf16_vs_f32(cuda):
     assert maps[torch.bfloat16].dtype == torch.float32
     assert cos.mean().item() >= 0.995 and rms.item() <= 0.1
     assert cos.min().item() >= 0.97
+
+
+def test_sinkhorn_kernel_in_devsift_composition(cuda):
+    """K2 at the batched devsift program's shape: 4 pairs, the trunk
+    compacted to 6144 keypoints per side, so Z (4, 6145, 6145) with kept
+    counts below the bucket, 20 iterations. Inside that composition the
+    TPU kernel brought the TPU worker down (the JAX bench runs XLA's
+    Sinkhorn there); the port runs K2 and holds it to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    nb, iters = 6144, 20
+    ms = torch.tensor([5900, 6144, 5200, 6050], device=cuda)
+    ns = torch.tensor([6000, 5800, 6144, 4900], device=cuda)
+    scores = 2 * torch.randn((4, nb, nb), generator=g, device=cuda)
+    ar = torch.arange(nb, device=cuda)
+    row_mask, col_mask = ar[None] < ms[:, None], ar[None] < ns[:, None]
+    before = cuda_sinkhorn.launches
+    got = cuda_sinkhorn.log_optimal_transport_cuda(scores, 1.0, iters, row_mask, col_mask)
+    want = sinkhorn.log_optimal_transport(scores, 1.0, iters, row_mask, col_mask)
+    torch.cuda.synchronize()
+    assert cuda_sinkhorn.launches == before + 1
+    assert cuda_sinkhorn.z_reads_per_iter(4, nb + 1, nb + 1) == 1  # the fused kernel
+    for i in range(4):
+        r = torch.cat([torch.nonzero(row_mask[i])[:, 0], torch.tensor([nb], device=cuda)])
+        c = torch.cat([torch.nonzero(col_mask[i])[:, 0], torch.tensor([nb], device=cuda)])
+        assert (got[i][r][:, c] - want[i][r][:, c]).abs().max().item() <= 2e-4
+
+
+def random_geometric_graphs(cuda, b, n, wh, seed):
+    """Keypoints sorted by x in a strip, edges between points within 12 px
+    kept with probability 0.6: the AGC graphs' shape (components of a few
+    to a few hundred nodes), as a dense adjacency, a forward band of wh and
+    valid masks with a padded tail."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.sort(torch.rand((b, n), generator=g, device=cuda) * 40 * n ** 0.5, dim=1).values
+    y = torch.rand((b, n), generator=g, device=cuda) * 600
+    d2 = (x[:, :, None] - x[:, None, :]) ** 2 + (y[:, :, None] - y[:, None, :]) ** 2
+    keep = torch.rand((b, n, n), generator=g, device=cuda) < 0.6
+    keep = torch.triu(keep, 1)
+    adj = (d2 <= 144.0) & (keep | keep.transpose(1, 2))
+    idx = torch.arange(n, device=cuda)
+    adj &= (idx[:, None] - idx[None, :]).abs() <= wh
+    adj &= idx[:, None] != idx[None, :]
+    valid = idx[None] < torch.tensor([n - 17 * i for i in range(b)], device=cuda)[:, None]
+    adj &= valid[:, :, None] & valid[:, None, :]
+    j = idx[:, None] + 1 + torch.arange(wh, device=cuda)[None, :]
+    band = torch.gather(adj, 2, j.clamp(max=n - 1)[None].expand(b, n, wh)) & (j < n)
+    return adj.contiguous(), band.contiguous(), valid
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 20])
+@pytest.mark.parametrize("mode", ["dense", "band", "sparse"])
+def test_label_rounds_kernel_vs_plain(cuda, mode, rounds):
+    """The label-rounds kernel (every round in one launch, stopping at the
+    first round that changes nothing) against its plain version: labels
+    equal, at caps that cut the rounds short and at the usual cap."""
+    from gims_tpu_torch.agc import labels
+
+    adj, band, valid = random_geometric_graphs(cuda, 3, 1000, 128, seed=rounds)
+    args = {"dense": (adj,), "band": (band,)}.get(mode)
+    nbr = None
+    if mode == "sparse":
+        key = torch.where(adj, torch.arange(1000, device=cuda), 10 ** 6)
+        nbr = torch.sort(key, dim=2, stable=True).indices[..., :6]
+        args = (torch.gather(adj, 2, nbr),)
+    before = labels.launches
+    got = labels.propagate(mode, *args, valid, rounds, nbr)
+    torch.cuda.synchronize()
+    assert labels.launches == before + 1
+    want = labels.propagate_plain(mode, *args, valid, rounds, nbr)
+    assert torch.equal(got, want)
+    run = int(labels.last_rounds)
+    assert 1 <= run <= rounds + 1
+    if rounds == 20:
+        assert run < 21  # these graphs settle early
+
+
+def test_band_build_equals_dense_approx_on_card(cuda):
+    """AGC at (16, 6144), keypoints uniform over 800x600 (every radius pair
+    within 512 x-sorted positions): the band build equals the dense build
+    with the same strided threshold and the centroid reconnect. The band's
+    similarities come from block products and the dense ones from one
+    (N, N) product, so a candidate pair may move across the threshold by an
+    f32 rounding: any differing entry must be such a pair or a link that
+    follows from one, at most 16 per set (as tests/test_agc.py holds the JAX
+    builds). The label rounds run to convergence: labels cut short by the
+    default cap depend on the node order, which the band build changes."""
+    from gims_tpu_torch.agc import graph
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, n = 16, 6144
+    kpts = torch.rand((b, n, 2), generator=g, device=cuda) * torch.tensor([800.0, 600.0],
+                                                                       device=cuda)
+    descs = torch.rand((b, n, 256), generator=g, device=cuda) ** 4
+    valid = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    valid[:, n - 300:] = False
+    kw = dict(radius=15.0, percentile=2.0, min_size=7, reconnect_impl="centroid",
+              reconnect_buckets=1024, cc_rounds=100)
+    band = graph.build_graph_band(kpts, descs, valid, band_halfwidth=512,
+                                  threshold_stride=4, **kw)
+    dense = graph.build_graph(kpts, descs, valid, threshold_impl="approx",
+                              threshold_stride=4, **kw)
+    for i in range(b):
+        assert graph.band_coverage(kpts[i], valid[i], 15.0, 512)["coverage"] == 1.0
+    assert torch.equal(band.threshold, dense.threshold)
+    diff = band.adj != dense.adj
+    assert int(diff.flatten(1).sum(1).max()) <= 16
+    if diff.any():
+        normed = descs / descs.norm(dim=-1, keepdim=True)
+        bi, ii, jj = torch.nonzero(diff, as_tuple=True)
+        near = graph.pairwise_sq_dists(kpts)[bi, ii, jj] <= 225.0
+        sim = (normed[bi, ii] * normed[bi, jj]).sum(-1)
+        # an edge candidate (not below the threshold) differs only on a straddle
+        assert ((sim[near] - band.threshold[bi[near]]) < 1e-5).all()
+    assert int((band.kept != dense.kept).sum()) <= 16

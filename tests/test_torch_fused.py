@@ -233,13 +233,60 @@ def test_fused_matching_contract_on_cpu(slice_inputs):
 
 
 @pytest.mark.parametrize("knob", [
-    {"topk_impl": "approx"}, {"threshold_impl": "approx"}, {"agc_impl": "band"},
-    {"cc_impl": "sparse"}, {"reconnect_impl": "centroid"},
     {"descriptor_source": "carhynet"}, {"descriptor_source": "dense"},
-    {"descriptor_source": "devsift"}, {"init_scheme": "identity"}])
+    {"init_scheme": "identity"},
+    {"init_scheme": "identity", "descriptor_source": "devsift"}])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfused.FusedMatching(knob, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    {"topk_impl": "approx"}, {"threshold_impl": "approx"}, {"agc_impl": "band"},
+    {"cc_impl": "sparse"}, {"cc_impl": "band", "agc_impl": "band"},
+    {"reconnect_impl": "centroid"}, {"descriptor_source": "devsift"}])
+def test_ported_knobs_accepted(knob):
+    """The knobs this port once refused resolve as asked on the CPU."""
+    rc = tfused.FusedMatching(knob, device="cpu").resolved_config()
+    section = {"topk_impl": "frontend", "descriptor_source": "frontend"}
+    for key, value in knob.items():
+        assert rc[section.get(key, "agc")][key] == value
+
+
+def test_accelerator_knobs_on_cpu_match_jax(slice_inputs):
+    """The knob set FusedMatching takes by default on the card, passed
+    explicitly on the CPU (band AGC, half-width 512, strided threshold,
+    centroid reconnect with 1024 buckets, approximate top-k, compaction),
+    against JAX's fused_match_batch with the same knobs: kept and matches
+    equal, keypoints 1e-3 px."""
+    imgs0, imgs1, jmcfg, variables, car = slice_inputs
+    h, w = FRAME
+    knobs = dict(agc_impl="band", band_halfwidth=512, threshold_impl="approx",
+                 threshold_stride=4, reconnect_impl="centroid", reconnect_buckets=1024,
+                 cc_impl="dense", **KNOBS)
+    m = tfused.FusedMatching({"upsample": False, "dense_dtype": "float32", "compact_to": 128,
+                              "topk_impl": "approx", "compact_transport": False,
+                              "sinkhorn_iterations": 20, **knobs},
+                             car_variables=car, total_keypoints=256, device="cpu")
+    model = GMatcher(MatcherConfig(num_gnn_layers=2, sinkhorn_iterations=20,
+                                   match_threshold=0.02)).eval()
+    load_variables(model, variables)
+    m.model = model
+    got = m.dispatch_batch(imgs0, imgs1)
+    budgets = jfused.octave_budgets(h, w, 256, False)
+    jfe = JFrontendConfig(descriptor_source="dense_gray", dense_dtype="float32",
+                          upsample=False, topk_impl="approx")
+    jfmb = jax.jit(jfused.fused_match_batch, static_argnums=(2, 3, 4, 5, 6, 9, 10, 11, 12, 14))
+    want = as_np(jfmb(
+        jax.tree_util.tree_map(jnp.asarray, variables),
+        jax.tree_util.tree_map(jnp.asarray, car), JCARHyNet(in_channels=1), jmcfg,
+        JAGCConfig(**knobs), jfe, budgets, jnp.asarray(imgs0), jnp.asarray(imgs1), h, w,
+        JCARHyNet(dense=True, in_channels=1), False, build_gray_blur(h, w, False), 128))
+    assert (want["matches0"] >= 0).sum() > 20
+    for key in ("kept0", "kept1", "matches0", "matches1"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key], err_msg=key)
+    for key in ("keypoints0", "keypoints1"):
+        np.testing.assert_allclose(got[key].numpy(), want[key], atol=1e-3, rtol=0)
 
 
 def test_devices_raise():

@@ -16,6 +16,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gims_tpu_torch")
 BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "networkx", "sklearn", "gims_tpu"]
+# modules the fused paths run, each imported with the blocked packages refused
+REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_torch.agc.labels",
+            "gims_tpu_torch.frontend.detect_device", "gims_tpu_torch.frontend.sift_descriptor",
+            "gims_tpu_torch.fused", "gims_tpu_torch.matcher.pipeline"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -36,11 +40,13 @@ names = ["gims_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     gims_tpu_torch.__path__, "gims_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = set(%r) - set(names)
+assert not missing, missing
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names), "modules")
-""" % BLOCKED
+""" % (BLOCKED, REQUIRED)
 
 
 def test_port_and_chip_smoke_import_without_blocked_packages():
@@ -48,7 +54,7 @@ def test_port_and_chip_smoke_import_without_blocked_packages():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 15  # package, subpackages and every module under them
+    assert n >= 18  # package, subpackages and every module under them
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():

@@ -52,12 +52,43 @@ Phases, one line each with its seconds:
     same launch, match and correctness bounds, pairs/s, peak memory and
     stage split; then one dispatch in f32 through the kernels and the
     plain versions: kept and matches identical.
-  10 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6 and 9): labels equal,
-    rounds run, times.
-  11 one JSON line with every kernel's launches, error and times, on the
-    three paths' shapes.
-  12 the last line: {"ok": true, "device": {...}}.
+  10 the staged image path S1, the JAX staged bench's device-detector
+    configuration (bench.py run_staged, GIMS_BENCH_DETECTOR=device) with
+    SIFT descriptors on the card in place of host cv2: Matching with the
+    staged checkpoint, 6144 keypoints, fast_frontend, 20 Sinkhorn
+    iterations, threshold 0.02, bf16 trunk, the Sinkhorn kernel, AGC
+    15/2/7, on 8 synthetic 800x600 gray pairs (stacked to 3 channels as
+    api._as_hw3 does), each pair's prepare_features overlapped with the
+    previous request as bench.run_staged does. 18 attention, 1 Sinkhorn and
+    1 label-rounds launch per request, matches on every pair, at least half
+    within 3 px; ms per pair (also with the same requests one after the
+    other), the timings split, peak memory and the stage split of one
+    profiled request.
+  11 S2, every other source on 2 pairs each: carhynet at reference parity
+    (bicubic 64x64 warp) and at fast_frontend (bilinear 32x32), dense, and
+    dense_gray with the joint end-to-end weights; then one delaunay=True
+    request (every detected keypoint kept). Structure checks (shapes,
+    kept keypoints among the detected ones, mutual matches), timings, the
+    stage split of one carhynet request; then one carhynet request in f32
+    through the kernels and through the plain versions, on the same
+    features: kept and matches identical. The colour CAR-HyNet is a seeded
+    random init (the repo has no trained colour weights).
+  12 the fused colour sources, FusedMatching(descriptor_source="carhynet")
+    and ("dense") at the JAX defaults (upsampled pyramid, 12288 keypoints
+    compacted to 6144, the card's AGC defaults, fast_frontend) on 4
+    synthetic colour 800x600 pairs per dispatch, random colour CAR-HyNet:
+    18 attention, 1 Sinkhorn and 1 label-rounds launch per dispatch,
+    matches on every pair, pairs/s, peak memory and the stage split of one
+    dispatch (gims.frontend.warp around the patch warp); one dispatch of
+    each under torch.cuda.set_sync_debug_mode("error") up to the readout;
+    one batch of each in f32 through the kernels and the plain versions:
+    kept and matches identical.
+  13 the label-rounds kernel against its plain version on the graphs the
+    paths above gave it (recorded during phases 4, 6, 9, 10 and 12): labels
+    equal, rounds run, times.
+  14 one JSON line with every kernel's launches, error and times, on the
+    six paths' shapes; the script's total seconds.
+  15 the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
@@ -75,6 +106,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -87,7 +119,8 @@ from gims_tpu_torch import _build, fused  # noqa: E402
 from gims_tpu_torch.agc import graph, labels  # noqa: E402
 from gims_tpu_torch.api import Matching  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
-from gims_tpu_torch.config import MatcherConfig  # noqa: E402
+from gims_tpu_torch.config import FrontendConfig, MatcherConfig  # noqa: E402
+from gims_tpu_torch.frontend.feature import FeatureFrontend  # noqa: E402
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pipeline, sinkhorn  # noqa: E402
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
 from gims_tpu_torch.matcher.gmatcher import GMatcher  # noqa: E402
@@ -132,8 +165,10 @@ DEVICE = "cuda"
 # the fused path's compacted trunk (8 pairs, both sides stacked: B=16, 3072)
 # the fused path's compacted trunk (8 pairs, both sides stacked: B=16,
 # 3072), and the devsift path's (4 pairs: B=8, 6144)
+# and the staged image path's (one pair, both sides stacked: B=2, 6144), and
+# the fused colour sources' (as devsift's)
 ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
-              (16, 3072, 3072, 400), (8, 6144, 6144, 700))
+              (16, 3072, 3072, 400), (8, 6144, 6144, 700), (2, 6144, 6144, 900))
 # (bucket, valid rows, valid cols, iterations) of the Sinkhorn input Z
 # (bucket+1 square), one entry per batch item: the fused kernel (Z read once
 # per iteration) at 2049 and 8193, the streaming kernel (twice) at 24577,
@@ -143,13 +178,14 @@ SINKHORN_CASES = ((2048, [1800], [1750], SINKHORN_ITERS), (8192, [7000], [6900],
                   (24576, [22000], [21000], 3),
                   (3072, [2900, 3072, 2500, 3000, 2800, 3072, 2700, 2950],
                    [2950, 3000, 2600, 3072, 2750, 3050, 2800, 2900], FUSED_ITERS),
-                  (6144, [5900, 6144, 5200, 6050], [6000, 5800, 6144, 4900], FUSED_ITERS))
+                  (6144, [5900, 6144, 5200, 6050], [6000, 5800, 6144, 4900], FUSED_ITERS),
+                  (6144, [6144], [6100], FUSED_ITERS))
 # the fused image path as the JAX package's bench runs it (bench.py:223-275)
 FUSED_FRAME = (600, 800)
 FUSED_BATCH = 8
 FUSED_KEYPOINTS = 6144
 FUSED_COMPACT = 3072
-FUSED_CONFIG = {"radius": 15, "percentile": 2, "min_size": 7,
+FUSED_CONFIG = {"descriptor_source": "dense_gray", "radius": 15, "percentile": 2, "min_size": 7,
                 "sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
                 "upsample": False, "compact_to": FUSED_COMPACT}
 # configuration A: the exact dense AGC and exact top-k, passed explicitly
@@ -189,6 +225,29 @@ BAND_MAX_DIFF = 16
 # synthetic image), and labels cut short depend on the node order, which the
 # band build changes (x-sorted)
 CONVERGED_ROUNDS = 100
+# the staged image path as the JAX staged bench runs it with the device
+# detector (bench.py run_staged), SIFT descriptors on the card
+STAGED_PAIRS = 8
+STAGED_CONFIG = {"sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
+                 "max_keypoints": 6144, "attention_dtype": "bfloat16", "fast_frontend": True,
+                 "use_pallas_sinkhorn": True, "descriptor_source": "sift",
+                 "detector": "device", "sift_descriptor": "device"}
+STAGED_KNOBS = {"radius": 15, "percentile": 2, "min_size": 7}
+STAGED_STAGES = ("gims.frontend.detect", "gims.frontend.pyramid", "gims.frontend.describe",
+                 "gims.agc", "gims.encoder", "gims.trunk", "gims.sinkhorn", "gims.extract")
+CARHYNET_STAGED_STAGES = ("gims.frontend.detect", "gims.frontend.pyramid",
+                          "gims.frontend.warp", "gims.frontend.cnn") + STAGED_STAGES[3:]
+# the fused colour sources at the JAX defaults, 4 pairs per dispatch as devsift
+COLOUR_BATCH = 4
+COLOUR_KEYPOINTS = 12288
+COLOUR_COMPACT = 6144
+COLOUR_CONFIG = {"radius": 15, "percentile": 2, "min_size": 7,
+                 "sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02}
+COLOUR_STAGES = {
+    "carhynet": ("gims.frontend.pyramid", "gims.frontend.orientation", "gims.frontend.detect",
+                 "gims.frontend.warp", "gims.frontend.cnn") + STAGES,
+    "dense": ("gims.frontend.pyramid", "gims.frontend.cnn", "gims.frontend.detect",
+              "gims.frontend.sample") + STAGES}
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
@@ -380,7 +439,7 @@ def attention_phase():
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=bias))
                 row["ratio_to_library"] = row["ms"] / row["library_ms"]
-            rows[(n, m, row["dtype"])] = row
+            rows[(b, n, m, row["dtype"])] = row
             print(f"  attention {json.dumps(row)}", flush=True)
             del q, k, v, mask
     torch.cuda.empty_cache()
@@ -442,7 +501,7 @@ def sinkhorn_phase():
                "library_ms": None}
         # the kernel's reads of Z over its time
         row["gbps"] = row["z_reads_per_iter"] * iters * 4 * b * m1 * n1p / row["ms"] / 1e6
-        rows[nb] = row
+        rows[(nb, b)] = row
         print(f"  sinkhorn {json.dumps(row)}", flush=True)
         del z, mu, nu
     torch.cuda.empty_cache()
@@ -542,8 +601,8 @@ def whole_path_phase(variables):
     phase("5 whole path kernels vs plain (f32, 2048)", t0)
 
 
-def fused_pairs(batch, seed0):
-    pairs = [synthetic_image_pair(seed0 + i, FUSED_FRAME) for i in range(batch)]
+def fused_pairs(batch, seed0, colour=False):
+    pairs = [synthetic_image_pair(seed0 + i, FUSED_FRAME, colour) for i in range(batch)]
     return (np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]),
             [p[2] for p in pairs])
 
@@ -608,12 +667,13 @@ def counts():
             "label_rounds": labels.launches}
 
 
-def timed_dispatches(m, batches, name):
+def timed_dispatches(m, batches, name, min_share=0.5):
     """Timed dispatches of `m` (one per batch after the first, a warm-up):
     launches per dispatch, matches and the share within 3 px, pairs/s and
     peak memory. Fails on a launch count other than 18 attention, 1
     Sinkhorn and 1 label-rounds per dispatch, a pair without matches,
-    non-finite scores or a correct share under 0.5."""
+    non-finite scores or a correct share under `min_share` (None: no
+    bound, for descriptors of untrained weights)."""
     imgs0, imgs1, _ = batches[0]
     m.collect_batch(m.dispatch_batch(imgs0, imgs1))  # warm-up
     torch.cuda.synchronize()
@@ -653,27 +713,34 @@ def timed_dispatches(m, batches, name):
             "matches_per_pair": n_all / pairs, "correct_share": share,
             "correct_share_per_pair": shares, "launches": launches}
     print(f"  fused {json.dumps(info)}", flush=True)
-    if not share >= 0.5:
-        raise AssertionError(f"{name}: {share} of matches within 3 px < 0.5")
+    if min_share is not None and not share >= min_share:
+        raise AssertionError(f"{name}: {share} of matches within 3 px < {min_share}")
     return launches
+
+
+def profiled(fn, names, label, tag):
+    """The stage split of one call of `fn` in a torch.profiler trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    stages, busy_ms = stage_split(prof, 1)
+    split = {"config": label, "profiled_ms": wall_ms, "device_busy_ms": busy_ms,
+             "idle_share": 1 - busy_ms / wall_ms,
+             "stages": {k: stages[k] for k in names if k in stages}}
+    print(f"  {tag} {json.dumps(split)}", flush=True)
+    missing = [k for k in names if k not in stages]
+    if missing:
+        raise AssertionError(f"{label}: stage ranges missing from the trace: {missing}")
 
 
 def profiled_dispatch(m, batch, names, label):
     """The stage split of one dispatch in a torch.profiler trace."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     imgs0, imgs1, _ = batch
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        m.collect_batch(m.dispatch_batch(imgs0, imgs1))
-        wall_ms = 1e3 * (time.perf_counter() - t)
-    stages, busy_ms = stage_split(prof, 1)
-    split = {"config": label, "profiled_dispatch_ms": wall_ms, "device_busy_ms": busy_ms,
-             "idle_share": 1 - busy_ms / wall_ms,
-             "stages": {k: stages[k] for k in names if k in stages}}
-    print(f"  fused stages {json.dumps(split)}", flush=True)
-    missing = [k for k in names if k not in stages]
-    if missing:
-        raise AssertionError(f"{label}: stage ranges missing from the trace: {missing}")
+    profiled(lambda: m.collect_batch(m.dispatch_batch(imgs0, imgs1)), names, label,
+             "fused stages")
 
 
 def fused_phase(variables, car_variables):
@@ -874,6 +941,224 @@ def devsift_phase(variables):
     return launches
 
 
+def check_request(pred, feats, name):
+    """A staged answer's structure: per side at most the detected keypoints,
+    each of them a detected one (none of the padding), finite scores, and
+    mutual matches within the kept sets."""
+    for s in "01":
+        kept = pred["keypoints" + s][0]
+        detected = {tuple(p) for p in feats[s]["kp"].pt.tolist()}
+        if not all(tuple(p) in detected for p in kept.tolist()):
+            raise AssertionError(f"{name}: a kept keypoint of side {s} was not detected")
+        k = kept.shape[0]
+        if pred["matches" + s].shape != (1, k) or pred["matching_scores" + s].shape != (1, k):
+            raise AssertionError(f"{name}: side {s} shapes")
+        if not np.all(np.isfinite(pred["matching_scores" + s])):
+            raise AssertionError(f"{name}: non-finite matching scores")
+    m0, m1 = pred["matches0"][0], pred["matches1"][0]
+    i = np.nonzero(m0 >= 0)[0]
+    if m0.max(initial=-1) >= len(m1) or not np.array_equal(m1[m0[i]], i) \
+            or int((m1 >= 0).sum()) != len(i):
+        raise AssertionError(f"{name}: matches are not mutual")
+
+
+def staged_request(m, pair, **extra):
+    return m({"image0": pair[0], "image1": pair[1], **STAGED_KNOBS, **extra})
+
+
+def staged_phase(variables):
+    """S1: the JAX staged bench's device-detector configuration, 8 pairs,
+    each pair's frontend overlapped with the previous request."""
+    t0 = time.perf_counter()
+    m = Matching(STAGED_CONFIG, variables=variables, device=DEVICE)
+    fe, mc = m.frontend.cfg, m.cfg.matcher
+    if not (mc.attention_dtype == "bfloat16" and mc.use_pallas_sinkhorn
+            and (fe.descriptor_source, fe.detector, fe.sift_descriptor, fe.interpolation,
+                 fe.warp_size) == ("sift", "device", "device", "linear", 32)):
+        raise AssertionError(f"staged S1 configuration on {DEVICE}: {fe} {mc}")
+    pairs = [synthetic_image_pair(500 + i, FUSED_FRAME) for i in range(STAGED_PAIRS + 1)]
+    staged_request(m, pairs[0], return_descriptors=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    preds = []
+    with record_labels("staged"), ThreadPoolExecutor(max_workers=1) as pool:
+        t = time.perf_counter()
+        fut = pool.submit(m.prepare_features, pairs[1][:2])
+        for i, pair in enumerate(pairs[1:]):
+            feats = fut.result()
+            if i + 1 < STAGED_PAIRS:
+                fut = pool.submit(m.prepare_features, pairs[i + 2][:2])
+            preds.append((staged_request(m, pair, features=feats, return_descriptors=False),
+                          feats, pair[2]))
+        elapsed = time.perf_counter() - t
+    launches = counts()
+    n = STAGED_PAIRS
+    if launches != {"attention": NUM_LAYERS * n, "sinkhorn": n, "label_rounds": n}:
+        raise AssertionError(f"staged S1 launches {launches}, expected {NUM_LAYERS} attention, "
+                             "1 Sinkhorn and 1 label-rounds per request")
+    # the same pairs one request after the other, frontends not overlapped
+    t = time.perf_counter()
+    for pair in pairs[1:]:
+        staged_request(m, pair, return_descriptors=False)
+    sequential = time.perf_counter() - t
+    n_good = n_all = 0
+    shares = []
+    for pred, feats, H in preds:
+        check_request(pred, feats, "staged S1")
+        k = int((pred["matches0"][0] >= 0).sum())
+        if k <= 0:
+            raise AssertionError("staged S1: a pair has no matches")
+        share = correct_share(pred, H)
+        shares.append(round(share, 4))
+        n_good += share * k
+        n_all += k
+    info = {"pairs": n, "ms_per_pair": 1e3 * elapsed / n, "pairs_per_s": n / elapsed,
+            "sequential_ms_per_pair": 1e3 * sequential / n,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "keypoints_per_image": [p[1]["0"]["n"] for p in preds],
+            "matches_per_pair": n_all / n, "correct_share": n_good / n_all,
+            "correct_share_per_pair": shares, "launches": launches,
+            "timings_last_pair_s": m.timings}
+    print(f"  staged {json.dumps(info)}", flush=True)
+    if not info["correct_share"] >= 0.5:
+        raise AssertionError(f"staged S1: {info['correct_share']} of matches within 3 px < 0.5")
+    profiled(lambda: staged_request(m, pairs[1]), STAGED_STAGES, "S1", "staged stages")
+    phase("10 staged image path S1 (Matching, device detector, SIFT on the card, 8 pairs)", t0,
+          launches=json.dumps(launches))
+    return launches, m
+
+
+def staged_sources_phase(s1, variables, e2e_variables, e2e_car):
+    """S2: every other descriptor source on 2 pairs, a Delaunay request, and
+    a carhynet request in f32 through the kernels and the plain versions."""
+    t0 = time.perf_counter()
+    pairs = [synthetic_image_pair(600 + i, FUSED_FRAME) for i in range(2)]
+    base = {k: v for k, v in STAGED_CONFIG.items()
+            if k not in ("fast_frontend", "descriptor_source", "sift_descriptor")}
+    sources = (("carhynet", {"descriptor_source": "carhynet"}),
+               ("carhynet fast", {"descriptor_source": "carhynet", "fast_frontend": True}),
+               ("dense", {"descriptor_source": "dense"}),
+               ("dense_gray", {"descriptor_source": "dense_gray"}))
+    ms = {}
+    for name, extra in sources:
+        frontend = None
+        mvars = variables
+        if name == "dense_gray":  # the joint end-to-end weights, matcher and CNN
+            frontend = FeatureFrontend(FrontendConfig(descriptor_source="dense_gray",
+                                                      detector="device"),
+                                       variables=e2e_car, device=DEVICE)
+            mvars = e2e_variables
+        m = ms[name] = Matching({**base, **extra}, variables=mvars, frontend=frontend,
+                                device=DEVICE)
+        fe = m.frontend.cfg
+        for i, pair in enumerate(pairs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            feats = m.prepare_features(pair[:2])
+            pred = staged_request(m, pair, features=feats)
+            ms_pair = 1e3 * (time.perf_counter() - t)
+            check_request(pred, feats, name)
+            row = {"source": name, "interpolation": fe.interpolation, "warp_size": fe.warp_size,
+                   "pair": i, "ms": ms_pair, "keypoints": [feats["0"]["n"], feats["1"]["n"]],
+                   "kept": [pred["keypoints0"].shape[1], pred["keypoints1"].shape[1]],
+                   "matches": int((pred["matches0"][0] >= 0).sum()),
+                   "correct_share": round(correct_share(pred, pair[2]), 4),
+                   "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "timings_s": m.timings}
+            print(f"  staged {json.dumps(row)}", flush=True)
+    profiled(lambda: staged_request(ms["carhynet"], pairs[0]), CARHYNET_STAGED_STAGES,
+             "S2 carhynet", "staged stages")
+    # D-GIMS: the Delaunay graph keeps every detected keypoint
+    feats = s1.prepare_features(pairs[0][:2])
+    pred = staged_request(s1, pairs[0], features=feats, delaunay=True)
+    check_request(pred, feats, "delaunay")
+    kept = [pred["keypoints0"].shape[1], pred["keypoints1"].shape[1]]
+    info = {"delaunay_kept": kept, "detected": [feats["0"]["n"], feats["1"]["n"]],
+            "matches": int((pred["matches0"][0] >= 0).sum())}
+    print(f"  staged {json.dumps(info)}", flush=True)
+    if kept != info["detected"] or info["matches"] <= 0:
+        raise AssertionError(f"delaunay request: {info}")
+    # one carhynet request in f32, kernels against plain, on the same features
+    frontend = ms["carhynet"].frontend
+    feats = ms["carhynet"].prepare_features(pairs[1][:2])
+    runs = {}
+    for run, impl, kernel in (("kernels", "auto", True), ("plain", "flash", False)):
+        m = Matching({**base, "attention_dtype": "float32", "attention_impl": impl,
+                      "use_pallas_sinkhorn": kernel}, variables=variables, frontend=frontend,
+                     device=DEVICE)
+        a0, s0 = cuda_attention.launches, cuda_sinkhorn.launches
+        runs[run] = staged_request(m, pairs[1], features=feats)
+        launched = (cuda_attention.launches - a0, cuda_sinkhorn.launches - s0)
+        if launched != ((NUM_LAYERS, 1) if kernel else (0, 0)):
+            raise AssertionError(f"staged carhynet f32 {run} run launched {launched}")
+    k, p = runs["kernels"], runs["plain"]
+    diff = {key: int((k[key] != p[key]).sum()) if k[key].shape == p[key].shape else -1
+            for key in ("keypoints0", "keypoints1", "matches0", "matches1")}
+    dscore = max(float(np.abs(k[f"matching_scores{s}"] - p[f"matching_scores{s}"]).max(
+        initial=0.0)) for s in "01")
+    info = {"path": "staged carhynet", "differing": diff, "max_score_diff": dscore,
+            "matches": int((k["matches0"][0] >= 0).sum()),
+            "kept": [k["keypoints0"].shape[1], k["keypoints1"].shape[1]]}
+    print(f"  whole path f32 {json.dumps(info)}", flush=True)
+    if any(diff.values()):
+        raise AssertionError(f"staged carhynet: kernel and plain outputs differ: {info}")
+    if not dscore <= 1e-3:
+        raise AssertionError(f"staged carhynet: matching_scores differ by {dscore} > 1e-3")
+    del ms, runs
+    torch.cuda.empty_cache()
+    phase("11 staged image path S2 (carhynet, dense, dense_gray, delaunay; f32 kernels vs plain)",
+          t0)
+
+
+def fused_colour_phase(variables):
+    """The fused colour sources at the JAX defaults: timed dispatches, the
+    stage split, a dispatch with no host question, and one batch in f32
+    through the kernels and the plain versions."""
+    t0 = time.perf_counter()
+    total = {}
+    budgets = fused.octave_budgets(*FUSED_FRAME, COLOUR_KEYPOINTS, True)
+    for source in ("carhynet", "dense"):
+        m = fused.FusedMatching({**COLOUR_CONFIG, "descriptor_source": source},
+                                variables=variables, total_keypoints=COLOUR_KEYPOINTS,
+                                device=DEVICE)
+        rc = m.resolved_config()
+        if not (rc["matcher"]["use_pallas_sinkhorn"] and rc["agc"]["agc_impl"] == "band"
+                and rc["compact_to"] == COLOUR_COMPACT and rc["frontend"]["upsample"]
+                and rc["descriptor_in_channels"] == 3
+                and rc["frontend"]["warp_size"] == 32):
+            raise AssertionError(f"FusedMatching {source} on {DEVICE}: {rc}")
+        batches = [fused_pairs(COLOUR_BATCH, 700 + 10 * i, colour=True)
+                   for i in range(FUSED_TIMED + 1)]
+        with record_labels("fused_" + source):
+            total[source] = timed_dispatches(m, batches, source, min_share=None)
+        profiled_dispatch(m, batches[1], COLOUR_STAGES[source], source)
+        # no host question from the upload to the readout
+        i0, i1 = (torch.from_numpy(x).to(DEVICE) for x in batches[-1][:2])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fused.fused_match_batch(m.model, m.car_model, m.acfg, m.fe, budgets, i0, i1,
+                                          *FUSED_FRAME, m.compact_transport, m.compact_to)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        m.collect_batch(out)
+        print(f"  fused {source}: one dispatch under set_sync_debug_mode(\"error\")", flush=True)
+        imgs0, imgs1, _ = fused_pairs(COLOUR_BATCH, 990, colour=True)
+        imgs = torch.from_numpy(np.concatenate([imgs0, imgs1])).to(DEVICE)
+        fe = dataclasses.replace(m.fe, dense_dtype="float32")
+        with torch.no_grad():  # (m's dispatches are not used after this)
+            kp, sc, va, de = fused._extract_side(imgs, budgets, fe, m.car_model.float())
+        matcher_vs_plain(m, kp, sc, va, de, COLOUR_BATCH, FUSED_FRAME, COLOUR_COMPACT,
+                         "fused " + source)
+        del m, kp, sc, va, de, imgs, i0, i1, out
+        torch.cuda.empty_cache()
+    phase("12 fused colour sources (carhynet, dense; 4 pairs per dispatch, 12288 keypoints)",
+          t0, launches=json.dumps(total))
+    return total
+
+
 def label_phase():
     """The label-rounds kernel against its plain version on the recorded
     inputs; times of both."""
@@ -899,22 +1184,26 @@ def label_phase():
         if err != 0 or not 1 <= run <= rounds + 1:
             raise AssertionError(f"label-rounds kernel against plain: {row}")
         rows[path] = row
-    phase("10 label-rounds kernel vs plain", t0)
+    phase("13 label-rounds kernel vs plain", t0)
     return rows
 
 
 def kernel_rows(attn, sk, lab, path_launches):
     """The `kernels` line: K1, K2 and the label-rounds kernel at each path's
-    shapes, with that path's main-run launch counts."""
+    shapes, with that path's main-run launch counts (the fused colour paths
+    share devsift's K1 and K2 shapes: 4 pairs compacted to 6144)."""
     no_library = ("none: no single PyTorch call computes the Sinkhorn "
                   "iterations' potentials")
     rows = []
     for suffix, attn_case, sk_case, label_path in (
             ("", ATTN_CASES[1], SINKHORN_CASES[1], "matching"),
             ("_fused_path", ATTN_CASES[3], SINKHORN_CASES[3], "fused_B"),
-            ("_devsift_path", ATTN_CASES[4], SINKHORN_CASES[4], "devsift")):
-        _, n, m, _ = attn_case
-        a, s = attn[(n, m, "bfloat16")], sk[sk_case[0]]
+            ("_devsift_path", ATTN_CASES[4], SINKHORN_CASES[4], "devsift"),
+            ("_staged_image_path", ATTN_CASES[5], SINKHORN_CASES[5], "staged"),
+            ("_fused_carhynet_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_carhynet"),
+            ("_fused_dense_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_dense")):
+        b, n, m, _ = attn_case
+        a, s = attn[(b, n, m, "bfloat16")], sk[(sk_case[0], len(sk_case[1]))]
         c = path_launches[suffix]
         rows += [
             {"name": "masked_attention" + suffix, "route": "cuda",
@@ -950,13 +1239,23 @@ def main():
     del kp, de, va, fms
     torch.cuda.empty_cache()
     devsift_launches = devsift_phase(load_gims_checkpoint(WEIGHTS))
+    torch.cuda.empty_cache()
+    staged_launches, s1 = staged_phase(load_gims_checkpoint(WEIGHTS))
+    staged_sources_phase(s1, load_gims_checkpoint(WEIGHTS), load_gims_checkpoint(E2E_WEIGHTS),
+                         load_car_checkpoint(E2E_CAR_WEIGHTS))
+    del s1
+    torch.cuda.empty_cache()
+    colour_launches = fused_colour_phase(load_gims_checkpoint(WEIGHTS))
     lab = label_phase()
 
     t0 = time.perf_counter()
     rows = kernel_rows(attn, sk, lab, {"": launches, "_fused_path": fused_launches,
-                                       "_devsift_path": devsift_launches})
+                                       "_devsift_path": devsift_launches,
+                                       "_staged_image_path": staged_launches,
+                                       "_fused_carhynet_path": colour_launches["carhynet"],
+                                       "_fused_dense_path": colour_launches["dense"]})
     print(json.dumps({"kernels": rows}), flush=True)
-    phase("11 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
+    phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

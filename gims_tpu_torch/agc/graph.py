@@ -23,7 +23,8 @@ whose rounds stop at the first round that changes no label, on the card.
 
 Every function takes a batch of keypoint sets with a leading batch axis
 (the builds also take one set without it). Adjacency is a dense (B, N, N)
-bool tensor.
+bool tensor. D-GIMS replaces the build by a Delaunay triangulation on the
+host (``delaunay_adjacency_host``, scipy).
 """
 
 from __future__ import annotations
@@ -604,3 +605,26 @@ def band_coverage(kpts: torch.Tensor, valid: torch.Tensor, radius: float,
     out = int((in_radius & (gap > band_halfwidth)).sum())
     return {"pairs_in_radius": total, "pairs_outside_window": out,
             "coverage": float(1.0 - out / total) if total > 0 else 1.0}
+
+
+def delaunay_adjacency_host(kpts, valid) -> np.ndarray:
+    """Host-side Delaunay adjacency of one keypoint set (D-GIMS).
+
+    Reference: agc.py:718-752. scipy's Delaunay over the valid keypoints;
+    the simplex edges scattered into a dense (N, N) bool matrix. All nodes
+    are kept (the reference's own Delaunay inference path raises a
+    NameError at gmatcher.py:250)."""
+    from scipy.spatial import Delaunay
+
+    kpts = np.asarray(kpts)
+    valid = np.asarray(valid, bool)
+    n = kpts.shape[0]
+    adj = np.zeros((n, n), dtype=bool)
+    pts_idx = np.nonzero(valid)[0]
+    if pts_idx.shape[0] >= 3:
+        s = Delaunay(kpts[pts_idx]).simplices  # (T, 3) indices into pts_idx
+        for a, b in ((0, 1), (0, 2), (1, 2)):
+            ia, ib = pts_idx[s[:, a]], pts_idx[s[:, b]]
+            adj[ia, ib] = True
+            adj[ib, ia] = True
+    return adj

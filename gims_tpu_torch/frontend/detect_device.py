@@ -1,7 +1,7 @@
-"""DoG keypoint candidates on the device, for batches of gray images.
+"""DoG keypoint detection on the device, for batches of images.
 
-Port of the parts of ``gims_tpu/frontend/detect_device.py`` that the fused
-dense_gray and devsift paths run:
+Port of ``gims_tpu/frontend/detect_device.py``, the fused paths' candidate
+maps and the staged path's per-image detector (``detect_device``):
 
   1. gray base (BGR2GRAY weights, or an already-gray image), optional 2x
      bilinear upsample (OpenCV firstOctave = -1), initial blur to sigma 1.6;
@@ -10,8 +10,10 @@ dense_gray and devsift paths run:
   3. DoG; 26-neighbour extrema by 3x3 max/min pooling over scale triplets;
   4. one dense Newton step of the 3x3x3 quadratic fit per pixel with
      OpenCV's contrast and edge tests;
-  5. for devsift, an orientation per pixel of detection layers 1..3 from
-     Gaussian-smoothed central gradients (``_orientation_maps``).
+  5. an orientation per pixel of detection layers 1..3 from
+     Gaussian-smoothed central gradients (``_orientation_maps``);
+  6. for the staged path, a top-k per octave by |contrast|, then a global
+     top-k to the keypoint budget (``detect_device_padded``).
 
 The blurs are separable f32 convolutions with REFLECT_101 borders
 (``pyramid.sep_blur``, TF32 off). The JAX package runs them as banded
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.frontend.pyramid import (
     N_OCTAVE_LAYERS,
     SIGMA,
@@ -178,3 +181,104 @@ def top_k_stable(score: torch.Tensor, k: int):
     selects exactly and claims no recall figure for it."""
     vals, idx = torch.sort(score, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def detect_device_padded(images_u8: torch.Tensor, max_keypoints: int,
+                         contrast_threshold: float = 0.001,
+                         edge_threshold: float = 80.0):
+    """Full detection of a batch, on the images' device. uint8 (B, H, W, 3)
+    BGR or (B, H, W) gray -> dict of padded (B, K) tensors, K =
+    max_keypoints: pt (B, K, 2) input-image xy, size, angle, response (f32),
+    octave (unpacked, >= -1), layer (i32), scale (f32), valid (bool).
+
+    Each octave keeps its top min(K, 3 H_o W_o) candidates by |contrast|,
+    padded to K with score -1; a global top-K over all octaves follows. Both
+    selections are ``top_k_stable`` (ties by lower index, as
+    ``jax.lax.top_k``). The valid keypoints form a prefix; padded entries sit
+    at 1e6 with size 1, angle 0, octave 0, layer 1 and scale 1."""
+    octaves = gray_pyramid(images_u8, upsample=True)
+    b = images_u8.shape[0]
+    k_total = max_keypoints
+    vals, attrs = [], []
+    for o, gauss in enumerate(octaves):
+        cand = _octave_candidates(gauss, contrast_threshold, edge_threshold,
+                                  _orientation_maps(gauss))
+        _, _, hh, wh = cand["score"].shape
+        score = cand["score"].reshape(b, -1)
+        k_o = min(k_total, score.shape[1])
+        top_v, top_i = top_k_stable(score, k_o)
+        li = top_i // (hh * wh)
+        rem = top_i % (hh * wh)
+        yi = rem // wh
+        xi = rem % wh
+
+        def g(name, top_i=top_i):
+            return torch.gather(cand[name].reshape(b, -1), 1, top_i)
+
+        layer = (li + 1).int()  # detection layers are dog[1..3]
+        scale_mult = float(2 ** (o - 1))  # 2^o * 0.5 (firstOctave = -1)
+        px = (xi.float() + g("offx")) * scale_mult
+        py = (yi.float() + g("offy")) * scale_mult
+        size = SIGMA * 2.0 ** ((layer.float() + g("offs")) / N_OCTAVE_LAYERS) * float(2 ** o)
+        ang = g("angle")
+        if k_o < k_total:
+            pad = k_total - k_o
+
+            def padded(x, fill=0):
+                return torch.cat([x, x.new_full((b, pad), fill)], dim=1)
+
+            top_v, px, py, size, ang, layer = (
+                padded(top_v, -1.0), padded(px), padded(py), padded(size),
+                padded(ang), padded(layer))
+        vals.append(top_v)
+        attrs.append({
+            "px": px, "py": py, "size": size, "angle": ang, "layer": layer,
+            "octave": layer.new_full((b, k_total), o - 1),
+            "scale": px.new_full((b, k_total), float(2 ** (1 - o))),
+        })
+
+    top_v, top_i = top_k_stable(torch.cat(vals, dim=1), k_total)
+    stacked = {k: torch.gather(torch.cat([a[k] for a in attrs], dim=1), 1, top_i)
+               for k in attrs[0]}
+    valid = top_v > 0
+    pt = torch.stack([stacked["px"], stacked["py"]], dim=-1)
+    return {
+        "pt": torch.where(valid[..., None], pt, 1e6),
+        "size": torch.where(valid, stacked["size"], 1.0),
+        "angle": torch.where(valid, stacked["angle"], 0.0),
+        "response": torch.where(valid, top_v, 0.0),
+        "octave": torch.where(valid, stacked["octave"], 0),
+        "layer": torch.where(valid, stacked["layer"], 1),
+        "scale": torch.where(valid, stacked["scale"], 1.0),
+        "valid": valid,
+    }
+
+
+# the padded fields read back by detect_device after pt, the mask last
+_READBACK_COLUMNS = ("size", "angle", "response", "octave", "layer", "scale", "valid")
+
+
+def detect_device(image_u8: np.ndarray, max_keypoints: int,
+                  contrast_threshold: float = 0.001,
+                  edge_threshold: float = 80.0, device=None):
+    """One host image (H, W, 3) BGR or (H, W) gray uint8 -> (KeypointArrays
+    of the valid prefix, the padded dict of ``detect_device_padded`` with
+    batch 1, on `device`: ``cuda`` unless the caller passes another). Reads
+    the padded result back to the host in one copy, as the JAX package's
+    ``device_get`` does: the fields go as the columns of one f32 array
+    (octave, layer and the mask are small integers, exact in f32)."""
+    from gims_tpu_torch.frontend.sift import KeypointArrays
+
+    dev = resolve_device(device)
+    img = torch.from_numpy(np.ascontiguousarray(image_u8))[None].to(dev)
+    out = detect_device_padded(img, int(max_keypoints), float(contrast_threshold),
+                               float(edge_threshold))
+    cols = [out["pt"][0]] + [out[k][0, :, None].float() for k in _READBACK_COLUMNS]
+    host = torch.cat(cols, dim=1).cpu().numpy()
+    m = host[:, -1] > 0
+    f = {k: host[m, 2 + i] for i, k in enumerate(_READBACK_COLUMNS)}
+    kp = KeypointArrays(pt=np.ascontiguousarray(host[m, :2]), size=f["size"],
+                        angle=f["angle"], response=f["response"],
+                        octave=f["octave"].astype(np.int32),
+                        layer=f["layer"].astype(np.int32), scale=f["scale"])
+    return kp, out

@@ -1,10 +1,12 @@
-"""Gaussian pyramid constants and helpers, OpenCV-SIFT-compatible.
+"""Gaussian pyramids, OpenCV-SIFT-compatible.
 
-Port of the parts of ``gims_tpu/frontend/pyramid.py`` that the device
-detector needs (reference: utils/library.py:234-293): nOctaveLayers + 3 = 6
-layers per octave, sigma 1.6, incremental blurs
-sig_i = sqrt((1.6 k^i)^2 - (1.6 k^{i-1})^2) with k = 2^(1/3), and the 2x
-bilinear upsample of OpenCV's firstOctave = -1.
+Port of ``gims_tpu/frontend/pyramid.py`` without its cv2 test reference
+(reference: utils/library.py:234-293): nOctaveLayers + 3 = 6 layers per
+octave, sigma 1.6, incremental blurs sig_i = sqrt((1.6 k^i)^2 -
+(1.6 k^{i-1})^2) with k = 2^(1/3), the 2x bilinear upsample of OpenCV's
+firstOctave = -1, and the colour pyramid that the patch warp and the
+colour dense descriptors read (``build_pyramid_device``,
+``pyramid_from_uint8``). A BGR image keeps its channel order throughout.
 """
 
 from __future__ import annotations
@@ -117,3 +119,44 @@ def sep_blur(x: torch.Tensor, kern: np.ndarray) -> torch.Tensor:
         xp = F.conv2d(xp, kt.reshape(1, 1, k, 1))
         xp = F.conv2d(xp, kt.reshape(1, 1, 1, k))
     return xp[:, 0]
+
+
+def build_pyramid_device(base: torch.Tensor, n_oct: int,
+                         n_layers: int = N_OCTAVE_LAYERS + 3):
+    """base (B, H, W, C) f32, the already 2x-upsampled images -> a list of
+    n_oct tensors, octave o shaped (B, n_layers, H_o, W_o, C), channels
+    last as the patch warp's quad rows want them.
+
+    Layer i blurs layer i - 1 by the incremental sigma i; octave o + 1 is
+    seeded by layer N_OCTAVE_LAYERS of octave o taken at [::2, ::2]. n_layers
+    may be trimmed to N_OCTAVE_LAYERS + 1 = 4 when only the keypoint layers
+    1..3 are read (the colour dense descriptors): layer 3 still seeds the
+    next octave, so the chain is unchanged. Each channel blurs alone."""
+    return _colour_octaves(base.permute(0, 3, 1, 2), n_oct, n_layers)
+
+
+def pyramid_from_uint8(images_u8: torch.Tensor, n_layers: int = N_OCTAVE_LAYERS + 3):
+    """uint8 (B, H, W, C) -> the upsampled base -> ``build_pyramid_device``
+    over num_octaves(2H, 2W) octaves."""
+    _, h, w, _ = images_u8.shape
+    base = upsample2x(images_u8.permute(0, 3, 1, 2))
+    return _colour_octaves(base, num_octaves(2 * h, 2 * w), n_layers)
+
+
+def _colour_octaves(base: torch.Tensor, n_oct: int, n_layers: int):
+    """``build_pyramid_device`` on a (B, C, H, W) base."""
+    if n_layers < N_OCTAVE_LAYERS + 1:
+        raise ValueError("need layers through N_OCTAVE_LAYERS to seed octaves")
+    b, c, h, w = base.shape
+    kerns = [gaussian_kernel_1d(s) for s in blur_sigmas()]
+    img = base.float().reshape(b * c, h, w)
+    octaves = []
+    for _ in range(n_oct):
+        layers = [img]
+        for i in range(1, n_layers):
+            layers.append(sep_blur(layers[-1], kerns[i]))
+        ho, wo = img.shape[-2:]
+        stack = torch.stack(layers, dim=1).reshape(b, c, n_layers, ho, wo)
+        octaves.append(stack.permute(0, 2, 3, 4, 1).contiguous())
+        img = layers[N_OCTAVE_LAYERS][:, ::2, ::2]
+    return octaves

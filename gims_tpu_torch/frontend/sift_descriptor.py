@@ -1,11 +1,12 @@
 """SIFT descriptors on the device, for batches of keypoints.
 
-Port of the parts of ``gims_tpu/frontend/sift_descriptor.py`` that the
-fused devsift path runs. OpenCV's calcSIFTDescriptor walks every integer
-pixel within a rotated, scale-proportional radius and votes gradient
-magnitudes trilinearly into a 4x4x8 histogram; a radius that depends on the
-keypoint is a shape that depends on the data, so the walk becomes a fixed
-S x S grid of samples, uniform in the rotated histogram frame:
+Port of ``gims_tpu/frontend/sift_descriptor.py``: the fused devsift
+path's chunks, and ``describe_device`` for the staged path's keypoints.
+OpenCV's calcSIFTDescriptor walks every integer pixel within a rotated,
+scale-proportional radius and votes gradient magnitudes trilinearly into a
+4x4x8 histogram; a radius that depends on the keypoint is a shape that
+depends on the data, so the walk becomes a fixed S x S grid of samples,
+uniform in the rotated histogram frame:
 
   1. gradient maps of pyramid layers 1..3 (cv2's differences, zero on the
      border ring), stored as "quad blocks": entry (l, qy, qx) holds the 2x2
@@ -27,8 +28,8 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from gims_tpu_torch.frontend.patches import quad_blocks_from_levels  # noqa: F401
 from gims_tpu_torch.frontend.pyramid import device_constant
 
 D = 4                 # SIFT_DESCR_WIDTH
@@ -56,16 +57,6 @@ def grad_levels(gauss: torch.Tensor) -> torch.Tensor:
     dy[..., 0] = 0.0
     dy[..., -1] = 0.0
     return torch.stack([dx, dy], dim=-1)
-
-
-def quad_blocks_from_levels(levels: torch.Tensor) -> torch.Tensor:
-    """(B, L, h, w, C) -> (B, L, h+1, w+1, 4C): entry (qy, qx) holds the 2x2
-    block at original (qy - 1, qx - 1), zero-padded, taps in the order
-    (dy, dx) = (0,0), (0,1), (1,0), (1,1), channels inner."""
-    h, w = levels.shape[2:4]
-    p = F.pad(levels, (0, 0, 1, 1, 1, 1))
-    return torch.cat([p[:, :, 0:h + 1, 0:w + 1], p[:, :, 0:h + 1, 1:w + 2],
-                      p[:, :, 1:h + 2, 0:w + 1], p[:, :, 1:h + 2, 1:w + 2]], dim=-1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -154,3 +145,40 @@ def _descr_chunk(grad_quads, h: int, w: int, level_idx, px, py, scl, angle, vali
     desc = torch.matmul(votes.transpose(-1, -2), m)          # (B, k, 8, 16)
     desc = desc.transpose(-1, -2).reshape(b, k, D * D * NBINS)  # (r*4+c)*8+o, cv2's order
     return _finalize(desc) * valid[..., None]
+
+
+def describe_device(pyramid_gray, kp, out_bucket: int, s: int = SAMPLES) -> torch.Tensor:
+    """All keypoints of one image -> (out_bucket, 128) f32 SIFT descriptors
+    (cv2's integer range) on the pyramid's device; rows past the keypoints
+    stay 0.
+
+    pyramid_gray: the (6, H_o, W_o) gray octaves of one image (the detection
+    pyramid, firstOctave = -1: index = kp.octave + 1). The host groups the
+    keypoints by octave; each octave's f32 gradient table is built once and
+    its keypoints described in chunks of DESC_CHUNK, each written to its rows
+    of the output."""
+    n = len(kp)
+    dev = pyramid_gray[0].device
+    out = torch.zeros((out_bucket, D * D * NBINS), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    oct_index = kp.octave + 1
+    cols = np.stack([kp.layer - 1.0, kp.pt[:, 0] * kp.scale, kp.pt[:, 1] * kp.scale,
+                     kp.size * kp.scale * 0.5, kp.angle]).astype(np.float32)
+    for o in range(len(pyramid_gray)):
+        sel = np.nonzero(oct_index == o)[0]
+        sel = sel[sel < out_bucket]
+        if sel.size == 0:
+            continue
+        gauss = pyramid_gray[o][None]
+        quads = quad_blocks_from_levels(grad_levels(gauss))
+        lvh, lvw = gauss.shape[-2:]
+        c = torch.from_numpy(cols[:, sel]).to(dev)
+        lv = c[0].int()
+        rows = torch.from_numpy(sel).to(dev)
+        for i in range(0, sel.size, DESC_CHUNK):
+            part = slice(i, i + DESC_CHUNK)
+            px, py, scl, ang = (x[None, part] for x in c[1:])
+            out[rows[part]] = _descr_chunk(quads, lvh, lvw, lv[None, part], px, py, scl, ang,
+                                           torch.ones_like(px), s)[0]
+    return out

@@ -1,15 +1,19 @@
-"""Fused pair matching: uint8 gray image pairs in, matches out.
+"""Fused pair matching: uint8 image pairs in, matches out.
 
-Port of the dense_gray and devsift paths of ``gims_tpu/fused.py``, the two
-configurations the JAX package's bench runs. A batch of pairs goes through
-each stage as one batch:
+Port of ``gims_tpu/fused.py``. A batch of pairs goes through each stage as
+one batch:
 
   gray pyramid -> dense DoG candidates (frontend/detect_device.py)
   -> per-octave top-k keypoint budgets (static shapes, masks for validity)
   -> descriptors, by `descriptor_source`:
-     "dense_gray": the gray CAR-HyNet over pyramid layers 1..3 of each
-       octave, fully convolutionally, and bilinear sampling at the
-       keypoints;
+     "carhynet" (the default, the reference's frontend): orientation maps,
+       the colour pyramid, the affine patch warp of every keypoint
+       (frontend/patches.py), then CAR-HyNet over all the patches;
+     "dense": the colour CAR-HyNet over layers 1..3 of every octave of the
+       colour pyramid (4 layers per octave), fully convolutionally, and
+       bilinear sampling at the keypoints;
+     "dense_gray": the gray CAR-HyNet over the detection pyramid's layers
+       1..3 of each octave, and bilinear sampling;
      "devsift": orientation maps, then SIFT descriptors from the
        pyramid's gradients (frontend/sift_descriptor.py), no CNN;
   -> AGC (dense or band build) -> trunk compaction to the kept keypoints
@@ -19,8 +23,8 @@ each stage as one batch:
 Per-octave budgets replace a global response sort: octave o gets a fixed
 share of the keypoint budget, its candidates are picked by within-octave
 top-k, and downstream masks treat the concatenation as any padded keypoint
-set. The patch-warp and colour-dense descriptor sources and the
-multi-device split are not ported yet and raise.
+set. The colour sources take (B, H, W, 3) BGR images and need the
+2x-upsampled base. The multi-device split is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -45,19 +49,37 @@ from gims_tpu_torch.frontend.detect_device import (
     gray_pyramid,
     top_k_stable,
 )
-from gims_tpu_torch.frontend.pyramid import N_OCTAVE_LAYERS, SIGMA, num_octaves
-from gims_tpu_torch.frontend.sift_descriptor import (
-    DESC_CHUNK,
-    _descr_chunk,
-    grad_levels,
+from gims_tpu_torch.frontend.patches import (
+    FLT_EPSILON,
+    WARP_SIZE,
+    _chunk_for,
+    _warp_chunk,
     quad_blocks_from_levels,
+    quad_rows_from_levels,
 )
+from gims_tpu_torch.frontend.pyramid import (
+    N_OCTAVE_LAYERS,
+    SIGMA,
+    num_octaves,
+    pyramid_from_uint8,
+)
+from gims_tpu_torch.frontend.sift_descriptor import DESC_CHUNK, _descr_chunk, grad_levels
 from gims_tpu_torch.matcher import pipeline
 from gims_tpu_torch.matcher.convert import load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TODO = "is not ported yet; see ROADMAP.md"
+SOURCES = ("carhynet", "dense", "dense_gray", "devsift")
+COLOUR_SOURCES = ("carhynet", "dense")
+# patches per call of the patch CAR-HyNet: one activation of its first
+# layers is 32 channels x 32 x 32 f32, 128 KiB a patch, so a call's
+# activations stay near 2 GiB whatever the batch and keypoint budget
+PATCH_CNN_CHUNK = 16384
+# level pixels per call of a dense CAR-HyNet: 2^25 pixels keep one 32-channel
+# activation at 2 GiB in bf16 (the colour source runs it over the
+# 2x-upsampled octave of every image: 24 levels of 1200x1600 per 4 pairs)
+DENSE_CNN_PIXELS = 1 << 25
 
 
 def octave_budgets(h: int, w: int, total: int,
@@ -112,6 +134,55 @@ def _dense_sample(maps, px, py, layer, valid,
     return acc / norm
 
 
+def _device_inverse_affines(px, py, size_oct, angle):
+    """``patches.inverse_affines`` on the device in octave coordinates:
+    px, py in octave pixels, size_oct the keypoint size at octave resolution
+    (size * scale); any leading shape -> (..., 2, 3)."""
+    step = size_oct * 0.5
+    ang = 360.0 - angle
+    ang = torch.where((ang - 360.0).abs() < FLT_EPSILON, 0.0, ang)
+    phi = torch.deg2rad(ang)
+    s, c = torch.sin(phi), torch.cos(phi)
+    r = (WARP_SIZE - 1) / 2.0
+    l00 = c * step
+    l01 = s * step
+    l10 = -s * step
+    l11 = c * step
+    tx = px - (l00 + l01) * r
+    ty = py - (l10 + l11) * r
+    row0 = torch.stack([l00, l01, tx], dim=-1)
+    row1 = torch.stack([l10, l11, ty], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def _warp_octave(levels, px, py, layer, offs, angle, fe: FrontendConfig):
+    """Patches of one octave's keypoints (B, K) -> (B, K, 32*32*C) in
+    [0, 1]. levels (B, 6, H, W, C) is the octave of the colour pyramid; the
+    batch folds into the level stack of one set of quad rows, and all B*K
+    keypoints are warped in chunks (the rows are independent)."""
+    b, nl, h, w, c = levels.shape
+    k = px.shape[1]
+    size_oct = SIGMA * 2.0 ** ((layer.float() + offs) / N_OCTAVE_LAYERS) * 2.0
+    ainv = _device_inverse_affines(px, py, size_oct, angle).reshape(b * k, 2, 3)
+    lidx = (torch.arange(b, device=px.device)[:, None] * nl + layer).reshape(-1)
+    quads = quad_rows_from_levels(levels.reshape(b * nl, h, w, c))
+    chunk = _chunk_for(fe.warp_size, c, px.device)
+    out = torch.cat([_warp_chunk(quads, h, w, c, lidx[i:i + chunk], ainv[i:i + chunk],
+                                 fe.interpolation, fe.warp_size)
+                     for i in range(0, b * k, chunk)])
+    return (out / 255.0).reshape(b, k, -1)
+
+
+def _patch_descriptors(car_model: CARHyNet, patches):
+    """(B, T, 32*32*C) patches -> (B, T, 128) patch-mode CAR-HyNet
+    descriptors, in calls of PATCH_CNN_CHUNK patches (each patch's
+    statistics are its own, so the split changes nothing)."""
+    b, t, _ = patches.shape
+    flat = patches.reshape(b * t, 32, 32, -1).permute(0, 3, 1, 2)
+    return torch.cat([car_model(flat[i:i + PATCH_CNN_CHUNK])
+                      for i in range(0, b * t, PATCH_CNN_CHUNK)]).reshape(b, t, -1)
+
+
 def _devsift_describe(octs, o, fe: FrontendConfig, tables, px, py, layer, offs, angle,
                       valid):
     """SIFT descriptors of octave o's keypoints (B, K) -> (B, K, 128), unit
@@ -146,51 +217,71 @@ def _devsift_describe(octs, o, fe: FrontendConfig, tables, px, py, layer, offs, 
 
 
 def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: Optional[CARHyNet]):
-    """(B, H, W) uint8 gray images -> keypoints (B, T, 2) in input pixels
-    (1e6 where invalid), scores (B, T), valid (B, T), descriptors (B, T, 256),
-    T = sum(budgets).
+    """(B, H, W) uint8 gray or (B, H, W, 3) BGR images -> keypoints (B, T, 2)
+    in input pixels (1e6 where invalid), scores (B, T), valid (B, T),
+    descriptors (B, T, 256), T = sum(budgets).
 
     dense_gray: the gray CAR-HyNet runs over the detection pyramid's layers
     `fe.dense_layers` of every octave from `first_map_oct` on while the
     octave is at least 16 px on its short side; an octave without maps
     samples the nearest one that has them at scaled coordinates. With the
-    2x-upsampled base, octave 0 gets no maps of its own. devsift
-    (`car_model` None): orientation maps per octave and SIFT descriptors
-    from the pyramid's gradients."""
-    devsift = fe.descriptor_source == "devsift"
+    2x-upsampled base, octave 0 gets no maps of its own. dense: the colour
+    CAR-HyNet over layers 1..3 of every octave of the colour pyramid.
+    carhynet: every keypoint's patch warped from its octave and layer of the
+    colour pyramid at its orientation (the range gims.frontend.warp), then
+    the patch CAR-HyNet over all of them. devsift (`car_model` None):
+    orientation maps per octave and SIFT descriptors from the pyramid's
+    gradients."""
+    source = fe.descriptor_source
+    devsift = source == "devsift"
+    oriented = source in ("devsift", "carhynet")
+    b = images_u8.shape[0]
     with record_function("gims.frontend.pyramid"):
         octs = gray_pyramid(images_u8, fe.upsample)
-    b = images_u8.shape[0]
+        if source in COLOUR_SOURCES:
+            # dense reads layers 1..3 only; layer 3 still seeds the next octave
+            octs_colour = pyramid_from_uint8(
+                images_u8, N_OCTAVE_LAYERS + (1 if source == "dense" else 3))
     maps = {}
-    if not devsift:
+    if source in ("dense_gray", "dense"):
         ddt = _DTYPES[fe.dense_dtype]
-        if fe.upsample:
+        gray = source == "dense_gray"
+        if not gray:
+            first_map_oct = 0
+        elif fe.upsample:
             first_map_oct = 1 if len(octs) > 1 else 0
         else:
             first_map_oct = min(fe.dense_first_map_oct, len(octs) - 1)
-        layers = list(fe.dense_layers)
+        layers = list(fe.dense_layers) if gray else [1, 2, 3]
         with record_function("gims.frontend.cnn"):
             for o in range(first_map_oct, len(octs)):
                 ho, wo = octs[o].shape[-2:]
-                if min(ho, wo) < 16:
+                if gray and min(ho, wo) < 16:
                     break
-                levels = octs[o][:, layers].reshape(b * len(layers), 1, ho, wo)
-                x = levels.to(ddt) / 255.0
-                if x.is_cuda:
-                    x = x.contiguous(memory_format=torch.channels_last)
-                m = car_model(x)                                 # (B*L, mh, mw, D)
+                if gray:
+                    levels = octs[o][:, layers].reshape(b * len(layers), 1, ho, wo)
+                else:
+                    levels = octs_colour[o][:, 1:4].reshape(b * 3, ho, wo, 3).permute(0, 3, 1, 2)
+                step = max(1, DENSE_CNN_PIXELS // (ho * wo))
+                parts = []
+                for i in range(0, levels.shape[0], step):
+                    x = levels[i:i + step].to(ddt) / 255.0
+                    if x.is_cuda:
+                        x = x.contiguous(memory_format=torch.channels_last)
+                    parts.append(car_model(x))                   # (n, mh, mw, D)
+                m = torch.cat(parts) if len(parts) > 1 else parts[0]
                 maps[o] = m.reshape((b, len(layers)) + m.shape[1:])
 
     tables = {}
     kp_list, sc_list, va_list, de_list = [], [], [], []
     for o, gauss in enumerate(octs):
         k_o = budgets[o]
-        if devsift:
+        if oriented:
             with record_function("gims.frontend.orientation"):
                 ori = _orientation_maps(gauss)
         with record_function("gims.frontend.detect"):
             cand = _octave_candidates(gauss, fe.contrast_threshold, fe.edge_threshold,
-                                      ori if devsift else None)
+                                      ori if oriented else None)
             _, _, hh, wh = cand["score"].shape
             score = cand["score"].reshape(b, -1)
             k_sel = min(k_o, score.shape[1])
@@ -212,12 +303,15 @@ def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: Optional[CA
             with record_function("gims.frontend.describe"):
                 desc = _devsift_describe(octs, o, fe, tables, px, py, layer, g("offs"),
                                          g("angle"), valid)
+        elif source == "carhynet":
+            with record_function("gims.frontend.warp"):
+                desc = _warp_octave(octs_colour[o], px, py, layer, g("offs"), g("angle"), fe)
         else:
             with record_function("gims.frontend.sample"):
                 src = min(max(o, min(maps)), max(maps))
                 f = 2.0 ** (o - src)  # octave-o coordinates -> octave-src coordinates
                 desc = _dense_sample(maps[src], px * f, py * f, layer, valid.float(),
-                                     fe.dense_layers)
+                                     tuple(layers))
         scale_mult = float(2 ** (o - 1)) if fe.upsample else float(2 ** o)
         kp = torch.stack([px * scale_mult, py * scale_mult], dim=-1)
         kp = torch.where(valid[..., None], kp, 1e6)
@@ -235,6 +329,9 @@ def _extract_side(images_u8, budgets, fe: FrontendConfig, car_model: Optional[CA
 
     valid = torch.cat(va_list, dim=1)
     desc = torch.cat(de_list, dim=1)
+    if source == "carhynet":
+        with record_function("gims.frontend.cnn"):
+            desc = _patch_descriptors(car_model, desc)
     desc = torch.where(valid[..., None], torch.cat([desc, desc], dim=-1), 0.0)
     return torch.cat(kp_list, dim=1), torch.cat(sc_list, dim=1), valid, desc
 
@@ -258,7 +355,7 @@ def fused_match_batch(model: GMatcher, car_model: Optional[CARHyNet], acfg: AGCC
                       h: int, w: int, compact_transport: bool = False,
                       compact_to: Optional[int] = None):
     """B pairs through every stage at once. imgs0_u8/imgs1_u8 are
-    (B, H, W) uint8 gray stacks on the model's device; both sides are
+    (B, H, W) gray or (B, H, W, 3) BGR uint8 stacks on the model's device; both sides are
     extracted as one batch of 2B images."""
     b = imgs0_u8.shape[0]
     kp, sc, va, de = _extract_side(torch.cat([imgs0_u8, imgs1_u8]), budgets, fe,
@@ -272,7 +369,7 @@ def fused_match_batch(model: GMatcher, car_model: Optional[CARHyNet], acfg: AGCC
 
 
 class FusedMatching:
-    """Pair matcher over uint8 gray images: detection, descriptors and the
+    """Pair matcher over uint8 images: detection, descriptors and the
     matcher in one call per batch.
 
     config keys mirror the JAX package's ``FusedMatching``. On CUDA the
@@ -283,10 +380,14 @@ class FusedMatching:
     selection here, see ``detect_device.top_k_stable``) and, above 3072
     keypoints, trunk compaction to half the budget rounded up to 1024. On
     the CPU the JAX CPU defaults apply (f32 trunk, plain Sinkhorn, the
-    dense exact AGC, no compaction). Every knob can be set in `config`.
-    `descriptor_source` is "dense_gray" (the port's default) or "devsift"
-    (no CNN; `car_variables` unused); "carhynet", "dense", ``devices=`` and
-    a weightless ``init_scheme`` other than "default" raise.
+    dense exact AGC, no compaction). ``fast_frontend`` (bilinear taps,
+    direct 32x32 sampling of the patch warp) defaults to on on CUDA, as on
+    the JAX package's accelerator. Every knob can be set in `config`.
+    `descriptor_source` is "carhynet" (the default, as in the JAX package),
+    "dense", "dense_gray" or "devsift" (no CNN; `car_variables` unused); the
+    colour sources, carhynet and dense, take (B, H, W, 3) BGR images and
+    need ``upsample=True``. ``devices=`` and a weightless ``init_scheme``
+    other than "default" raise.
     `variables` / `car_variables` are flax variables trees of numpy arrays
     (``matcher.convert.load_gims_checkpoint``,
     ``carhynet.convert.load_car_checkpoint``); without them the networks
@@ -301,11 +402,9 @@ class FusedMatching:
         config = dict(config or {})
         if devices is not None:
             raise NotImplementedError(f"FusedMatching(devices=...) {TODO}")
-        source = config.get("descriptor_source", "dense_gray")
-        if source not in ("dense_gray", "devsift"):
-            raise NotImplementedError(
-                f"FusedMatching descriptor_source={source!r} {TODO} "
-                "(only 'dense_gray' and 'devsift')")
+        source = config.get("descriptor_source", "carhynet")
+        if source not in SOURCES:
+            raise ValueError(f"descriptor_source={source!r}: one of {SOURCES}")
         if variables is None and config.get("init_scheme", "default") != "default":
             raise NotImplementedError(
                 f"init_scheme={config['init_scheme']!r} {TODO}")
@@ -335,7 +434,10 @@ class FusedMatching:
         topk = config.get("topk_impl", "approx" if on_cuda else "exact")
         if topk not in ("exact", "approx"):
             raise ValueError(f"topk_impl={topk!r}: 'exact' or 'approx'")
+        fast = config.get("fast_frontend", on_cuda)
         self.fe = FrontendConfig(
+            interpolation="linear" if fast else "cubic",
+            warp_size=32 if fast else 64,
             descriptor_source=source,
             dense_dtype=config.get("dense_dtype", "bfloat16"),
             topk_impl=topk,
@@ -344,20 +446,27 @@ class FusedMatching:
             dense_first_map_oct=int(config.get("dense_first_map_oct", 0)),
             sift_samples=int(config.get("sift_samples", 16)),
         )
+        if not self.fe.upsample and source in COLOUR_SOURCES:
+            raise ValueError("upsample=False requires descriptor_source='dense_gray' or "
+                             "'devsift' (the colour pyramid paths assume the "
+                             "2x-upsampled octave geometry)")
         self.total = total_keypoints
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = GMatcher(self.mcfg)
-            car_model = CARHyNet(dense=True, in_channels=1) if source == "dense_gray" else None
+            # devsift describes from the pyramid's gradients: no CNN
+            car_model = None if source == "devsift" else CARHyNet(
+                dense=source != "carhynet", in_channels=1 if source == "dense_gray" else 3)
         if variables is not None:
             load_variables(model, variables)
         self.model = model.to(self.device).eval()
-        # devsift describes from the pyramid's gradients: no CNN
         self.car_model = None
         if car_model is not None:
             if car_variables is not None:
                 load_car_variables(car_model, car_variables)
-            self.car_model = car_model.to(self.device, _DTYPES[self.fe.dense_dtype]).eval()
+            # the dense sources run in dense_dtype, the patch CNN in f32
+            cdt = torch.float32 if source == "carhynet" else _DTYPES[self.fe.dense_dtype]
+            self.car_model = car_model.to(self.device, cdt).eval()
             if on_cuda:
                 self.car_model = self.car_model.to(memory_format=torch.channels_last)
         self.compact_transport = bool(config.get("compact_transport", True))
@@ -383,27 +492,32 @@ class FusedMatching:
             "compact_transport": self.compact_transport,
             "descriptor_in_channels": (self.car_model.in_channels
                                        if self.car_model is not None else None),
-            "dense_model": self.car_model is not None,
+            "dense_model": self.fe.descriptor_source in ("dense", "dense_gray"),
         }
 
     def _upload(self, imgs):
-        if torch.is_tensor(imgs):
-            return imgs.to(self.device)
-        if not hasattr(imgs, "shape"):
-            imgs = np.stack(imgs)
-        imgs = np.asarray(imgs)
-        if imgs.ndim != 3 or imgs.dtype != np.uint8:
-            raise ValueError("FusedMatching takes (B, H, W) uint8 gray images, "
-                             f"got {imgs.dtype} {imgs.shape}")
-        return torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+        """(B, H, W, 3) BGR uint8 for the colour sources; (B, H, W) gray or
+        (B, H, W, 3) BGR for dense_gray and devsift."""
+        if not torch.is_tensor(imgs):
+            if not hasattr(imgs, "shape"):
+                imgs = np.stack(imgs)
+            imgs = torch.from_numpy(np.ascontiguousarray(np.asarray(imgs)))
+        colour = imgs.dim() == 4 and imgs.shape[-1] == 3
+        if imgs.dtype != torch.uint8 or not (
+                colour or (imgs.dim() == 3 and self.fe.descriptor_source not in COLOUR_SOURCES)):
+            want = ("(B, H, W, 3) BGR" if self.fe.descriptor_source in COLOUR_SOURCES
+                    else "(B, H, W) gray or (B, H, W, 3) BGR")
+            raise ValueError(f"FusedMatching({self.fe.descriptor_source}) takes {want} uint8 "
+                             f"images, got {imgs.dtype} {tuple(imgs.shape)}")
+        return imgs.to(self.device)
 
     def dispatch(self, img0, img1):
         """Upload one pair and queue its work; returns device outputs."""
         return self.dispatch_batch([img0], [img1])
 
     def dispatch_batch(self, imgs0, imgs1):
-        """Upload B same-shape pairs (sequences of (H, W) uint8 images, or
-        (B, H, W) stacks) and queue their work as one batch; returns the
+        """Upload B same-shape pairs (sequences of (H, W[, 3]) uint8 images,
+        or (B, H, W[, 3]) stacks) and queue their work as one batch; returns the
         device outputs (batch first)."""
         imgs0, imgs1 = self._upload(imgs0), self._upload(imgs1)
         h, w = int(imgs0.shape[1]), int(imgs0.shape[2])

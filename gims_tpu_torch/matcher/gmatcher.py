@@ -10,6 +10,7 @@ physical node removal.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -33,12 +34,13 @@ def normalize_keypoints(kpts, height: int, width: int, mode: str = "standard"):
         h_eff, w_eff = float(width), 3.0
     else:
         h_eff, w_eff = float(height), float(width)
-    # filled on the device: torch.tensor of host values would be a copy
-    # that waits for the stream
-    size = torch.empty(2, dtype=torch.float32, device=kpts.device)
-    size[0], size[1] = w_eff, h_eff
-    center = size / 2.0
-    scaling = torch.amax(size) * 0.7
+    # filled on the device by fill kernels: a tensor made from host values,
+    # or one indexed and assigned a host scalar, is a copy that waits for
+    # the stream. The scale is a device tensor too: CUDA divides by a host
+    # scalar as a product with its reciprocal, another rounding than JAX's
+    # division. f32(max) * f32(0.7) rounded to f32, as jnp computes it.
+    center = torch.stack([kpts.new_full((), w_eff / 2.0), kpts.new_full((), h_eff / 2.0)])
+    scaling = kpts.new_full((), float(np.float32(max(w_eff, h_eff)) * np.float32(0.7)))
     return (kpts - center) / scaling
 
 

@@ -2,9 +2,10 @@
 
 Port of ``gims_tpu/matcher/pipeline.py`` (reference: models/gmatcher.py:
 219-307), inference only, with the trunk compaction of the fused path
-(``compact_to``) and the band build's deferred un-permutation. The
-keypoint-axis sharding and precomputed-adjacency (Delaunay) options are not
-ported yet and raise.
+(``compact_to``), the band build's deferred un-permutation and precomputed
+adjacency (D-GIMS: a side given its adjacency skips AGC and keeps every
+valid keypoint). The keypoint-axis sharding option is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -143,11 +144,10 @@ def forward_match(
     compacts them to the reference's dict contract, see api.py). With
     `compact_to` below the bucket, the trunk and the transport run on the
     AGC-kept keypoints of each side only, ordered by `scores0`/`scores1`
-    (``_compact_side``), and the outputs are scattered back.
+    (``_compact_side``), and the outputs are scattered back. A side given
+    its adjacency `adj0`/`adj1` (B, N, N) bool skips AGC; its kept mask is
+    its valid mask.
     """
-    if adj0 is not None or adj1 is not None:
-        raise NotImplementedError("precomputed adjacency (Delaunay) is not "
-                                  "ported yet; see ROADMAP.md")
     if shard_axis is not None:
         raise NotImplementedError("shard_axis (keypoint-axis sharding) is not "
                                   "ported yet; see ROADMAP.md")
@@ -160,7 +160,7 @@ def forward_match(
     defer = acfg.agc_impl == "band" and compact
     inv0 = inv1 = None
     with record_function("gims.agc"):
-        if kpts0.shape == kpts1.shape:
+        if adj0 is None and adj1 is None and kpts0.shape == kpts1.shape:
             # same bucket on both sides: one batched AGC over the stacked pair
             b = kpts0.shape[0]
             kk = None
@@ -175,10 +175,16 @@ def forward_match(
             if inv is not None:
                 inv0, inv1 = inv[:b], inv[b:]
         else:
-            adj0, kept0, inv0 = run_agc(kpts0, desc0, valid0, acfg, k0, radius, min_size,
-                                        defer_unpermute=defer)
-            adj1, kept1, inv1 = run_agc(kpts1, desc1, valid1, acfg, k1, radius, min_size,
-                                        defer_unpermute=defer)
+            if adj0 is None:
+                adj0, kept0, inv0 = run_agc(kpts0, desc0, valid0, acfg, k0, radius, min_size,
+                                            defer_unpermute=defer)
+            else:
+                kept0 = valid0
+            if adj1 is None:
+                adj1, kept1, inv1 = run_agc(kpts1, desc1, valid1, acfg, k1, radius, min_size,
+                                            defer_unpermute=defer)
+            else:
+                kept1 = valid1
 
     if compact:
         with record_function("gims.compact"):

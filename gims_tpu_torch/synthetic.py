@@ -136,22 +136,26 @@ def warp_image(img, H):
     return np.where(inside, val, 0.0).reshape(h, w)
 
 
-def synthetic_image_pair(seed, frame=FRAME):
+def synthetic_image_pair(seed, frame=FRAME, colour: bool = False):
     """Two (h, w) uint8 gray views with a known homography H, as the JAX
     package's bench makes its pairs, with numpy only: a random texture of
     a quarter of the resolution, upsampled, blurred (sigma 1.2), and a copy
     rotated by up to 15 degrees and scaled by 0.85-1.1 about the centre.
-    Returns (img0, img1, H)."""
+    With `colour`, (h, w, 3) views whose three channels are independent
+    textures, as the bench's BGR images. Returns (img0, img1, H)."""
     rng = np.random.RandomState(1000 + seed)
     h, w = frame
-    low = rng.randint(0, 255, (h // 4, w // 4)).astype(np.float32)
-    img = _gaussian_blur(_resize_bilinear(low, h, w), 1.2)
+    low = rng.randint(0, 255, (h // 4, w // 4, 3) if colour else (h // 4, w // 4))
+    planes = low.astype(np.float32).reshape(h // 4, w // 4, -1)
+    imgs = [_gaussian_blur(_resize_bilinear(planes[..., c], h, w), 1.2)
+            for c in range(planes.shape[-1])]
     ang = np.deg2rad(rng.uniform(-15, 15))
     s = rng.uniform(0.85, 1.1)
     c = np.array([[1, 0, -w / 2], [0, 1, -h / 2], [0, 0, 1]], np.float64)
     a = np.array([[s * np.cos(ang), s * np.sin(ang), 0],
                   [-s * np.sin(ang), s * np.cos(ang), 0], [0, 0, 1]])
     H = np.linalg.inv(c) @ a @ c
-    img1 = warp_image(img, H)
-    as_u8 = lambda x: np.clip(np.rint(x), 0, 255).astype(np.uint8)  # noqa: E731
-    return as_u8(img), as_u8(img1), H
+    img1 = [warp_image(img, H) for img in imgs]
+    as_u8 = lambda x: np.clip(np.rint(np.stack(x, -1) if colour else x[0]),  # noqa: E731
+                              0, 255).astype(np.uint8)
+    return as_u8(imgs), as_u8(img1), H

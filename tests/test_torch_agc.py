@@ -27,6 +27,7 @@ from gims_tpu_torch.config import AGCConfig, MatcherConfig
 from gims_tpu_torch.matcher import pipeline as tpipeline
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.synthetic import synthetic_request
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def make_set(seed, nb, n, radius=15.0, d=128):
@@ -140,30 +141,62 @@ def test_kth_smallest_exact():
         assert float(jgot) == want
 
 
-@pytest.mark.parametrize("case", ["precomputed_adj", "delaunay_request", "shard_axis",
-                                  "unknown_build"])
+@pytest.mark.parametrize("case", ["shard_axis", "unknown_build"])
 def test_unported_agc_impls_raise(case):
-    """What is still unported around AGC raises and names ROADMAP.md: a
-    precomputed (Delaunay) adjacency, a Delaunay request, keypoint-axis
-    sharding. A build name the JAX package does not have raises too."""
+    """What is still unported around AGC raises and names ROADMAP.md:
+    keypoint-axis sharding. A build name the JAX package does not have
+    raises too."""
     kpts, descs, valid = (torch.from_numpy(x)[None] for x in make_set(0, 128, 100))
     if case == "unknown_build":
         with pytest.raises(ValueError, match="agc_impl"):
             tpipeline.run_agc(kpts, descs, valid, AGCConfig(agc_impl="tiled"))
         return
-    if case == "delaunay_request":
-        from gims_tpu_torch.api import Matching
-        m = Matching(device="cpu")
-        req, _ = synthetic_request(0, 100)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m({**req, "delaunay": True})
-        return
-    kw = ({"adj0": torch.zeros((1, 128, 128), dtype=torch.bool)} if case == "precomputed_adj"
-          else {"shard_axis": "kp"})
     model = GMatcher(MatcherConfig(num_gnn_layers=2)).eval()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
-                                image_shape=(600, 800), **kw)
+                                image_shape=(600, 800), shard_axis="kp")
+
+
+@pytest.mark.parametrize("given", ["both", "side0"])
+def test_forward_match_precomputed_adjacency_matches_jax(given):
+    """A side given its adjacency (a Delaunay graph here) skips AGC and
+    keeps every valid keypoint; the other side, without one, runs AGC
+    (2-layer matcher, identity init): kept and matches equal to JAX's,
+    matching scores 1e-4."""
+    import jax
+
+    from gims_tpu.api import init_gmatcher_variables
+    from gims_tpu.config import MatcherConfig as JMatcherConfig
+    from gims_tpu_torch.matcher.convert import load_variables
+
+    jmcfg = JMatcherConfig(num_gnn_layers=2, sinkhorn_iterations=20, match_threshold=0.02)
+    # jitted init: the values of the eager one, in a fraction of the time
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda: init_gmatcher_variables(jmcfg, seed=0, scheme="identity"))())
+    kp0, de0, va0 = make_set(11, 256, 200, d=256)
+    kp1, de1, va1 = make_set(12, 256, 190, d=256)
+    adj0 = tgraph.delaunay_adjacency_host(kp0, va0)[None]
+    adj1 = tgraph.delaunay_adjacency_host(kp1, va1)[None] if given == "both" else None
+    args = [x[None] for x in (kp0, de0, va0, kp1, de1, va1)]
+    knobs = dict(radius=15.0, percentile=2.0, min_size=7)
+    forward = jax.jit(jpipeline.forward_match, static_argnums=(1, 2),
+                      static_argnames=("image_shape",))
+    want = forward(
+        jax.tree_util.tree_map(jnp.asarray, variables), jmcfg, JAGCConfig(**knobs),
+        *(jnp.asarray(x) for x in args), image_shape=(600, 800), adj0=jnp.asarray(adj0),
+        adj1=None if adj1 is None else jnp.asarray(adj1))
+    model = GMatcher(MatcherConfig(num_gnn_layers=2, sinkhorn_iterations=20,
+                                   match_threshold=0.02)).eval()
+    load_variables(model, variables)
+    got = tpipeline.forward_match(
+        model, AGCConfig(**knobs), *(torch.from_numpy(x) for x in args), image_shape=(600, 800),
+        adj0=torch.from_numpy(adj0), adj1=None if adj1 is None else torch.from_numpy(adj1))
+    assert got["kept0"].numpy().sum() == 200
+    assert (given == "both") == (got["kept1"].numpy().sum() == 190)
+    for key in ("kept0", "kept1", "matches0", "matches1"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    for key in ("matching_scores0", "matching_scores1"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-4, rtol=0)
 
 
 def test_kth_smallest_batched_matches_per_item():

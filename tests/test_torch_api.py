@@ -16,6 +16,7 @@ import pytest
 from gims_tpu.api import Matching as JMatching
 from gims_tpu_torch.api import Matching
 from gims_tpu_torch.synthetic import synthetic_request
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")
@@ -50,14 +51,35 @@ def test_cpu_defaults_and_device():
     assert next(m.model.parameters()).device.type == "cpu"
 
 
-@pytest.mark.parametrize("kind", ["images_only", "delaunay", "features"])
+@pytest.mark.parametrize("kind", ["images_only"])
 def test_unported_requests_raise(request_and_matchers, kind):
+    """An image request at the JAX defaults needs host OpenCV SIFT
+    (detector="host"), which the port does not have."""
     req, _, tm = request_and_matchers
-    if kind == "images_only":
-        bad = {"image0": req["image0"], "image1": req["image1"]}
-    elif kind == "delaunay":
-        bad = {**req, "delaunay": True}
-    else:
-        bad = {**req, "features": {"0": {}, "1": {}}}
-    with pytest.raises(NotImplementedError):
-        tm(bad)
+    with pytest.raises(NotImplementedError, match="OpenCV"):
+        tm({"image0": req["image0"], "image1": req["image1"]})
+
+
+@pytest.mark.parametrize("kind", ["delaunay", "features"])
+def test_ported_requests_accepted(request_and_matchers, kind):
+    """A Delaunay request with the staged checkpoint keeps every keypoint
+    and answers mutual matches (its parity with JAX:
+    ``tests/test_torch_staged.py``); a features request of the request's
+    flat images (no keypoint detected) answers with empty sets."""
+    req, _, tm = request_and_matchers
+    if kind == "delaunay":
+        got = tm({**req, "delaunay": True})
+        assert got["keypoints0"].shape == (1, 230, 2) and got["keypoints1"].shape == (1, 230, 2)
+        np.testing.assert_array_equal(got["keypoints0"][0], req["keypoints0"])
+        m0, m1 = got["matches0"][0], got["matches1"][0]
+        i = np.nonzero(m0 >= 0)[0]
+        assert len(i) > 0 and np.array_equal(m1[m0[i]], i)
+        return
+    m = Matching({"weights_path": WEIGHTS, "detector": "device", "descriptor_source": "sift",
+                  "sift_descriptor": "device"}, device="cpu")
+    images = {"image0": req["image0"], "image1": req["image1"]}
+    feats = m.prepare_features((req["image0"], req["image1"]))
+    assert feats["0"]["n"] == feats["1"]["n"] == 0
+    got = m({**images, "features": feats})
+    assert got["keypoints0"].shape == (1, 0, 2) and got["matches0"].shape == (1, 0)
+    assert got["descriptors0"].shape == (1, 256, 0)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from gims_tpu.matcher.attention import masked_attention_direct as jdirect
 from gims_tpu.matcher.pallas_attention import masked_attention_pallas
 from gims_tpu_torch.matcher import attention, cuda_attention
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 
 def inputs(seed, b=2, n=100, m=260, h=4, d=16):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from gims_tpu.carhynet import model as jmodel
 from gims_tpu_torch.carhynet import convert, model as tmodel
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_CAR = os.path.join(REPO, "weights", "gims_tpu_dense_gray_e2e_car.npz")

@@ -16,6 +16,9 @@ direct version (P kept in f32): RMS error <= 2**-8 of the output's RMS (the
 output's rounding alone gives ~2**-8/sqrt(3)). Sinkhorn Z 2e-4 on the valid
 block (f32 sums in another order over the iterations), for both of its
 kernels: the fused one (rows up to 14340 columns) and the streaming one.
+The patch warp on the card against the same warp on the CPU: 1e-3 on the
+0..255 scale with TF32 off (the same f32 arithmetic; a sample coordinate may
+round differently by an ulp).
 """
 
 import os
@@ -26,8 +29,11 @@ import torch
 
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint, load_variables
 from gims_tpu_torch.carhynet.model import CARHyNet
-from gims_tpu_torch.config import MatcherConfig
+from gims_tpu_torch.config import FrontendConfig, MatcherConfig
+from gims_tpu_torch.frontend import patches
 from gims_tpu_torch.frontend.detect_device import gray_pyramid
+from gims_tpu_torch.frontend.feature import FeatureFrontend
+from gims_tpu_torch.frontend.sift import KeypointArrays
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, sinkhorn
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.synthetic import synthetic_image_pair
@@ -349,3 +355,74 @@ def test_band_build_equals_dense_approx_on_card(cuda):
         # an edge candidate (not below the threshold) differs only on a straddle
         assert ((sim[near] - band.threshold[bi[near]]) < 1e-5).all()
     assert int((band.kept != dense.kept).sum()) <= 16
+
+
+@pytest.mark.parametrize("interpolation,warp_size", [("cubic", 64), ("linear", 32)])
+def test_patch_warp_card_vs_cpu(cuda, interpolation, warp_size):
+    """The colour pyramid of an 800x600 image and 3000 keypoints over every
+    octave (some on the border): the card's patches against the CPU's, in
+    chunks of the card's size (1024 / 4096 keypoints)."""
+    img, _, _ = synthetic_image_pair(4, colour=True)
+    rng = np.random.RandomState(0)
+    n = 3000
+    octave = rng.randint(-1, 8, n).astype(np.int32)
+    kp = KeypointArrays(
+        pt=(rng.rand(n, 2) * [800, 600]).astype(np.float32),
+        size=rng.uniform(1.5, 20.0, n).astype(np.float32),
+        angle=rng.uniform(0, 360, n).astype(np.float32), response=np.ones(n, np.float32),
+        octave=octave, layer=rng.randint(1, 4, n).astype(np.int32),
+        scale=np.where(octave >= 0, 1.0 / (1 << np.maximum(octave, 0)), 2.0).astype(np.float32))
+    kp.pt[:100] = [[0.0, 0.0], [799.0, 599.0], [-2.0, 300.0], [801.0, 10.0]] * 25
+    out = {}
+    for dev in ("cpu", cuda):
+        from gims_tpu_torch.frontend.pyramid import pyramid_from_uint8
+
+        pyr = [p[0] for p in pyramid_from_uint8(torch.from_numpy(img)[None].to(dev))]
+        out[str(dev)] = patches.extract_patches_device(pyr, kp, 4096, interpolation,
+                                                       warp_size).cpu()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() * 255 <= 1e-3
+    assert out["cpu"][:n].abs().sum(1).gt(0).float().mean() > 0.9
+
+
+def test_carhynet_matching_kernels_vs_plain(cuda):
+    """A carhynet Matching request (device detector, seeded random colour
+    CAR-HyNet, staged checkpoint, 2048 keypoints, 20 iterations, threshold
+    0.02) in f32: through the kernels and through the plain versions on the
+    same features, kept and matches identical, matching scores 1e-3."""
+    from gims_tpu_torch.api import Matching
+    from gims_tpu_torch.matcher.convert import load_gims_checkpoint
+
+    weights = os.path.join(os.path.dirname(CAR_WEIGHTS), "gims_tpu_sift_last.npz")
+    img0, img1, _ = synthetic_image_pair(9)
+    fe = FeatureFrontend(FrontendConfig(descriptor_source="carhynet", detector="device"),
+                         device=cuda)
+    variables = load_gims_checkpoint(weights)
+    outs = []
+    feats = None
+    for impl, pallas in (("auto", True), ("flash", False)):
+        m = Matching({"attention_dtype": "float32", "attention_impl": impl,
+                      "use_pallas_sinkhorn": pallas, "sinkhorn_iterations": 20,
+                      "match_threshold": 0.02, "max_keypoints": 2048},
+                     variables=variables, frontend=fe, device=cuda)
+        feats = feats or m.prepare_features((img0, img1))
+        before = cuda_attention.launches
+        outs.append(m({"image0": img0, "image1": img1, "radius": 15, "percentile": 2,
+                       "min_size": 7, "features": feats}))
+        assert cuda_attention.launches - before == (18 if pallas else 0)
+    k, p = outs
+    for key in ("keypoints0", "keypoints1", "matches0", "matches1"):
+        np.testing.assert_array_equal(k[key], p[key], err_msg=key)
+    assert (k["matches0"] >= 0).sum() > 0
+    for key in ("matching_scores0", "matching_scores1"):
+        assert np.abs(k[key] - p[key]).max() <= 1e-3
+
+
+def test_matching_takes_a_frontend_on_the_same_card(cuda):
+    """``cuda`` and ``cuda:0`` name one card: Matching takes a
+    FeatureFrontend built on either."""
+    from gims_tpu_torch.api import Matching
+
+    fe = FeatureFrontend(FrontendConfig(descriptor_source="sift", detector="device",
+                                        sift_descriptor="device"), device="cuda:0")
+    m = Matching({"sinkhorn_iterations": 3}, frontend=fe)
+    assert m.frontend is fe and m.device == fe.device == torch.device("cuda", 0)

@@ -47,6 +47,7 @@ from gims_tpu_torch.matcher import pipeline as tpipeline
 from gims_tpu_torch.matcher.convert import load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.synthetic import synthetic_image_pair
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 FRAME = (96, 128)
 KNOBS = dict(radius=15.0, percentile=2.0, min_size=7)

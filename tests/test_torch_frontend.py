@@ -29,6 +29,7 @@ from gims_tpu_torch import fused as tfused
 from gims_tpu_torch.frontend import detect_device as tdet
 from gims_tpu_torch.frontend import pyramid as tpyr
 from gims_tpu_torch.synthetic import synthetic_image_pair
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 FRAME = (96, 128)
 

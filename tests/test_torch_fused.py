@@ -14,6 +14,8 @@ tolerance:
   JAX's keypoints and descriptors through the port's matcher stages:
   kept and matches equal; then ``fused_match_batch`` on both sides from
   the images: kept and matches equal, keypoints 1e-3 px, scores 1e-4.
+The colour sources' parity with JAX is in ``tests/test_torch_fused_colour.py``
+(a file of its own, so that the test workers run it beside this one).
 """
 
 import os
@@ -41,6 +43,7 @@ from gims_tpu_torch.matcher import pipeline as tpipeline
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint, load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.synthetic import synthetic_image_pair, synthetic_request, warp
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIFT_LAST = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")
@@ -134,7 +137,9 @@ def slice_inputs():
     imgs0 = np.stack([p[0] for p in pairs])
     imgs1 = np.stack([p[1] for p in pairs])
     jmcfg = JMatcherConfig(num_gnn_layers=2, sinkhorn_iterations=20, match_threshold=0.02)
-    variables = as_np(init_gmatcher_variables(jmcfg, seed=0, scheme="identity"))
+    # jitted init: the values of the eager one, in a fraction of the time
+    variables = as_np(jax.jit(lambda: init_gmatcher_variables(jmcfg, seed=0,
+                                                              scheme="identity"))())
     car = tcconvert.load_car_checkpoint(E2E_CAR)
     return imgs0, imgs1, jmcfg, variables, car
 
@@ -211,7 +216,7 @@ def test_fused_matching_contract_on_cpu(slice_inputs):
     """FusedMatching on the CPU: the JAX CPU defaults, the reference's
     per-pair dict, compact transport decoded to within 1/16 px."""
     imgs0, imgs1, _, _, car = slice_inputs
-    cfg = {"upsample": False, "dense_dtype": "float32",
+    cfg = {"descriptor_source": "dense_gray", "upsample": False, "dense_dtype": "float32",
            "compact_to": 128, **KNOBS}
     runs = {}
     for packed in (True, False):
@@ -233,7 +238,6 @@ def test_fused_matching_contract_on_cpu(slice_inputs):
 
 
 @pytest.mark.parametrize("knob", [
-    {"descriptor_source": "carhynet"}, {"descriptor_source": "dense"},
     {"init_scheme": "identity"},
     {"init_scheme": "identity", "descriptor_source": "devsift"}])
 def test_unported_knobs_raise(knob):
@@ -244,7 +248,8 @@ def test_unported_knobs_raise(knob):
 @pytest.mark.parametrize("knob", [
     {"topk_impl": "approx"}, {"threshold_impl": "approx"}, {"agc_impl": "band"},
     {"cc_impl": "sparse"}, {"cc_impl": "band", "agc_impl": "band"},
-    {"reconnect_impl": "centroid"}, {"descriptor_source": "devsift"}])
+    {"reconnect_impl": "centroid"}, {"descriptor_source": "devsift"},
+    {"descriptor_source": "carhynet"}, {"descriptor_source": "dense"}])
 def test_ported_knobs_accepted(knob):
     """The knobs this port once refused resolve as asked on the CPU."""
     rc = tfused.FusedMatching(knob, device="cpu").resolved_config()
@@ -264,7 +269,8 @@ def test_accelerator_knobs_on_cpu_match_jax(slice_inputs):
     knobs = dict(agc_impl="band", band_halfwidth=512, threshold_impl="approx",
                  threshold_stride=4, reconnect_impl="centroid", reconnect_buckets=1024,
                  cc_impl="dense", **KNOBS)
-    m = tfused.FusedMatching({"upsample": False, "dense_dtype": "float32", "compact_to": 128,
+    m = tfused.FusedMatching({"descriptor_source": "dense_gray", "upsample": False,
+                              "dense_dtype": "float32", "compact_to": 128,
                               "topk_impl": "approx", "compact_transport": False,
                               "sinkhorn_iterations": 20, **knobs},
                              car_variables=car, total_keypoints=256, device="cpu")
@@ -305,3 +311,36 @@ def test_synthetic_pair_follows_its_homography():
     b = img1[np.rint(p1[inside, 1]).astype(int), np.rint(p1[inside, 0]).astype(int)]
     assert inside.sum() > 100
     assert np.median(np.abs(a.astype(int) - b.astype(int))) <= 8
+
+
+def test_colour_fused_matching_contract(slice_inputs):
+    """The default source is carhynet, as in JAX, at the bicubic 64x64 warp
+    on the CPU unless fast_frontend; the colour sources take (B, H, W, 3)
+    BGR (a flax init of the colour CAR-HyNet carried over, the 2-layer
+    matcher), refuse gray stacks and refuse upsample=False."""
+    _, _, _, variables, _ = slice_inputs
+    img0, img1, _ = synthetic_image_pair(5, FRAME, colour=True)
+    imgs0, imgs1 = img0[None], img1[None]
+    car = as_np(jax.jit(JCARHyNet(in_channels=3).init)(jax.random.PRNGKey(3),
+                                                       jnp.zeros((1, 32, 32, 3), jnp.float32)))
+    assert tfused.FusedMatching(device="cpu").fe.descriptor_source == "carhynet"
+    m = tfused.FusedMatching({"compact_transport": False, "fast_frontend": True, **KNOBS},
+                             car_variables=car, total_keypoints=256, device="cpu")
+    model = GMatcher(MatcherConfig(num_gnn_layers=2, sinkhorn_iterations=20,
+                                   match_threshold=0.02)).eval()
+    load_variables(model, variables)
+    m.model = model
+    rc = m.resolved_config()
+    assert rc["descriptor_in_channels"] == 3 and not rc["dense_model"]
+    assert (rc["frontend"]["interpolation"], rc["frontend"]["warp_size"]) == ("linear", 32)
+    assert tfused.FusedMatching(device="cpu").fe.warp_size == 64  # bicubic 64 on the CPU
+    preds = m.collect_batch(m.dispatch_batch(imgs0, imgs1))
+    assert len(preds) == 1
+    for p in preds:
+        n0, n1 = p["keypoints0"].shape[1], p["keypoints1"].shape[1]
+        assert p["matches0"].shape == (1, n0) and p["matches0"].max() < n1
+    with pytest.raises(ValueError, match="BGR"):
+        m.dispatch_batch(imgs0[..., 0], imgs1[..., 0])
+    for source in ("carhynet", "dense"):
+        with pytest.raises(ValueError, match="upsample"):
+            tfused.FusedMatching({"descriptor_source": source, "upsample": False}, device="cpu")

@@ -27,6 +27,7 @@ from gims_tpu_torch.matcher import layers as tlayers
 from gims_tpu_torch.matcher.convert import (head_major_perm, load_gims_checkpoint,
                                             load_variables, variables_to_state_dict)
 from gims_tpu_torch.matcher.gmatcher import GMatcher, normalize_keypoints
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")

@@ -18,6 +18,7 @@ from gims_tpu.matcher import sinkhorn as jsinkhorn
 from gims_tpu.matcher.pallas_sinkhorn import (log_optimal_transport_pallas,
                                               sinkhorn_uv_pallas)
 from gims_tpu_torch.matcher import cuda_sinkhorn, sinkhorn as tsinkhorn
+from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 ITERS = 15
 ALPHA = 0.8

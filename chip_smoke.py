@@ -83,17 +83,39 @@ Phases, one line each with its seconds:
     each under torch.cuda.set_sync_debug_mode("error") up to the readout;
     one batch of each in f32 through the kernels and the plain versions:
     kept and matches identical.
+  15 the evaluation (run after phase 12, before 13): the homography
+    benchmark of the JAX package's quality records (docs/quality_records/,
+    synthetic regime): eval.homography.generate_benchmark makes its 199
+    procedural 800x600 pairs (seed 3) and run_benchmark evaluates them with
+    FusedMatching at each record's settings, (a) dense_gray with the joint
+    end-to-end weights, 6144 keypoints, no upsample, no compaction; (b)
+    devsift with the staged checkpoint, 12288 keypoints compacted to 6144,
+    upsampled; both with AGC 15/2/7, 20 Sinkhorn iterations, threshold
+    0.02, the card's AGC defaults (band 512, threshold stride 4, centroid
+    1024, approximate top-k), ground-truth matching and RANSAC on the card.
+    One line each: RANSAC and DLT AUC@5/10/25, precision, recall, skip
+    share, ms per pair (host clock, reading and warping included), launches
+    per pair and the record's numbers; it fails if a pair is skipped, if a
+    pair does not take 18 attention, 1 Sinkhorn and 1 label-rounds launch,
+    or if RANSAC AUC@5/10/25, precision or recall lies more than 3.0 points
+    from its record, precision and recall scored as the records scored them
+    (record_gt_scores: the TPU's bf16-rounded ground truth; the port's exact
+    ones are printed beside). Then eval_homography_cli on 8 of the pairs with staged
+    Matching (the staged checkpoint, SIFT descriptors from the device
+    detector, --fast, 6144 keypoints): its artifacts, no pair skipped, its
+    numbers printed with no bound (no JAX record exists for it).
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10 and 12): labels
-    equal, rounds run, times.
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12 and 15):
+    labels equal, rounds run, times.
   14 one JSON line with every kernel's launches, error and times, on the
-    six paths' shapes; the script's total seconds.
-  15 the last line: {"ok": true, "device": {...}}.
+    eight paths' shapes; the script's total seconds.
+  Then the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
-gims_tpu_torch/_build/.
+gims_tpu_torch/_build/ but phase 15's pairs and artifacts, in a temporary
+directory that it removes.
 """
 
 from __future__ import annotations
@@ -105,6 +127,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -119,12 +142,17 @@ from gims_tpu_torch import _build, fused  # noqa: E402
 from gims_tpu_torch.agc import graph, labels  # noqa: E402
 from gims_tpu_torch.api import Matching  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
+from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
 from gims_tpu_torch.config import FrontendConfig, MatcherConfig  # noqa: E402
+from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
+from gims_tpu_torch.eval import homography  # noqa: E402
+from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
 from gims_tpu_torch.frontend.feature import FeatureFrontend  # noqa: E402
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pipeline, sinkhorn  # noqa: E402
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
 from gims_tpu_torch.matcher.gmatcher import GMatcher  # noqa: E402
 from gims_tpu_torch.synthetic import correct_share, synthetic_image_pair, synthetic_request  # noqa: E402
+from gims_tpu_torch.train import gt  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")
 E2E_WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_dense_gray_e2e.npz")
@@ -248,6 +276,25 @@ COLOUR_STAGES = {
                  "gims.frontend.warp", "gims.frontend.cnn") + STAGES,
     "dense": ("gims.frontend.pyramid", "gims.frontend.cnn", "gims.frontend.detect",
               "gims.frontend.sample") + STAGES}
+# the evaluation (phase 15): the JAX package's recorded synthetic regime
+# (scripts/quality_eval.py: generate_benchmark(..., seed=3), 199 procedural
+# 800x600 pairs), each fused configuration at its record's settings
+EVAL_PAIRS = 199
+EVAL_SEED = 3
+EVAL_RESIZE = (800, 600)
+EVAL_AGC = {"radius": 15, "percentile": 2, "min_size": 7}
+EVAL_BOUND = 3.0  # points of RANSAC AUC@5/10/25, precision and recall
+EVAL_STAGED_PAIRS = 8
+EVAL_RECORDS = {
+    "dense_gray": "fused_fo0_dense_gray_gims_tpu_dense_gray_e2e_r15p2m7_n199.json",
+    "devsift": "fused_devsift_gims_tpu_sift_last_r15p2m7_n199.json"}
+EVAL_CONFIGS = {  # scripts/quality_eval.py --fused with each record's args
+    "dense_gray": ({"descriptor_source": "dense_gray", "upsample": False, "compact_to": None},
+                   6144),
+    "devsift": ({"descriptor_source": "devsift", "upsample": True, "compact_to": 6144}, 12288)}
+EVAL_COMMON = {"sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
+               "attention_dtype": "bfloat16", "use_pallas_sinkhorn": True, "fast_frontend": True,
+               "sift_samples": 16, "threshold_stride": 4, "dense_first_map_oct": 0, **EVAL_AGC}
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
@@ -1159,6 +1206,180 @@ def fused_colour_phase(variables):
     return total
 
 
+class FusedAsMatching:
+    """The reference's data-dict contract over FusedMatching, as
+    scripts/quality_eval.py wraps it: one pair per call, dense_gray pairs
+    converted to gray on the host. Keeps the host seconds of its calls
+    (each ends in the readout)."""
+
+    def __init__(self, m, gray):
+        self.m, self.gray, self.seconds = m, gray, 0.0
+
+    def __call__(self, data):
+        img0, img1 = data["image0"][0], data["image1"][0]
+        if self.gray and img0.ndim == 3:
+            img0, img1 = bgr_to_gray(img0), bgr_to_gray(img1)
+        t = time.perf_counter()
+        pred = self.m(img0, img1)
+        self.seconds += time.perf_counter() - t
+        return pred
+
+
+def skip_share(out_dir):
+    with open(os.path.join(out_dir, "result", "results.txt")) as f:
+        lines = [l for l in f.read().splitlines() if l.strip()]
+    return sum(1 for l in lines if l.endswith("=> 0")) / max(len(lines), 1), len(lines)
+
+
+def record_gt_scores(out_dir, txt):
+    """Precision and recall (percent) of a run's saved matches against the
+    ground truth as the JAX package computed it on the TPU for its records.
+
+    There, ``warp_keypoints``' f32 product (gims_tpu/train/gt.py:24) ran at
+    XLA's DEFAULT precision, which rounds both operands, the keypoints and
+    H, to bf16 (the JAX package notes that truncation in
+    gims_tpu/frontend/blurmat.py:3-6): a coordinate between 512 and 1024
+    moves by up to 2 px, against a 3 px match radius. Here the keypoints
+    are projected that way (bf16 operands, f32 products and sums) and the
+    rest is the port's own ground-truth matching and metric."""
+    dev = torch.device(DEVICE)
+    eye = torch.eye(3, device=dev)
+    prec, rec = [], []
+    with open(txt) as f:
+        lines = [l.split() for l in f if l.strip()]
+    for parts in lines:
+        stem = os.path.splitext(parts[0])[0]
+        if float(np.load(os.path.join(out_dir, f"{stem}_evaluation.npz"))["precision"]) < 0:
+            continue  # skipped
+        art = np.load(os.path.join(out_dir, f"{stem}_matches.npz"))
+        H = torch.tensor(np.array(parts[1:], np.float64).reshape(3, 3).astype(np.float32),
+                         device=dev)
+        k0 = torch.from_numpy(art["keypoints0"]).to(dev)
+        k1 = torch.from_numpy(art["keypoints1"]).to(dev)
+        src = torch.cat([k0, torch.ones_like(k0[:, :1])], 1)
+        dst = src.bfloat16().float() @ H.bfloat16().float().T
+        proj = dst[:, :2] / dst[:, 2:3]
+        m0, _ = gt.find_matches(proj, k1, eye, torch.ones_like(k0[:, 0], dtype=torch.bool),
+                                torch.ones_like(k1[:, 0], dtype=torch.bool), 3.0, 3)
+        m0 = m0.cpu().numpy()
+        ma_0 = np.nonzero(m0 >= 0)[0]
+        ma_1 = m0[ma_0]
+        matches = art["matches"]
+        gt_vec = np.full(len(matches), -1, np.int32)
+        gt_vec[ma_0] = ma_1
+        p, r = eval_metrics.match_precision_recall(matches, gt_vec, matches > -1, ma_0, ma_1)
+        prec.append(p)
+        rec.append(r)
+    return 100.0 * float(np.mean(prec)), 100.0 * float(np.mean(rec))
+
+
+def eval_phase(sift_variables, e2e_variables, e2e_car):
+    """The homography benchmark of the JAX package's quality records on the
+    card: 199 generated pairs, both fused configurations through
+    eval.homography.run_benchmark (ground-truth matching and RANSAC on the
+    card), each held to its record; then the CLI with staged Matching on 8
+    of the pairs."""
+    t0 = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="gims_eval_") as tmp:
+        t = time.perf_counter()
+        txt, images = homography.generate_benchmark(os.path.join(tmp, "set"), n_pairs=EVAL_PAIRS,
+                                                    height=EVAL_RESIZE[1], width=EVAL_RESIZE[0],
+                                                    seed=EVAL_SEED)
+        gen_s = time.perf_counter() - t
+        print(f"  eval generated {EVAL_PAIRS} pairs in {gen_s:.3f}s", flush=True)
+        launches = {}
+        for name, (config, total) in EVAL_CONFIGS.items():
+            with open(os.path.join(REPO, "docs", "quality_records", EVAL_RECORDS[name])) as f:
+                record = json.load(f)
+            rec = record["rows"]["synthetic"]
+            args = record["args"]
+            if not (args["pairs"] == EVAL_PAIRS and args["max_keypoints"] == total
+                    and args["compact_to"] == config["compact_to"]
+                    and bool(args["upsample"]) == config["upsample"]
+                    and record["skip"]["synthetic"] == 0.0):
+                raise AssertionError(f"eval {name}: the record's settings {args} differ")
+            variables = e2e_variables if name == "dense_gray" else sift_variables
+            m = fused.FusedMatching({**EVAL_COMMON, **config}, variables=variables,
+                                    car_variables=e2e_car if name == "dense_gray" else None,
+                                    total_keypoints=total, device=DEVICE)
+            rc = m.resolved_config()
+            want = {k: v for k, v in record["resolved_config"]["agc"].items()
+                    if k in ("agc_impl", "band_halfwidth", "threshold_impl", "threshold_stride",
+                             "reconnect_impl", "reconnect_buckets", "cc_impl", "cc_rounds")}
+            got = {k: rc["agc"][k] for k in want}
+            if got != want or rc["frontend"]["topk_impl"] != "approx" \
+                    or rc["compact_to"] != config["compact_to"]:
+                raise AssertionError(f"eval {name}: FusedMatching {rc} against the record's "
+                                     f"{record['resolved_config']}")
+            matcher = FusedAsMatching(m, gray=name == "dense_gray")
+            out = os.path.join(tmp, name)
+            warm0, warm1, _ = fused_pairs(1, 990, colour=True)
+            matcher({"image0": warm0, "image1": warm1})  # warm-up
+            matcher.seconds = 0.0
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            with record_labels("eval_" + name):
+                res = homography.run_benchmark(txt, images, out, resize=EVAL_RESIZE,
+                                               agc=EVAL_AGC, matcher=matcher, device=DEVICE)
+            elapsed = time.perf_counter() - t
+            launches[name] = counts()
+            skipped, n_lines = skip_share(out)
+            per_pair = {k: v / EVAL_PAIRS for k, v in launches[name].items()}
+            row = {"config": name, "pairs": n_lines,
+                   "ransac_auc": res["ransac_auc"], "dlt_auc": res["dlt_auc"],
+                   "precision": res["precision"], "recall": res["recall"],
+                   "skip_share": skipped, "ms_per_pair": 1e3 * elapsed / EVAL_PAIRS,
+                   "matcher_ms_per_pair": 1e3 * matcher.seconds / EVAL_PAIRS,
+                   "launches_per_pair": per_pair,
+                   "record": {"file": "docs/quality_records/" + EVAL_RECORDS[name],
+                              "ransac_auc": rec["ransac_auc"], "dlt_auc": rec["dlt_auc"],
+                              "precision": rec["precision"], "recall": rec["recall"],
+                              "skip_share": record["skip"]["synthetic"]}}
+            # precision and recall as the record measured them (TPU ground
+            # truth), beside the port's own above
+            row["precision_record_gt"], row["recall_record_gt"] = record_gt_scores(out, txt)
+            ours = [*res["ransac_auc"], row["precision_record_gt"], row["recall_record_gt"]]
+            theirs = [*rec["ransac_auc"], rec["precision"], rec["recall"]]
+            row["difference_to_record"] = [a - b for a, b in zip(ours, theirs)]
+            print(f"  eval {json.dumps(row)}", flush=True)
+            rows[name] = row
+            if n_lines != EVAL_PAIRS or skipped:
+                raise AssertionError(f"eval {name}: {n_lines} pairs evaluated, skip share "
+                                     f"{skipped}")
+            if per_pair != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+                raise AssertionError(f"eval {name}: launches per pair {per_pair}")
+            if not all(abs(d) <= EVAL_BOUND for d in row["difference_to_record"]):
+                raise AssertionError(f"eval {name}: RANSAC AUC@5/10/25, precision, recall "
+                                     f"(the record's ground truth) {ours} more than "
+                                     f"{EVAL_BOUND} points from the record's {theirs}")
+            del m, matcher
+            torch.cuda.empty_cache()
+        # the CLI with staged Matching (no JAX record: printed with no bound)
+        t = time.perf_counter()
+        res = eval_homography_cli.main([
+            "--input_homography", txt, "--input_dir", images, "--output_dir",
+            os.path.join(tmp, "cli"), "--name", "staged", "--max_length",
+            str(EVAL_STAGED_PAIRS), "--weights_path", WEIGHTS, "--descriptor_source", "sift",
+            "--detector", "device", "--sift_descriptor", "device", "--fast",
+            "--max_keypoints", "6144", "--device", DEVICE])
+        cli_s = time.perf_counter() - t
+        out = os.path.join(tmp, "cli_staged")
+        npz = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+        skipped, n_lines = skip_share(out)
+        row = {"config": "cli staged sift", "pairs": n_lines, "seconds": cli_s,
+               "ransac_auc": res and res["ransac_auc"], "dlt_auc": res and res["dlt_auc"],
+               "precision": res and res["precision"], "recall": res and res["recall"],
+               "skip_share": skipped, "npz_files": len(npz)}
+        print(f"  eval {json.dumps(row)}", flush=True)
+        if n_lines != EVAL_STAGED_PAIRS or skipped or len(npz) != 2 * EVAL_STAGED_PAIRS:
+            raise AssertionError(f"eval CLI: {row}")
+    phase("15 evaluation (199 generated pairs, fused dense_gray and devsift against the JAX "
+          "records; the CLI with staged Matching on 8)", t0, launches=json.dumps(launches))
+    return launches
+
+
 def label_phase():
     """The label-rounds kernel against its plain version on the recorded
     inputs; times of both."""
@@ -1201,7 +1422,10 @@ def kernel_rows(attn, sk, lab, path_launches):
             ("_devsift_path", ATTN_CASES[4], SINKHORN_CASES[4], "devsift"),
             ("_staged_image_path", ATTN_CASES[5], SINKHORN_CASES[5], "staged"),
             ("_fused_carhynet_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_carhynet"),
-            ("_fused_dense_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_dense")):
+            ("_fused_dense_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_dense"),
+            # the evaluation: one pair per dispatch at 6144 keypoints
+            ("_eval_dense_gray_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_dense_gray"),
+            ("_eval_devsift_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_devsift")):
         b, n, m, _ = attn_case
         a, s = attn[(b, n, m, "bfloat16")], sk[(sk_case[0], len(sk_case[1]))]
         c = path_launches[suffix]
@@ -1246,6 +1470,11 @@ def main():
     del s1
     torch.cuda.empty_cache()
     colour_launches = fused_colour_phase(load_gims_checkpoint(WEIGHTS))
+    torch.cuda.empty_cache()
+    # the evaluation runs before the label-rounds phase, which holds the
+    # kernel to its plain version on the graphs of every path, its own too
+    eval_launches = eval_phase(load_gims_checkpoint(WEIGHTS), load_gims_checkpoint(E2E_WEIGHTS),
+                               load_car_checkpoint(E2E_CAR_WEIGHTS))
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -1253,7 +1482,9 @@ def main():
                                        "_devsift_path": devsift_launches,
                                        "_staged_image_path": staged_launches,
                                        "_fused_carhynet_path": colour_launches["carhynet"],
-                                       "_fused_dense_path": colour_launches["dense"]})
+                                       "_fused_dense_path": colour_launches["dense"],
+                                       "_eval_dense_gray_path": eval_launches["dense_gray"],
+                                       "_eval_devsift_path": eval_launches["devsift"]})
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

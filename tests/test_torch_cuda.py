@@ -426,3 +426,42 @@ def test_matching_takes_a_frontend_on_the_same_card(cuda):
                                         sift_descriptor="device"), device="cuda:0")
     m = Matching({"sinkhorn_iterations": 3}, frontend=fe)
     assert m.frontend is fe and m.device == fe.device == torch.device("cuda", 0)
+
+
+def test_eval_gt_and_ransac_on_card_vs_cpu(cuda):
+    """The evaluation's device work, ground-truth matching and RANSAC, on
+    the card against the same functions on the CPU. Ground truth: the match
+    arrays at least 99% equal (the card's f32 products may round a near tie,
+    or a distance next to the 3 px radius, the other way). RANSAC draws another random
+    stream on the card: the mean corner error to the true homography within
+    0.25 px of the CPU's, inlier masks at least 98% equal."""
+    from gims_tpu_torch.core.imgproc import perspective_transform
+    from gims_tpu_torch.eval import metrics, ransac
+    from gims_tpu_torch.eval.homography import gt_reprojection_matches
+    from gims_tpu_torch.train.data import get_perspective_mat
+
+    rng = np.random.RandomState(21)
+    H = get_perspective_mat(0.85, 400, 300, 0.0008, 0.0008, 0.04, 10, 25, 0.6, 0.6,
+                            rng).astype(np.float32)
+    k0 = (rng.rand(3000, 2) * [800, 600]).astype(np.float32)
+    k1 = perspective_transform(k0, H) + rng.randn(3000, 2).astype(np.float32)
+    k1[2000:] = (rng.rand(1000, 2) * [800, 600]).astype(np.float32)
+    card = gt_reprojection_matches(k0, k1[::-1].copy(), H, device="cuda")
+    cpu = gt_reprojection_matches(k0, k1[::-1].copy(), H, device="cpu")
+    m_card = np.full(len(k0), -1)
+    m_cpu = np.full(len(k0), -1)
+    m_card[card[0]], m_cpu[cpu[0]] = card[1], cpu[1]
+    assert (m_card == m_cpu).mean() >= 0.99 and (m_cpu >= 0).sum() > 1000
+    corners = metrics.corner_points(600, 800)
+
+    def corner_error(Hm):
+        return metrics.compute_pixel_error(perspective_transform(corners, Hm),
+                                           perspective_transform(corners, H))
+
+    src, dst = k0[:2500], perspective_transform(k0[:2500], H)
+    dst = dst + rng.randn(2500, 2).astype(np.float32) * 0.5
+    dst[1500:] = (rng.rand(1000, 2) * [800, 600]).astype(np.float32)
+    (h_card, mask_card), (h_cpu, mask_cpu) = (
+        ransac.find_homography(src, dst, device=d) for d in ("cuda", "cpu"))
+    assert abs(corner_error(h_card) - corner_error(h_cpu)) <= 0.25
+    assert (mask_card == mask_cpu).mean() >= 0.98

@@ -16,14 +16,21 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gims_tpu_torch")
 BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "networkx", "sklearn", "gims_tpu"]
-# modules the staged and fused paths run, each imported with the blocked
-# packages refused
+# modules the staged, fused and evaluation paths run, each imported with the
+# blocked packages refused
 REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_torch.agc.labels",
             "gims_tpu_torch.api", "gims_tpu_torch.carhynet.engine",
             "gims_tpu_torch.frontend.dense", "gims_tpu_torch.frontend.detect_device",
             "gims_tpu_torch.frontend.feature", "gims_tpu_torch.frontend.patches",
             "gims_tpu_torch.frontend.sift", "gims_tpu_torch.frontend.sift_descriptor",
-            "gims_tpu_torch.fused", "gims_tpu_torch.matcher.pipeline"]
+            "gims_tpu_torch.fused", "gims_tpu_torch.matcher.pipeline",
+            # the evaluation slice
+            "gims_tpu_torch.core.image_io", "gims_tpu_torch.core.imgproc",
+            "gims_tpu_torch.core.notify", "gims_tpu_torch.train.data", "gims_tpu_torch.train.gt",
+            "gims_tpu_torch.eval.metrics", "gims_tpu_torch.eval.ransac",
+            "gims_tpu_torch.eval.homography", "gims_tpu_torch.eval.matches",
+            "gims_tpu_torch.eval.geometry", "gims_tpu_torch.cli.eval_homography_cli",
+            "gims_tpu_torch.cli.eval_matches_cli", "gims_tpu_torch.cli.generate_pairs_cli"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -58,7 +65,7 @@ def test_port_and_chip_smoke_import_without_blocked_packages():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 35  # package, subpackages and every module under them
+    assert n >= 51  # package, subpackages and every module under them
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():

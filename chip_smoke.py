@@ -106,7 +106,13 @@ Phases, one line each with its seconds:
     numbers printed with no bound (no JAX record exists for it).
   13 the label-rounds kernel against its plain version on the graphs the
     paths above gave it (recorded during phases 4, 6, 9, 10, 12 and 15):
-    labels equal, rounds run, times.
+    labels equal, and the rounds each graph ran equal to rounds_plain's;
+    per path the route plan() took (cluster size, shared bytes per block),
+    the share of blocks that listed their rows' neighbours (as the kernel
+    reports it), the graphs' mean and largest degree, its time at the cap
+    and at cap 0 (one round; the difference over the rounds past the first
+    gives the cost of a round), the share of its bound, and, labelled as a
+    model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
     eight paths' shapes; the script's total seconds.
   Then the last line: {"ok": true, "device": {...}}.
@@ -355,7 +361,8 @@ def kernel_name(line):
     """`kernel<a,b>` of the port's kernel whose mangled name is in `line`
     (template arguments are integers), else None."""
     m = re.search(r"(attn_tc_kernel|attn_f32_kernel|sinkhorn_fused_kernel|"
-                  r"sinkhorn_stream_kernel|label_rounds_kernel)(I(?:Li\d+E)+E)?", line)
+                  r"sinkhorn_stream_kernel|label_rounds_kernel|label_cluster_kernel|"
+                  r"label_pack_kernel)(I(?:Li\d+E)+E)?", line)
     if not m:
         return None
     args = re.findall(r"Li(\d+)E", m.group(2) or "")
@@ -922,7 +929,7 @@ def agc_builds_phase(kp, de, va, acfg):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         row = {"build": name, "ms": 1e3 * (time.perf_counter() - t),
-               "kept": outs[name].kept.sum(1).tolist(), "rounds_run": int(labels.last_rounds)}
+               "kept": outs[name].kept.sum(1).tolist(), "rounds_run": labels.last_rounds.tolist()}
         print(f"  agc {json.dumps(row)}", flush=True)
     cov = [graph.band_coverage(kp[i], va[i], acfg.radius, 512)["coverage"]
            for i in range(kp.shape[0])]
@@ -1380,29 +1387,92 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
     return launches
 
 
+def degrees(mode, edges, valid):
+    """(B, N) degree of each node of the recorded graphs, 0 where invalid:
+    dense rows less the diagonal; band forward plus backward edges; sparse
+    the listed neighbours."""
+    if mode == "dense":
+        eye = torch.eye(edges.shape[1], dtype=torch.bool, device=edges.device)
+        deg = torch.stack([(e & ~eye).sum(-1) for e in edges])
+    elif mode == "band":
+        deg = edges.sum(-1) + labels._band_shear_bwd(edges).sum(-1)
+    else:
+        deg = edges.sum(-1)
+    return torch.where(valid, deg, 0)
+
+
+def label_traffic(mode, edges, valid, run, p, listed):
+    """A model of the bytes one launch moves to and from device memory in the
+    kernel's design (its route from plan(), and each block's choice as the
+    kernel reported it in labels.last_listed): what it reads of the edges,
+    the bits (and dense degrees) it writes and rereads (once to list a
+    block's rows, else once per round), valid and the labels."""
+    b, n, w = edges.shape
+    fixed = valid.numel() + 4 * b * n + 4 * b
+    if not p["cluster"]:  # the edges once per round of the batch
+        per_round = edges.numel() + (4 * edges.numel() if mode == "sparse" else 0)
+        return fixed + max(run) * per_round
+    if mode == "sparse":  # nbr_ok and nbr_idx every round
+        return fixed + sum(run) * n * w * 5
+    rows, cs = p["rows_per_block"], p["cluster_size"]
+    # the rows of bits a block reads in one pass: its own, and for the band
+    # the W before them
+    span = [max(0, min(n, (k + 1) * rows) - k * rows) for k in range(cs)]
+    if mode == "band":
+        span = [s_ + min(w, k * rows) if s_ else 0 for k, s_ in enumerate(span)]
+    passes = 1 if mode == "dense" else 2  # listing: dense from the degrees, band counts first
+    words = 4 * ((n + 127) // 128) if mode == "dense" else (w + 31) // 32
+    reads = sum((passes if listed[g][k] else passes - 1 + run[g]) * span[k]
+                for g in range(b) for k in range(cs))
+    written = 4 * b * n * (words + (mode == "dense"))  # the bits, the dense degrees
+    return fixed + int(valid.sum()) * w + written + 4 * reads * words
+
+
 def label_phase():
     """The label-rounds kernel against its plain version on the recorded
-    inputs; times of both."""
+    inputs: labels and rounds run per graph equal; its route, the graphs'
+    degrees, its time at the cap and at cap 0, against its bound."""
     t0 = time.perf_counter()
     rows = {}
     for path, (mode, edges, valid, rounds, nbr) in RECORDED.items():
         got = labels.propagate(mode, edges, valid, rounds, nbr)
-        run = int(labels.last_rounds)
+        run = labels.last_rounds.tolist()
+        listed = None if labels.last_listed is None else labels.last_listed.tolist()
         want = labels.propagate_plain(mode, edges, valid, rounds, nbr)
+        want_run = labels.rounds_plain(mode, edges, valid, rounds, nbr).tolist()
         err = (got - want).abs().max().item()
         b, n, w = edges.shape
-        nbytes = edges.numel() + valid.numel() + 4 * b * n  # edges, valid, labels
+        p = labels.plan(mode, b, n, w, rounds)
+        # the least the function must move: the edges of the valid nodes (an
+        # invalid node keeps N whatever its row holds; sparse reads nbr_ok
+        # and the int32 nbr_idx), valid, the labels written
+        n_valid = int(valid.sum())
+        nbytes = n_valid * w * (5 if mode == "sparse" else 1) + valid.numel() + 4 * b * n
         b_ms, b_by = bound_ms(nbytes, 0, torch.float32)
+        deg = degrees(mode, edges, valid)
+        moved = label_traffic(mode, edges, valid, run, p, listed)
+        ms = cuda_ms(lambda: labels.propagate(mode, edges, valid, rounds, nbr))
+        ms_one = cuda_ms(lambda: labels.propagate(mode, edges, valid, 0, nbr))
         row = {"path": path, "mode": mode, "shape": f"B={b} N={n} W={w}", "rounds_cap": rounds + 1,
-               "rounds_run": run, "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-               # reading the edges once per round run
-               "per_round_read_ms": 1e3 * run * edges.numel() / HBM_BPS,
-               "ms": cuda_ms(lambda: labels.propagate(mode, edges, valid, rounds, nbr)),
+               "rounds_run": run, "rounds_plain": want_run, "max_abs_err": err,
+               "label_route": "cluster" if p["cluster"] else "global",
+               "cluster_size": p["cluster_size"], "smem_bytes": p["smem_bytes"],
+               "resident_clusters": p["resident_clusters"], "valid_nodes": n_valid,
+               "mean_degree": deg.sum().item() / max(1, n_valid), "max_degree": int(deg.max()),
+               "listed_share": (None if listed is None
+                                else sum(map(sum, listed)) / (b * len(listed[0]))),
+               "bound_ms": b_ms, "bound_by": b_by,
+               # reading the edges once per round run, as the global route does
+               "per_round_read_ms": 1e3 * max(run) * edges.numel() / HBM_BPS,
+               "ms": ms, "bound_share": b_ms / ms,
+               "one_round_ms": ms_one,
+               "per_round_ms": (ms - ms_one) / (max(run) - 1) if max(run) > 1 else None,
                "plain_ms": cuda_ms(lambda: labels.propagate_plain(mode, edges, valid, rounds,
                                                                   nbr), 1),
-               "library_ms": None}
+               "library_ms": None,
+               "model_bytes_moved": moved, "model_moved_ms": 1e3 * moved / HBM_BPS}
         print(f"  label rounds {json.dumps(row)}", flush=True)
-        if err != 0 or not 1 <= run <= rounds + 1:
+        if err != 0 or run != want_run or not all(1 <= r <= rounds + 1 for r in run):
             raise AssertionError(f"label-rounds kernel against plain: {row}")
         rows[path] = row
     phase("13 label-rounds kernel vs plain", t0)
@@ -1443,7 +1513,13 @@ def kernel_rows(attn, sk, lab, path_launches):
              "source": "gims_tpu_torch/csrc/labels.cu",
              # not a Pallas kernel: the lax.while_loop of the label rounds
              "replaces": "gims_tpu/agc/graph.py:167",
-             **lab[label_path], "launches": c["label_rounds"], "kernel_ms": lab[label_path]["ms"],
+             # the modelled bytes stay on phase 13's line
+             **{k: v for k, v in lab[label_path].items() if not k.startswith("model_")},
+             "launches": c["label_rounds"], "kernel_ms": lab[label_path]["ms"],
+             # a launch is one AGC call: the cluster route's dense and band
+             # layouts run label_pack_kernel, then label_cluster_kernel
+             "kernels_per_launch": 2 if (lab[label_path]["label_route"] == "cluster"
+                                         and lab[label_path]["mode"] != "sparse") else 1,
              "library": "none: no single PyTorch call labels connected components"},
         ]
     return rows

@@ -135,7 +135,10 @@ def _declare(lib):
         [p, p, p, p, p]            # Z, log_mu, log_nu, u, v
         + [p, i64]                 # scratch, its float2 count
         + [i, i, i, i, p])         # B, M1, N1, iters, stream
+    lib.gims_label_plan.restype = i
+    lib.gims_label_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i64)]  # mode, B, N, W, rounds
     lib.gims_label_rounds.restype = i
     lib.gims_label_rounds.argtypes = (
-        [i, p, p, p, p, p]         # mode, edges, nbr_idx, valid, labels, scratch
-        + [i, i, i, i, p])         # B, N, W, rounds, stream
+        [i, p, p, p, p, p, p, p, i64]  # mode, edges, nbr_idx, valid, labels, rounds run,
+                                       # listed, scratch, len
+        + [i, i, i, i, p])          # B, N, W, rounds, stream

@@ -20,15 +20,21 @@ index, invalid nodes by N. One round is
   * three pointer jumps, label = min(label, label[label]).
 
 On a CUDA tensor ``propagate`` launches the hand-written kernel
-(``csrc/labels.cu``): every round in one cooperative launch, each round
-ending in a grid-wide flag of changed labels that the next round reads, so
-the rounds stop early with no question to the host and no launch per
-round. On a CPU tensor it runs the plain version, ``propagate_plain``,
-which asks its host loop whether a round changed anything.
+(``csrc/labels.cu``), every round on the card with no question to the host.
+``plan`` gives its route for a shape: the cluster route (one graph per
+thread-block cluster, the labels in shared memory, each graph stopping at
+its own first unchanged round; the dense and band layouts read once as
+bytes, then as bits) wherever a graph's labels fit in shared memory (N up
+to 27,264 in every layout on an H100: every AGC bucket), else the global
+route (the labels in device memory, one cooperative launch). On a CPU tensor it
+runs the plain version, ``propagate_plain``, which asks its host loop
+whether a round changed anything; ``rounds_plain`` gives the rounds each
+graph runs, as ``last_rounds`` holds them after a launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,10 +44,18 @@ from gims_tpu_torch.agc.band import _band_shear_bwd, _window_values_bwd, _window
 
 MODES = {"dense": 0, "band": 1, "sparse": 2}
 
-# calls of propagate that launched the kernel (one launch runs every round)
+# calls of propagate that launched the kernel (one launch runs every round;
+# the dense layout's cluster route launches a packing kernel before it)
 launches = 0
-# (1,) int32 on the card: the rounds the last launch ran (not synchronised)
+# (B,) int32 on the card: the rounds each graph of the last launch ran
+# (not synchronised)
 last_rounds: Optional[torch.Tensor] = None
+# (B, cluster size) int32 on the card, after a launch of the dense or band
+# layout's cluster route (else None): 1 where a block listed its rows'
+# neighbours in shared memory, 0 where it read their bits every round
+last_listed: Optional[torch.Tensor] = None
+PLAN_FIELDS = ("cluster", "cluster_size", "rows_per_block", "resident_clusters",
+               "smem_bytes", "scratch_words", "list_capacity")
 
 
 def _jump3(label: torch.Tensor, n: int) -> torch.Tensor:
@@ -90,19 +104,54 @@ def _round_fn(mode: str, edges: torch.Tensor, valid: torch.Tensor,
     return one_round
 
 
-def propagate_plain(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
-                    nbr_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of ``propagate``. Returns (B, N) int32."""
+def _run_plain(mode, edges, valid, rounds, nbr_idx):
+    """(labels, rounds run per graph): the batch runs until no graph changes;
+    a graph's count stops at its first unchanged round after the first (a
+    round that changes nothing leaves a fixed point, so the later rounds
+    change nothing either)."""
     n = valid.shape[1]
     one_round = _round_fn(mode, edges, valid, nbr_idx)
     idx = torch.arange(n, dtype=torch.int32, device=valid.device)
     label = one_round(torch.where(valid, idx, n))
+    run = torch.ones(valid.shape[0], dtype=torch.int32, device=valid.device)
+    settled = torch.zeros(valid.shape[0], dtype=torch.bool, device=valid.device)
     for _ in range(rounds):
         new = one_round(label)
-        if torch.equal(new, label):
+        run += (~settled).int()
+        settled |= (new == label).all(dim=1)
+        if bool(settled.all()):
             break
         label = new
-    return label
+    return label, run
+
+
+def propagate_plain(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
+                    nbr_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``propagate``. Returns (B, N) int32."""
+    return _run_plain(mode, edges, valid, rounds, nbr_idx)[0]
+
+
+def rounds_plain(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
+                 nbr_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B,) int32: the rounds each graph runs alone, from 1 to 1 + rounds, as
+    ``last_rounds`` holds them after a launch."""
+    return _run_plain(mode, edges, valid, rounds, nbr_idx)[1]
+
+
+def plan(mode: str, b: int, n: int, w: int, rounds: int) -> dict:
+    """The kernel's route on the current card for (B, N, W) edges: ``cluster``
+    (1: the cluster route, 0: the global route), ``cluster_size``,
+    ``rows_per_block``, ``resident_clusters``, ``smem_bytes`` (per block),
+    ``scratch_words`` (int32) and ``list_capacity`` (the neighbour-list
+    entries a block of the dense or band layout holds), as ``csrc/labels.cu``'s plan()
+    chooses them."""
+    if mode not in MODES:
+        raise ValueError(f"label propagation mode {mode!r}: one of {sorted(MODES)}")
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    rc = _build.load().gims_label_plan(MODES[mode], b, n, w, int(rounds), out)
+    if rc != 0:
+        raise RuntimeError(f"gims_label_plan failed: cudaError {rc}")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def propagate(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
@@ -112,7 +161,7 @@ def propagate(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
     edges: adj (B, N, N), a forward band (B, N, Wh) or nbr_ok (B, N, D), bool;
     valid (B, N) bool; nbr_idx (B, N, D) int for "sparse". A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel or raises."""
-    global launches, last_rounds
+    global launches, last_rounds, last_listed
     if mode not in MODES:
         raise ValueError(f"label propagation mode {mode!r}: one of {sorted(MODES)}")
     if edges.device.type == "cpu":
@@ -139,17 +188,23 @@ def propagate(mode: str, edges: torch.Tensor, valid: torch.Tensor, rounds: int,
         nbr_ptr = nbr_idx.data_ptr()
     if rounds < 0 or b * n >= 2 ** 31 or b * n * w >= 2 ** 62:
         raise ValueError(f"propagate: rounds {rounds}, B*N {b * n} out of range")
-    labels = torch.empty((b, n), dtype=torch.int32, device=edges.device)
-    # three (B, N) label buffers, a changed flag per round, the rounds run
-    scratch = torch.empty(3 * b * n + rounds + 2, dtype=torch.int32, device=edges.device)
-    lib = _build.load()
     with torch.cuda.device(edges.device):
+        p = plan(mode, b, n, w, rounds)
+        labels = torch.empty((b, n), dtype=torch.int32, device=edges.device)
+        run = torch.empty(b, dtype=torch.int32, device=edges.device)
+        listed = None
+        if p["cluster"] and mode != "sparse":
+            listed = torch.empty((b, p["cluster_size"]), dtype=torch.int32, device=edges.device)
+        # the dense and band layouts' bits, or the global route's label buffers and flags
+        scratch = torch.empty(max(p["scratch_words"], 4), dtype=torch.int32,
+                              device=edges.device)
         stream = torch.cuda.current_stream(edges.device).cuda_stream
-        rc = lib.gims_label_rounds(MODES[mode], edges.data_ptr(), nbr_ptr, valid.data_ptr(),
-                                   labels.data_ptr(), scratch.data_ptr(), b, n, w,
-                                   int(rounds), stream)
+        rc = _build.load().gims_label_rounds(
+            MODES[mode], edges.data_ptr(), nbr_ptr, valid.data_ptr(), labels.data_ptr(),
+            run.data_ptr(), 0 if listed is None else listed.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), b, n, w, int(rounds), stream)
     if rc != 0:
         raise RuntimeError(f"gims_label_rounds failed: cudaError {rc}")
     launches += 1
-    last_rounds = scratch[-1:]
+    last_rounds, last_listed = run, listed
     return labels

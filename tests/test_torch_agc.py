@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from gims_tpu.agc import graph as jgraph
@@ -317,6 +318,106 @@ def test_label_rounds_stop_early(monkeypatch):
     got = tlabels.propagate("dense", adj, valid, 20)
     assert (got == 0).all()
     assert len(calls) == settle < 21
+
+
+def mixed_batch(n=256, seed=5):
+    """(adj (5, N, N), valid (5, N)) numpy: graphs that settle at different
+    rounds in one batch. A path over every node, a random graph and a random
+    graph of near edges (they settle at 4 to 11 rounds, so the small caps
+    cut them short), a graph with no valid node and one with a single valid
+    node among edges (both settle at once)."""
+    rng = np.random.RandomState(seed)
+    idx = np.arange(n)
+    adj = np.zeros((5, n, n), bool)
+    valid = np.ones((5, n), bool)
+    adj[0] = np.abs(idx[:, None] - idx[None, :]) == 1
+    for k in (1, 2, 3, 4):
+        rand = rng.rand(n, n) < 0.01
+        adj[k] = (rand | rand.T) & ~np.eye(n, dtype=bool)
+    adj[2] &= np.abs(idx[:, None] - idx[None, :]) <= 64
+    valid[1:3] = rng.rand(2, n) < 0.9
+    adj[1:3] &= valid[1:3, :, None] & valid[1:3, None, :]
+    valid[3] = False
+    valid[4] = idx == n // 2
+    return adj, valid
+
+
+# the JAX label loops, jitted once per layout; the cap is traced
+_JAX_CC = {
+    "dense": jax.jit(lambda adj, valid, r: jgraph.connected_components(adj, valid, r)),
+    "band": jax.jit(lambda band, valid, r: jgraph.connected_components_band(band, valid, r)),
+    "sparse": jax.jit(lambda nbr, ok, valid, r: jgraph.connected_components_sparse(
+        nbr, ok, valid, r)),
+}
+
+
+def layout_inputs(mode, adj, valid):
+    """Per graph: the JAX arguments; for the batch: the port's (edges,
+    valid, nbr_idx), all from the same numpy arrays (band half-width 128,
+    neighbour lists of 4)."""
+    per_graph, edges, nbrs = [], [], []
+    for a, v in zip(adj, valid):
+        if mode == "dense":
+            per_graph.append((a, v))
+            edges.append(a)
+        elif mode == "band":
+            band = band_of(a, 128)
+            per_graph.append((band, v))
+            edges.append(band)
+        else:
+            nbr, ok = neighbour_list_of(a, 4)
+            per_graph.append((nbr, ok, v))
+            edges.append(ok)
+            nbrs.append(nbr)
+    nbr_idx = torch.from_numpy(np.stack(nbrs)) if nbrs else None
+    return per_graph, (torch.from_numpy(np.stack(edges)), torch.from_numpy(valid), nbr_idx)
+
+
+@pytest.mark.parametrize("mode", ["dense", "band", "sparse"])
+def test_batched_labels_equal_per_graph_jax(mode):
+    """The port labels a batch whose graphs settle at different rounds as JAX
+    labels each graph alone, at caps that cut the path short and at the
+    usual cap: what lets each graph of a batch stop at its own first
+    unchanged round (JAX vmaps AGC over the batch, and a labelling that a
+    round leaves unchanged is a fixed point of the round)."""
+    adj, valid = mixed_batch()
+    per_graph, (edges, tvalid, nbr_idx) = layout_inputs(mode, adj, valid)
+    for rounds in (0, 1, 2, 3, 20):
+        got = tlabels.propagate(mode, edges, tvalid, rounds, nbr_idx)
+        for b, args in enumerate(per_graph):
+            want = _JAX_CC[mode](*(jnp.asarray(x) for x in args), jnp.int32(rounds))
+            np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+def jax_rounds_run(mode, args, rounds):
+    """The rounds JAX's loop runs on one graph: 1 + the first cap c whose
+    labels equal those of cap c - 1 (the body round that changed nothing),
+    at most 1 + rounds."""
+    last = np.asarray(_JAX_CC[mode](*(jnp.asarray(x) for x in args), jnp.int32(0)))
+    for c in range(1, rounds + 1):
+        now = np.asarray(_JAX_CC[mode](*(jnp.asarray(x) for x in args), jnp.int32(c)))
+        if np.array_equal(now, last):
+            return 1 + c
+        last = now
+    return 1 + rounds
+
+
+@pytest.mark.parametrize("mode", ["dense", "band", "sparse"])
+def test_rounds_plain_per_graph(mode):
+    """rounds_plain on a batch gives each graph the rounds it runs alone: the
+    count of rounds_plain on that graph by itself and of JAX's loop on it."""
+    adj, valid = mixed_batch()
+    per_graph, (edges, tvalid, nbr_idx) = layout_inputs(mode, adj, valid)
+    for rounds in (0, 2, 20):
+        got = tlabels.rounds_plain(mode, edges, tvalid, rounds, nbr_idx)
+        assert got.dtype == torch.int32 and got.shape == (len(per_graph),)
+        alone = [int(tlabels.rounds_plain(mode, edges[b:b + 1], tvalid[b:b + 1], rounds,
+                                          None if nbr_idx is None else nbr_idx[b:b + 1])[0])
+                 for b in range(len(per_graph))]
+        want = [jax_rounds_run(mode, args, rounds) for args in per_graph]
+        assert got.tolist() == alone == want
+        if rounds == 20:
+            assert len(set(want)) >= 3  # the batch settles at mixed rounds
 
 
 # ---------------------------------------------------------------- other builds

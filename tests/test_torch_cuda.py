@@ -268,6 +268,13 @@ def test_sinkhorn_kernel_in_devsift_composition(cuda):
         assert (got[i][r][:, c] - want[i][r][:, c]).abs().max().item() <= 2e-4
 
 
+def forward_band(adj, wh):
+    """The forward band of a dense adjacency: band[:, i, m] = adj[:, i, i + 1 + m]."""
+    b, n, _ = adj.shape
+    j = torch.arange(n, device=adj.device)[:, None] + 1 + torch.arange(wh, device=adj.device)
+    return (torch.gather(adj, 2, j.clamp(max=n - 1)[None].expand(b, n, wh)) & (j < n)).contiguous()
+
+
 def random_geometric_graphs(cuda, b, n, wh, seed):
     """Keypoints sorted by x in a strip, edges between points within 12 px
     kept with probability 0.6: the AGC graphs' shape (components of a few
@@ -280,41 +287,150 @@ def random_geometric_graphs(cuda, b, n, wh, seed):
     keep = torch.rand((b, n, n), generator=g, device=cuda) < 0.6
     keep = torch.triu(keep, 1)
     adj = (d2 <= 144.0) & (keep | keep.transpose(1, 2))
+    del d2, keep
     idx = torch.arange(n, device=cuda)
     adj &= (idx[:, None] - idx[None, :]).abs() <= wh
     adj &= idx[:, None] != idx[None, :]
     valid = idx[None] < torch.tensor([n - 17 * i for i in range(b)], device=cuda)[:, None]
     adj &= valid[:, :, None] & valid[:, None, :]
-    j = idx[:, None] + 1 + torch.arange(wh, device=cuda)[None, :]
-    band = torch.gather(adj, 2, j.clamp(max=n - 1)[None].expand(b, n, wh)) & (j < n)
-    return adj.contiguous(), band.contiguous(), valid
+    return adj.contiguous(), forward_band(adj, wh), valid
+
+
+def mixed_graphs(cuda, n, wh, seed):
+    """Graphs that settle at different rounds in one batch: a path over every
+    node (cut short by the small caps), two random geometric graphs (which
+    settle early), a graph with no valid node, one with a single valid node
+    among edges, and one with no edge. Edges touch invalid nodes too."""
+    adj, _, valid = random_geometric_graphs(cuda, 6, n, wh, seed)
+    idx = torch.arange(n, device=cuda)
+    adj[0] = (idx[:, None] - idx[None, :]).abs() == 1
+    valid[0] = True
+    valid[3] = False
+    valid[4] = idx == n // 2
+    adj[4] = adj[1]
+    adj[5] = False
+    return adj.contiguous(), forward_band(adj, wh), valid
+
+
+def crowded_graphs(cuda, b, n, wh, seed):
+    """Random geometric graphs whose first half of nodes is joined with
+    probability 0.6 (within the band): the blocks that own those rows hold
+    too many neighbours to list them in shared memory. In the dense and band
+    layouts they read their rows' bits every round while the others list
+    their neighbours."""
+    adj, _, valid = random_geometric_graphs(cuda, b, n, wh, seed)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    h = n // 2
+    crowd = torch.triu(torch.rand((b, h, h), generator=g, device=cuda) < 0.6, 1)
+    idx = torch.arange(h, device=cuda)
+    crowd &= (idx[:, None] - idx[None, :]).abs() <= wh
+    adj[:, :h, :h] = (crowd | crowd.transpose(1, 2)) & valid[:, :h, None] & valid[:, None, :h]
+    return adj.contiguous(), forward_band(adj, wh), valid
+
+
+# (graphs, N, band width) per case; N = 1000 is no multiple of 32 (nor 16)
+LABEL_CASES = {"random": (3, 1000, 128), "mixed": (6, 1000, 128),
+               "more graphs than resident clusters": (40, 2048, 128),
+               "crowded": (2, 4096, 1024)}
+# (layout, graphs, N, band width, or neighbours a node for sparse): the
+# widest buckets, and an N past what shared memory holds in each layout (the
+# global route)
+BIG_LABEL_CASES = {"dense 2 x 12288": ("dense", 2, 12288, 128),
+                   "dense 1 x 24576": ("dense", 1, 24576, 128),
+                   "band 1 x 24576": ("band", 1, 24576, 512),
+                   "dense global route": ("dense", 1, 29000, 128),
+                   "band global route": ("band", 1, 29000, 512),
+                   "sparse global route": ("sparse", 1, 29000, 6)}
+
+
+def neighbour_lists(adj, d):
+    """(nbr_ok, nbr_idx) of the sparse layout: each node's first d neighbours."""
+    key = torch.where(adj, torch.arange(adj.shape[1], device=adj.device), 10 ** 6)
+    nbr = torch.sort(key, dim=2, stable=True).indices[..., :d]
+    return torch.gather(adj, 2, nbr), nbr
+
+
+def check_label_rounds(mode, edges, valid, rounds, nbr=None):
+    """The kernel against its plain version: labels bit-equal, one launch,
+    and the rounds each graph ran equal to rounds_plain's."""
+    from gims_tpu_torch.agc import labels
+
+    before = labels.launches
+    got = labels.propagate(mode, edges, valid, rounds, nbr)
+    torch.cuda.synchronize()
+    assert labels.launches == before + 1
+    assert torch.equal(got, labels.propagate_plain(mode, edges, valid, rounds, nbr))
+    run = labels.last_rounds
+    assert run.shape == (valid.shape[0],)
+    assert torch.equal(run, labels.rounds_plain(mode, edges, valid, rounds, nbr))
+    return run
+
+
+@pytest.mark.parametrize("case", list(LABEL_CASES))
+@pytest.mark.parametrize("rounds", [0, 1, 2, 20])
+@pytest.mark.parametrize("mode", ["dense", "band", "sparse"])
+def test_label_rounds_kernel_vs_plain(cuda, mode, rounds, case):
+    """The label-rounds kernel (every round on the card, each graph stopping
+    at its first round that changes nothing) against its plain version:
+    labels equal and rounds run per graph equal, at caps that cut the rounds
+    short and at the usual cap; N not a multiple of 32; a batch settling at
+    mixed rounds; more graphs than the card holds clusters at once; dense
+    and band rows too crowded for the blocks' neighbour lists beside rows
+    that fit, as the kernel reports each block's choice."""
+    from gims_tpu_torch.agc import labels
+
+    b, n, wh = LABEL_CASES[case]
+    if case == "mixed":
+        adj, band, valid = mixed_graphs(cuda, n, wh, seed=rounds)
+    elif case == "crowded":
+        adj, band, valid = crowded_graphs(cuda, b, n, wh, seed=rounds)
+    else:
+        adj, band, valid = random_geometric_graphs(cuda, b, n, wh, seed=rounds)
+    nbr = None
+    edges = {"dense": adj, "band": band}.get(mode)
+    if mode == "sparse":
+        edges, nbr = neighbour_lists(adj, 6)
+    p = labels.plan(mode, b, n, edges.shape[2], rounds)
+    assert p["cluster"] == 1
+    if case == "more graphs than resident clusters":
+        assert b > p["resident_clusters"]
+    run = check_label_rounds(mode, edges, valid, rounds, nbr)
+    if mode != "sparse":  # the blocks' choices, as the kernel wrote them
+        listed = labels.last_listed.cpu()
+        assert listed.shape == (b, p["cluster_size"])
+        if case == "crowded":  # some blocks' lists fit, some do not
+            assert (listed == 0).any() and (listed == 1).any()
+        else:
+            assert (listed == 1).all()
+    assert ((1 <= run) & (run <= rounds + 1)).all()
+    if rounds == 20 and case not in ("mixed", "crowded"):
+        assert (run < 21).all()  # these graphs settle early
+    if case == "mixed" and rounds == 20:
+        assert len(set(run.tolist())) >= 2  # the graphs settle at different rounds
 
 
 @pytest.mark.parametrize("rounds", [0, 1, 2, 20])
-@pytest.mark.parametrize("mode", ["dense", "band", "sparse"])
-def test_label_rounds_kernel_vs_plain(cuda, mode, rounds):
-    """The label-rounds kernel (every round in one launch, stopping at the
-    first round that changes nothing) against its plain version: labels
-    equal, at caps that cut the rounds short and at the usual cap."""
+@pytest.mark.parametrize("case", list(BIG_LABEL_CASES))
+def test_label_rounds_kernel_vs_plain_sizes(cuda, case, rounds):
+    """Two graphs of 12288 and one of 24576 nodes (the cluster route, clusters
+    of 16), and 29000 nodes in each layout, past what shared memory holds
+    (27,264 on an H100), where plan() takes the global route."""
     from gims_tpu_torch.agc import labels
 
-    adj, band, valid = random_geometric_graphs(cuda, 3, 1000, 128, seed=rounds)
-    args = {"dense": (adj,), "band": (band,)}.get(mode)
+    mode, b, n, w = BIG_LABEL_CASES[case]
+    adj, band, valid = random_geometric_graphs(cuda, b, n, 128 if mode == "sparse" else w,
+                                               seed=rounds)
     nbr = None
+    edges = {"dense": adj, "band": band}.get(mode)
     if mode == "sparse":
-        key = torch.where(adj, torch.arange(1000, device=cuda), 10 ** 6)
-        nbr = torch.sort(key, dim=2, stable=True).indices[..., :6]
-        args = (torch.gather(adj, 2, nbr),)
-    before = labels.launches
-    got = labels.propagate(mode, *args, valid, rounds, nbr)
-    torch.cuda.synchronize()
-    assert labels.launches == before + 1
-    want = labels.propagate_plain(mode, *args, valid, rounds, nbr)
-    assert torch.equal(got, want)
-    run = int(labels.last_rounds)
-    assert 1 <= run <= rounds + 1
-    if rounds == 20:
-        assert run < 21  # these graphs settle early
+        edges, nbr = neighbour_lists(adj, w)
+    del adj
+    p = labels.plan(mode, b, n, edges.shape[2], rounds)
+    assert p["cluster"] == (0 if case.endswith("global route") else 1)
+    if p["cluster"]:
+        assert p["cluster_size"] == 16
+    check_label_rounds(mode, edges, valid, rounds, nbr)
+    assert (labels.last_listed is None) == (not p["cluster"] or mode == "sparse")
 
 
 def test_band_build_equals_dense_approx_on_card(cuda):

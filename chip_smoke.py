@@ -10,10 +10,11 @@ Phases, one line each with its seconds:
     kernel; the count of wgmma (HGMMA) instructions in the attention
     kernels' SASS, which must not be 0 for the bf16 kernel.
   2 the attention kernel against its plain PyTorch versions on the card,
-    at the three paths' trunk shapes among others.
+    at the paths' trunk shapes among others (head width 64), and at a head
+    width of 256 (a 512-d trunk of 2 heads; the kernel's widest), timed.
   3 the Sinkhorn kernels against their plain PyTorch version on the card:
-    the fused kernel at Z of 2049, 8193, (8, 3073) and (4, 6145) square,
-    the streaming kernel at 24577 (the widest bucket).
+    the fused kernel at Z of 2049, 8193, (8, 3073), (4, 6145), 6145 and
+    3073 square, the streaming kernel at 24577 (the widest bucket).
   4 the slice: gims_tpu_torch.api.Matching with the staged checkpoint
     (weights/gims_tpu_sift_last.npz, 18 GNN layers, 256-d) serves four
     synthetic keypoint requests in an 800x600 frame (buckets 2048 and
@@ -104,8 +105,27 @@ Phases, one line each with its seconds:
     Matching (the staged checkpoint, SIFT descriptors from the device
     detector, --fast, 6144 keypoints): its artifacts, no pair skipped, its
     numbers printed with no bound (no JAX record exists for it).
+  16 training (run after phase 15, before 13): the port's fused
+    end-to-end trainer, gims_tpu_torch.train.loop.train, at the full widths
+    of configs/e2e_fo0_800.yaml (800x600, 6144 keypoints, no upsample, the
+    18-layer 256-d GMatcher with bf16 direct attention under
+    torch.utils.checkpoint, 20 Sinkhorn iterations, threshold 0.02, AGC
+    15/2/7, dustbin negatives, InfoNCE weight 1), warm-started from the
+    joint e2e weights. Only the loop is cut (printed): 3 synthetic pairs per
+    epoch, 2 epochs, the first with the matcher frozen, 2 validation pairs,
+    a temporary output directory. It fails unless every loss is finite, the
+    matcher's parameters stay fixed in the frozen steps while the CNN's
+    move and both move afterwards, each train step launches the label
+    rounds twice and neither K1 nor K2, each validation pair launches K1 18
+    times, K2 and the label rounds once, the first step's two AGC graphs
+    (adjacency and kept) are equal with the label kernel and with its plain
+    version, the exported EMA npz loaded into a fresh FusedMatching matches
+    a pair as the in-memory EMA model does, and a resume from `last`
+    continues the optimizer's step count. Prints ms per frozen and per
+    joint step, peak memory, validation ms per pair, the launches, and the
+    stage split of one more joint step in a torch.profiler trace.
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10, 12 and 15):
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15 and 16):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -114,14 +134,14 @@ Phases, one line each with its seconds:
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
-    eight paths' shapes; the script's total seconds.
+    nine paths' shapes; the script's total seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
-gims_tpu_torch/_build/ but phase 15's pairs and artifacts, in a temporary
-directory that it removes.
+gims_tpu_torch/_build/ but phase 15's pairs and artifacts and phase 16's
+checkpoints, in temporary directories that it removes.
 """
 
 from __future__ import annotations
@@ -149,7 +169,7 @@ from gims_tpu_torch.agc import graph, labels  # noqa: E402
 from gims_tpu_torch.api import Matching  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
 from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
-from gims_tpu_torch.config import FrontendConfig, MatcherConfig  # noqa: E402
+from gims_tpu_torch.config import FrontendConfig, MatcherConfig, load_config  # noqa: E402
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
 from gims_tpu_torch.eval import homography  # noqa: E402
 from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
@@ -158,7 +178,9 @@ from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pip
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
 from gims_tpu_torch.matcher.gmatcher import GMatcher  # noqa: E402
 from gims_tpu_torch.synthetic import correct_share, synthetic_image_pair, synthetic_request  # noqa: E402
-from gims_tpu_torch.train import gt  # noqa: E402
+from gims_tpu_torch.train import fused_step, gt  # noqa: E402
+from gims_tpu_torch.train import loop as train_loop  # noqa: E402
+from gims_tpu_torch.train import step as train_step  # noqa: E402
 
 WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_sift_last.npz")
 E2E_WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_dense_gray_e2e.npz")
@@ -202,7 +224,13 @@ DEVICE = "cuda"
 # and the staged image path's (one pair, both sides stacked: B=2, 6144), and
 # the fused colour sources' (as devsift's)
 ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
-              (16, 3072, 3072, 400), (8, 6144, 6144, 700), (2, 6144, 6144, 900))
+              (16, 3072, 3072, 400), (8, 6144, 6144, 700), (2, 6144, 6144, 900),
+              (2, 3072, 3072, 300))
+# the trainer's validation (one pair of 6144 keypoints compacted to 3072,
+# sides stacked) is the last of ATTN_CASES. A head of 256 columns (a 512-d
+# trunk of 2 heads) at the staged image path's bucket: the kernel's widest
+WIDE_ATTN_CASE = (2, 6144, 6144, 900)
+WIDE_HEAD_DIM = 256
 # (bucket, valid rows, valid cols, iterations) of the Sinkhorn input Z
 # (bucket+1 square), one entry per batch item: the fused kernel (Z read once
 # per iteration) at 2049 and 8193, the streaming kernel (twice) at 24577,
@@ -213,7 +241,8 @@ SINKHORN_CASES = ((2048, [1800], [1750], SINKHORN_ITERS), (8192, [7000], [6900],
                   (3072, [2900, 3072, 2500, 3000, 2800, 3072, 2700, 2950],
                    [2950, 3000, 2600, 3072, 2750, 3050, 2800, 2900], FUSED_ITERS),
                   (6144, [5900, 6144, 5200, 6050], [6000, 5800, 6144, 4900], FUSED_ITERS),
-                  (6144, [6144], [6100], FUSED_ITERS))
+                  (6144, [6144], [6100], FUSED_ITERS),
+                  (3072, [2900], [2950], FUSED_ITERS))
 # the fused image path as the JAX package's bench runs it (bench.py:223-275)
 FUSED_FRAME = (600, 800)
 FUSED_BATCH = 8
@@ -301,6 +330,19 @@ EVAL_CONFIGS = {  # scripts/quality_eval.py --fused with each record's args
 EVAL_COMMON = {"sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
                "attention_dtype": "bfloat16", "use_pallas_sinkhorn": True, "fast_frontend": True,
                "sift_samples": 16, "threshold_stride": 4, "dense_first_map_oct": 0, **EVAL_AGC}
+# the trainer (phase 16): the port's train.loop.train at the full widths of
+# configs/e2e_fo0_800.yaml (800x600, 6144 keypoints, no upsample, 18-layer
+# 256-d GMatcher with bf16 direct attention and remat, 20 Sinkhorn
+# iterations, threshold 0.02, AGC 15/2/7, dustbin negatives, InfoNCE weight
+# 1), warm-started from the joint e2e weights; only the loop is cut
+TRAIN_CONFIG = os.path.join(REPO, "configs", "e2e_fo0_800.yaml")
+TRAIN_CUTS = {"limit": 3, "num_epochs": 2, "freeze_gmatcher_epochs": 1, "val_images_count": 2}
+TRAIN_WIDTHS = {"dim": 256, "layers": 18, "heads": 4, "attention_dtype": "bfloat16",
+                "attention_impl": "direct", "remat": True, "sinkhorn_iterations": 20,
+                "threshold": 0.02, "neg_cells": "dustbin", "use_pallas_sinkhorn": False,
+                "source": "dense_gray", "upsample": False, "keypoints": 6144,
+                "frame": [600, 800], "agc": [15.0, 2.0, 7], "desc_loss_weight": 1.0,
+                "batch_size": 1}
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
@@ -427,9 +469,8 @@ def build_phase():
           library=os.path.relpath(lib._name, REPO))
 
 
-def attention_case(b, n, m, masked_tail, dtype, seed):
+def attention_case(b, n, m, masked_tail, dtype, seed, h=4, d=HEAD_DIM):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
-    h, d = 4, HEAD_DIM
     q, k, v = (torch.randn((b, x, h, d), generator=g, device=DEVICE).to(dtype)
                for x in (n, m, m))
     mask = torch.ones((b, m), dtype=torch.bool, device=DEVICE)
@@ -471,17 +512,18 @@ def attention_case(b, n, m, masked_tail, dtype, seed):
 def attention_phase():
     t0 = time.perf_counter()
     rows = {}
-    for b, n, m, tail in ATTN_CASES:
+    cases = [(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM)]
+    for (b, n, m, tail), h, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m)
-            row = {"shape": f"B={b} N={n} M={m} H=4 D=64", "dtype": str(dtype)[6:], **info}
+            q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m + d, h=h, d=d)
+            row = {"shape": f"B={b} N={n} M={m} H={h} D={d}", "dtype": str(dtype)[6:], **info}
             if m % 64 == 0:  # the trunk's shapes: time them
                 esz = q.element_size()
-                nbytes = 2 * b * n * 4 * 64 * esz + 2 * b * m * 4 * 64 * esz + b * m
-                flops = 4 * b * 4 * n * m * 64
+                nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
+                flops = 4 * b * h * n * m * d
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
                 # one exp2 per score on the MUFU units, beside the matrix products
-                row["exp_bound_ms"] = 1e3 * b * 4 * n * m / EXP_PER_S
+                row["exp_bound_ms"] = 1e3 * b * h * n * m / EXP_PER_S
                 row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
                 row["tflops"] = flops / row["ms"] / 1e9
                 row["plain_ms"] = cuda_ms(
@@ -493,13 +535,15 @@ def attention_phase():
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=bias))
                 row["ratio_to_library"] = row["ms"] / row["library_ms"]
-            rows[(b, n, m, row["dtype"])] = row
+            rows[(b, n, m, row["dtype"]) if d == HEAD_DIM else (b, n, m, row["dtype"], d)] = row
             print(f"  attention {json.dumps(row)}", flush=True)
             del q, k, v, mask
     torch.cuda.empty_cache()
+    wide = rows[WIDE_ATTN_CASE[:3] + ("bfloat16", WIDE_HEAD_DIM)]
     phase("2 attention kernel vs plain", t0,
           max_err_f32=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "float32"),
-          max_err_bf16=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "bfloat16"))
+          max_err_bf16=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "bfloat16"),
+          wide_head_bf16_ms=wide["ms"], wide_head_bound_ms=wide["bound_ms"])
     return rows
 
 
@@ -693,17 +737,20 @@ RECORDED = {}
 
 class record_labels:
     """Within the block, keep the first input of the label-rounds kernel
-    that `want(mode, edges)` accepts under `path`, for phase 10."""
+    that `want(mode, edges)` accepts under `path`, for phase 13; with `n`
+    above 1, the first n under `path` + "0", "1", ..."""
 
-    def __init__(self, path, want=lambda mode, edges: True):
-        self.path, self.want = path, want
+    def __init__(self, path, want=lambda mode, edges: True, n=1):
+        self.want = want
+        self.paths = [path] if n == 1 else [f"{path}{i}" for i in range(n)]
 
     def __enter__(self):
         self.real = real = labels.propagate
 
         def recording(mode, edges, valid, rounds, nbr_idx=None):
-            if self.path not in RECORDED and self.want(mode, edges):
-                RECORDED[self.path] = (mode, edges, valid, rounds, nbr_idx)
+            free = [p for p in self.paths if p not in RECORDED]
+            if free and self.want(mode, edges):
+                RECORDED[free[0]] = (mode, edges, valid, rounds, nbr_idx)
             return real(mode, edges, valid, rounds, nbr_idx)
 
         labels.propagate = recording
@@ -1387,6 +1434,207 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
     return launches
 
 
+def profile_train_step(cfg, model):
+    """The stage split of one joint train step (after a warm-up step) in a
+    torch.profiler trace: the gims.* ranges (a range's device span runs from
+    its first kernel to its last; the backward's kernels are launched from
+    autograd's device thread, outside the main thread's range), the device's
+    busy time against the wall, and the kernels that took the most time."""
+    h, w = cfg.dataset.image_height, cfg.dataset.image_width
+    budgets = fused.octave_budgets(h, w, cfg.train.max_keypoints, cfg.frontend.upsample)
+    state, tx = train_step.create_train_state(cfg, model, TRAIN_CUTS["limit"])
+    step = fused_step.make_fused_e2e_train_step(cfg, tx, (h, w), budgets)
+    pair = train_loop.data_mod.SyntheticPairDataset(cfg.dataset, length=1, seed=5)[0]
+    batch = train_loop.build_batch_e2e([pair], DEVICE)
+    step(state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    stages, busy_ms = stage_split(prof, 1)
+    kernels = sorted(((device_us(e, self_only=True) / 1e3, e.count, e.key[:80])
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("gims.")), reverse=True)
+    split = {"config": "train joint step", "profiled_ms": wall_ms, "device_busy_ms": busy_ms,
+             "idle_share": 1 - busy_ms / wall_ms, "stages": stages,
+             "top_kernels_ms_count": kernels[:12],
+             "kernels": sum(k[1] for k in kernels)}
+    print(f"  train stages {json.dumps(split)}", flush=True)
+
+
+def train_phase():
+    """The fused end-to-end trainer at the full e2e_fo0_800 widths, the loop
+    cut to 3 synthetic pairs per epoch, 2 epochs, the first frozen: every loss
+    finite; the matcher's parameters unchanged in the frozen steps while the
+    CNN's move, both moving afterwards; per train step 2 label-rounds
+    launches and no K1 or K2; per validation pair 18 K1, 1 K2 and 1 label
+    launch; the first step's two AGC graphs equal (adjacency and kept) with
+    the kernel and with the plain label rounds; the EMA npz export loaded
+    into a fresh FusedMatching matches a pair as the in-memory EMA model
+    does; a resume from `last` continues the optimizer's step count."""
+    t0 = time.perf_counter()
+    cfg = load_config(TRAIN_CONFIG)
+    m, f, a = cfg.matcher, cfg.frontend, cfg.agc
+    got = {"dim": m.descriptor_dim, "layers": m.num_gnn_layers, "heads": m.num_heads,
+           "attention_dtype": m.attention_dtype, "attention_impl": m.attention_impl,
+           "remat": m.remat, "sinkhorn_iterations": m.sinkhorn_iterations,
+           "threshold": m.match_threshold, "neg_cells": m.neg_cells,
+           "use_pallas_sinkhorn": m.use_pallas_sinkhorn, "source": f.descriptor_source,
+           "upsample": f.upsample, "keypoints": cfg.train.max_keypoints,
+           "frame": [cfg.dataset.image_height, cfg.dataset.image_width],
+           "agc": [a.radius, a.percentile, a.min_size],
+           "desc_loss_weight": cfg.train.desc_loss_weight, "batch_size": cfg.train.batch_size}
+    if got != TRAIN_WIDTHS:
+        raise AssertionError(f"{TRAIN_CONFIG}: {got}, expected {TRAIN_WIDTHS}")
+    print(f"  train cuts {json.dumps(TRAIN_CUTS)}, widths as configured {json.dumps(got)}",
+          flush=True)
+    tcfg = dataclasses.replace(cfg.train, num_epochs=TRAIN_CUTS["num_epochs"],
+                               freeze_gmatcher_epochs=TRAIN_CUTS["freeze_gmatcher_epochs"],
+                               val_images_count=TRAIN_CUTS["val_images_count"])
+    cfg = dataclasses.replace(cfg, train=tcfg)
+    frozen_steps = TRAIN_CUTS["freeze_gmatcher_epochs"] * TRAIN_CUTS["limit"]
+    steps, vals, agc_inputs = [], [], []
+    real_make, real_test, real_agc = (fused_step.make_fused_e2e_train_step, train_loop.test_model,
+                                      pipeline.run_agc)
+
+    def params_of(state, prefix):
+        return [p.detach().clone() for n, p in state.model.named_parameters()
+                if n.startswith(prefix)]
+
+    def make_step(*args, **kwargs):
+        inner = real_make(*args, **kwargs)
+
+        def step(state, batch):
+            before_m, before_c = params_of(state, "gmatcher."), params_of(state, "carhynet.")
+            torch.cuda.synchronize()
+            before, t = counts(), time.perf_counter()
+            state, metrics = inner(state, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            after = counts()
+            steps.append({
+                "step": state.step - 1, "frozen": state.step - 1 < frozen_steps, "ms": ms,
+                "losses": [float(x) for x in metrics["vec"].tolist()],
+                "launches": {k: after[k] - before[k] for k in after},
+                "matcher_moved": any(not torch.equal(a, b) for a, b in zip(
+                    before_m, params_of(state, "gmatcher."))),
+                "cnn_moved": any(not torch.equal(a, b) for a, b in zip(
+                    before_c, params_of(state, "carhynet.")))})
+            return state, metrics
+
+        return step
+
+    def test_model(matcher, val_dataset, val_count, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, t = counts(), time.perf_counter()
+        res = real_test(matcher, val_dataset, val_count, *args, **kwargs)
+        torch.cuda.synchronize()
+        after, n = counts(), min(val_count, len(val_dataset))
+        vals.append({"pairs": n, "ms_per_pair": 1e3 * (time.perf_counter() - t) / n,
+                     "launches_per_pair": {k: (after[k] - before[k]) / n for k in after},
+                     "weight_score": res["weight_score"], "ransac_auc": res["ransac_auc"]})
+        return res
+
+    def run_agc(*args, **kwargs):
+        if len(agc_inputs) < 2 and not vals and not steps:  # the first step's two sides
+            agc_inputs.append(args)
+        return real_agc(*args, **kwargs)
+
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    fused_step.make_fused_e2e_train_step = make_step
+    train_loop.test_model, pipeline.run_agc = test_model, run_agc
+    try:
+        # the first step's two graphs, for phase 13
+        with tempfile.TemporaryDirectory(prefix="gims_train_") as tmp, record_labels(
+                "train_side", want=lambda mode, edges: not steps, n=2):
+            reset_counts()
+            t_train = time.perf_counter()
+            state = train_loop.train(cfg, save_dir=os.path.join(tmp, "run"),
+                                     limit=TRAIN_CUTS["limit"], fused_e2e=True,
+                                     init_weights=E2E_WEIGHTS, device=DEVICE, log_fn=logs.append)
+            train_s = time.perf_counter() - t_train
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            weights = os.path.join(tmp, "run", "weights")
+            # the npz export against the in-memory EMA model, on one pair
+            val = train_loop.data_mod.SyntheticPairDataset(cfg.dataset, length=1, seed=999)
+            img0, img1, _ = val[0]
+            mem = fused.FusedMatching(train_loop.eval_config(cfg),
+                                      total_keypoints=cfg.train.max_keypoints, device=DEVICE)
+            train_loop.load_eval_weights(mem, state)
+            disk = fused.FusedMatching(
+                train_loop.eval_config(cfg),
+                variables=load_gims_checkpoint(os.path.join(weights, "last.npz")),
+                car_variables=load_car_checkpoint(os.path.join(weights, "last_car.npz")),
+                total_keypoints=cfg.train.max_keypoints, device=DEVICE)
+            pm, pd = mem(img0, img1), disk(img0, img1)
+            for key in ("keypoints0", "keypoints1", "matches0", "matches1"):
+                if not np.array_equal(pm[key], pd[key]):
+                    raise AssertionError(f"training: the exported npz matches differently ({key})")
+            n_export = int((pm["matches0"] >= 0).sum())
+            # resume from `last`: one more step, the counts continue
+            steps_before = len(steps)
+            resumed = train_loop.train(
+                dataclasses.replace(cfg, train=dataclasses.replace(tcfg, num_epochs=3)),
+                save_dir=os.path.join(tmp, "run"), limit=TRAIN_CUTS["limit"], fused_e2e=True,
+                max_steps=state.step + 1, restore_path=os.path.join(weights, "last"),
+                device=DEVICE, log_fn=logs.append)
+    finally:
+        fused_step.make_fused_e2e_train_step = real_make
+        train_loop.test_model, pipeline.run_agc = real_test, real_agc
+    main_steps = steps[:steps_before]
+    n_steps = TRAIN_CUTS["limit"] * TRAIN_CUTS["num_epochs"]
+    if len(main_steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"training: {len(main_steps)} steps, state.step {state.step}")
+    if not (resumed.step == n_steps + 1 and resumed.opt_state["count"] == n_steps + 1
+            and resumed.ema_updates == n_steps + 1):
+        raise AssertionError(f"training resume: step {resumed.step}, "
+                             f"optimizer count {resumed.opt_state['count']}")
+    for st in steps:
+        if not all(math.isfinite(x) for x in st["losses"]):
+            raise AssertionError(f"training: a loss is not finite: {st}")
+        if st["launches"] != {"attention": 0, "sinkhorn": 0, "label_rounds": 2}:
+            raise AssertionError(f"training: launches per step {st['launches']}")
+        if st["matcher_moved"] == st["frozen"] or not st["cnn_moved"]:
+            raise AssertionError(f"training: freezing {st}")
+    for v in vals:
+        if v["launches_per_pair"] != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+            raise AssertionError(f"training validation: launches per pair {v}")
+    # the first step's graphs: the label kernel against its plain version
+    for side, args in enumerate(agc_inputs):
+        kp, de, va, acfg = args[:4]
+        adj_k, kept_k, _ = pipeline.run_agc(kp, de, va, acfg)
+        real = labels.propagate
+        labels.propagate = labels.propagate_plain
+        try:
+            adj_p, kept_p, _ = pipeline.run_agc(kp, de, va, acfg)
+        finally:
+            labels.propagate = real
+        if not (torch.equal(adj_k, adj_p) and torch.equal(kept_k, kept_p)):
+            raise AssertionError(f"training: AGC of side {side} differs with the plain label rounds")
+    profile_train_step(cfg, state.model)
+    frozen_ms = [st["ms"] for st in main_steps if st["frozen"]]
+    joint_ms = [st["ms"] for st in main_steps if not st["frozen"]]
+    info = {"steps": len(main_steps), "frozen_steps": len(frozen_ms),
+            "ms_per_frozen_step": frozen_ms, "ms_per_joint_step": joint_ms,
+            "mean_ms_frozen_after_first": sum(frozen_ms[1:]) / max(1, len(frozen_ms) - 1),
+            "mean_ms_joint": sum(joint_ms) / len(joint_ms),
+            "losses": [st["losses"] for st in main_steps],
+            "max_memory_allocated_gb": peak / 1e9, "train_seconds": train_s,
+            "validation": vals, "export_matches": n_export,
+            "resumed_step": resumed.step, "launches": launches,
+            "agc_graphs_checked": len(agc_inputs)}
+    print(f"  train {json.dumps(info)}", flush=True)
+    phase("16 training (train.loop.train, e2e_fo0_800 widths, 2 epochs of 3 pairs)", t0,
+          launches=json.dumps(launches))
+    return launches
+
+
 def degrees(mode, edges, valid):
     """(B, N) degree of each node of the recorded graphs, 0 where invalid:
     dense rows less the diagonal; band forward plus backward edges; sparse
@@ -1495,7 +1743,10 @@ def kernel_rows(attn, sk, lab, path_launches):
             ("_fused_dense_path", ATTN_CASES[4], SINKHORN_CASES[4], "fused_dense"),
             # the evaluation: one pair per dispatch at 6144 keypoints
             ("_eval_dense_gray_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_dense_gray"),
-            ("_eval_devsift_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_devsift")):
+            ("_eval_devsift_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_devsift"),
+            # training: K1 and K2 run in validation (one pair compacted to
+            # 3072), the label rounds in the steps and in validation
+            ("_train_path", ATTN_CASES[6], SINKHORN_CASES[6], "train_side0")):
         b, n, m, _ = attn_case
         a, s = attn[(b, n, m, "bfloat16")], sk[(sk_case[0], len(sk_case[1]))]
         c = path_launches[suffix]
@@ -1551,6 +1802,9 @@ def main():
     # kernel to its plain version on the graphs of every path, its own too
     eval_launches = eval_phase(load_gims_checkpoint(WEIGHTS), load_gims_checkpoint(E2E_WEIGHTS),
                                load_car_checkpoint(E2E_CAR_WEIGHTS))
+    torch.cuda.empty_cache()
+    train_launches = train_phase()
+    torch.cuda.empty_cache()
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -1560,7 +1814,8 @@ def main():
                                        "_fused_carhynet_path": colour_launches["carhynet"],
                                        "_fused_dense_path": colour_launches["dense"],
                                        "_eval_dense_gray_path": eval_launches["dense_gray"],
-                                       "_eval_devsift_path": eval_launches["devsift"]})
+                                       "_eval_devsift_path": eval_launches["devsift"],
+                                       "_train_path": train_launches})
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

@@ -31,7 +31,7 @@ from gims_tpu_torch.core.bucketing import compact_indices, pad_keypoint_set
 from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.frontend.feature import FeatureFrontend
 from gims_tpu_torch.matcher import pipeline
-from gims_tpu_torch.matcher.convert import load_gims_checkpoint, load_variables
+from gims_tpu_torch.matcher.convert import load_gims_checkpoint, load_variables, module_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 
 # request keys of Matching's config that replace fields of FrontendConfig
@@ -79,6 +79,15 @@ class Matching:
     does not have. An image request with those defaults raises
     NotImplementedError; pass ``detector="device"`` (and, for
     ``descriptor_source="sift"``, ``sift_descriptor="device"``).
+
+    AGC knobs: the port honours every field of ``GIMSConfig.agc``
+    (``agc_impl``, ``threshold_impl``, ``cc_impl``, ``cc_rounds``,
+    ``reconnect_impl`` ...), with the request's radius, percentile,
+    min_size and delaunay on top. This departs from the JAX package, whose
+    ``Matching`` builds its graphs with ``AGCConfig()`` whatever the config
+    says (its ``_jit_forward``, ``gims_tpu/api.py:33-51``, passes the
+    defaults and only the request's four knobs reach AGC). With default AGC
+    knobs the two agree; with others the port runs what was configured.
     """
 
     def __init__(self, config=None, variables=None,
@@ -231,3 +240,60 @@ class Matching:
             pred["mdesc0"] = out["mdesc0"][0][old0]
             pred["mdesc1"] = out["mdesc1"][0][old1]
         return pred
+
+
+def init_gmatcher_variables(mcfg: MatcherConfig, seed: int = 0, scheme: str = "default"):
+    """GMatcher variables (the JAX layout's tree of f32 numpy arrays).
+
+    scheme="default": the port's random init, a GMatcher built under
+    ``torch.manual_seed(seed)`` (it is not the JAX package's flax init: a
+    random start of another generator). scheme="identity": the
+    zero-residual warm start of ``_identity_warm_start`` over it.
+    """
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        variables = module_variables(GMatcher(mcfg))
+    if scheme == "identity":
+        variables = _identity_warm_start(variables, mcfg)
+    elif scheme != "default":
+        raise ValueError(f"init scheme {scheme!r}: 'default' or 'identity'")
+    return variables
+
+
+def _identity_warm_start(variables, mcfg: MatcherConfig):
+    """Zero-residual warm start (``gims_tpu/api.py:310-356``): every GNN
+    layer's last MLP dense and the keypoint encoder's last dense start at
+    zero, so the trunk is the identity at step 0; GraphSAGE starts as the
+    duplication-averaging identity map (256 -> 128 -> 128 -> 256, the
+    neighbour branch 0); final_proj starts as s*I with s^2 * 2 / sqrt(d) = 10,
+    so the first logits are 10x the 128-d cosine similarity of duplicated
+    descriptors."""
+    def copy(tree):
+        return {k: copy(v) if isinstance(v, dict) else np.array(v) for k, v in tree.items()}
+
+    def zero(tree):
+        return {k: zero(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in tree.items()}
+
+    params = copy(variables["params"])
+    d = mcfg.descriptor_dim
+    h = d // 2
+    for layer in params["gnn"].values():
+        layer["mlp"]["dense_1"] = zero(layer["mlp"]["dense_1"])
+    enc = params["kenc"]["encoder"]
+    last = f"dense_{len(mcfg.keypoint_encoder)}"
+    enc[last] = zero(enc[last])
+    eye = np.eye(h, dtype=np.float32)
+    maps = [np.concatenate([eye, eye], axis=0) * np.float32(0.5),  # (256, 128): average halves
+            eye,                                                # (128, 128)
+            np.concatenate([eye, eye], axis=1)]                 # (128, 256): duplicate again
+    sage = params["gnn_encoder"]
+    for i, m in enumerate(maps):
+        lay = sage.get(f"layer_{i}")
+        if lay is not None and lay["fc_self"]["kernel"].shape == m.shape:
+            lay["fc_self"]["kernel"] = m
+            lay["fc_neigh"]["kernel"] = np.zeros_like(lay["fc_neigh"]["kernel"])
+            lay["bias"] = np.zeros_like(lay["bias"])
+    s = np.float32(np.sqrt(10.0 * np.sqrt(d) / 2.0))
+    params["final_proj"]["kernel"] = np.eye(d, dtype=np.float32) * s
+    params["final_proj"]["bias"] = np.zeros_like(params["final_proj"]["bias"])
+    return {**variables, "params": params}

@@ -13,6 +13,8 @@ renamed:
 * ``BatchNorm`` ``scale`` -> ``weight``, and ``batch_stats`` ``mean``/``var``
   -> ``running_mean``/``running_var``;
 * everything else (``bias``, FRN's ``weight``, TLU's ``tau``) as it is.
+
+``module_variables`` is the inverse, for ``core.checkpoint.save_npz``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from gims_tpu_torch.carhynet.model import BatchNorm
 from gims_tpu_torch.core.checkpoint import unflatten_npz
 
 _RENAME = {"kernel": "weight", "scale": "weight",
@@ -63,3 +66,32 @@ def load_variables(model: torch.nn.Module, variables) -> None:
     """Copy a flax variables tree into `model`; raises on any missing or
     unexpected key (strict load)."""
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
+
+
+def module_variables(model: torch.nn.Module, params=None):
+    """The JAX layout's variables tree (``params``, ``batch_stats``; f32 numpy
+    leaves) of a CARHyNet. `params` optionally maps parameter names to
+    tensors that take the parameters' place (an EMA copy)."""
+    params = params or {}
+    out = {"params": {}, "batch_stats": {}}
+
+    def put(tree, path, value):
+        for p in path[:-1]:
+            tree = tree.setdefault(p, {})
+        tree[path[-1]] = np.array(value, order="C")
+
+    for name, mod in model.named_modules():
+        path = name.split(".") if name else []
+        pre = f"{name}." if name else ""
+        for leaf, p in mod.named_parameters(recurse=False):
+            arr = params.get(pre + leaf, p).detach().float().cpu().numpy()
+            key = leaf
+            if isinstance(mod, torch.nn.Conv2d) and leaf == "weight":
+                key, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif isinstance(mod, BatchNorm) and leaf == "weight":
+                key = "scale"
+            put(out["params"], path + [key], arr)
+        for leaf, buf in mod.named_buffers(recurse=False):
+            key = {"running_mean": "mean", "running_var": "var"}[leaf]
+            put(out["batch_stats"], path + [key], buf.detach().float().cpu().numpy())
+    return out

@@ -10,6 +10,7 @@ accepted here and refused by the code that would run them.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional, Tuple
 
 
@@ -165,6 +166,66 @@ class GIMSConfig:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
+# YAML 1.1's int and float forms as PyYAML's safe loader resolves them
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_TRUE = ("true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON")
+_FALSE = ("false", "False", "FALSE", "no", "No", "NO", "off", "Off", "OFF")
+_NULL = ("", "~", "null", "Null", "NULL")
+
+
+def _yaml_scalar(text: str):
+    if text in _NULL:
+        return None
+    if text in _TRUE or text in _FALSE:
+        return text in _TRUE
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        t = text.replace("_", "").lower()
+        if t.endswith("inf"):
+            return float("-inf") if t.startswith("-") else float("inf")
+        return float("nan") if t.endswith("nan") else float(t)
+    return text
+
+
+def read_yaml(text: str):
+    """The block mappings of scalars that the config files are written in,
+    read as ``yaml.safe_load`` reads them (the GPU machine has no PyYAML).
+    Sequences, flow collections, anchors and block scalars raise."""
+    root: dict = {}
+    stack = [(-1, root)]
+    opened = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = re.sub(r"(^|\s)#.*$", "", raw).rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        body = line.strip()
+        key, sep, value = body.partition(":")
+        value = value.strip()
+        if (not sep or body.startswith(("- ", "[", "{", "&", "*", "!"))
+                or value[:1] in ("[", "{", "&", "*", "|", ">", "!")):
+            raise ValueError(f"line {n}: {raw!r} is not a mapping of scalars")
+        indent = len(line) - len(line.lstrip(" "))
+        while stack[-1][0] >= indent:
+            stack.pop()
+        parent = stack[-1][1]
+        if value:
+            parent[key.strip()] = _yaml_scalar(value)
+        else:
+            child: dict = {}
+            parent[key.strip()] = child
+            stack.append((indent, child))
+            opened.append((parent, key.strip()))
+    for parent, key in opened:  # "key:" with nothing under it is null
+        if parent[key] == {}:
+            parent[key] = None
+    return root or None
+
+
 def _update(dc, **kwargs):
     known = {f.name for f in dataclasses.fields(dc)}
     return dataclasses.replace(dc, **{k: v for k, v in kwargs.items() if k in known})
@@ -178,14 +239,12 @@ def _section(dc, raw: dict, keys):
 def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) -> GIMSConfig:
     """Load a GIMSConfig from a YAML file in the reference's schema
     (sections train_params / optimizer_params / dataset_params /
-    frontend_params / agc)."""
+    frontend_params / agc), read by ``read_yaml``."""
     cfg = GIMSConfig()
     raw = {}
     if path is not None:
-        import yaml
-
         with open(path, "r", encoding="utf-8") as f:
-            raw = yaml.safe_load(f) or {}
+            raw = read_yaml(f.read()) or {}
     if overrides:
         raw = {**raw, **overrides}
 

@@ -9,9 +9,14 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
   H^-1 of its coordinates (float64 coordinates, float32 weights), a tap
   outside the image reads 0, and the result is rounded. OpenCV interpolates with 5-bit fixed-point
   weights, so a few pixels differ by one level.
-- ``resize``: ``cv2.resize``, INTER_LINEAR (the default) or INTER_CUBIC,
-  on uint8, with OpenCV's half-pixel centres, replicated borders and
-  11-bit fixed-point weights. The same size returns a copy. Linear
+- ``resize``: ``cv2.resize``, INTER_LINEAR (the default), INTER_CUBIC or
+  INTER_AREA, on uint8, with OpenCV's half-pixel centres, replicated
+  borders and 11-bit fixed-point weights. The same size returns a copy.
+  INTER_AREA shrinks by OpenCV's area weights (the mean of each 2x2 block
+  rounded half up at a factor of 2, other integer factors rounded to
+  nearest even, fractional factors by OpenCV's float cell weights, here
+  summed in float64) and enlarges by OpenCV's area-mode bilinear taps.
+  Linear
   downscales and the cubic 4x upscale of the benchmark generator agree
   with OpenCV but for one level on a few pixels in 10^4; linear upscales
   differ by one level on up to ~1% of the pixels of a noise texture, and
@@ -21,6 +26,9 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
   OpenCV's bit-exact fixed-point filter: a kernel of round(6 sigma + 1) | 1
   taps in 8 fractional bits, a horizontal then a vertical pass in
   integers, reflect-101 borders.
+- ``filter2d``: ``cv2.filter2D(img, -1, kernel)`` on float32 images, the
+  kernel anchored at its centre, reflect-101 borders; the nonzero taps are
+  summed in float32 in row-major order, as OpenCV's direct filter sums them.
 - ``bgr_to_gray``: ``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` on uint8.
 - ``perspective_transform``: ``cv2.perspectiveTransform`` on float32
   points, float32 out.
@@ -39,6 +47,7 @@ import numpy as np
 
 INTER_LINEAR = 1
 INTER_CUBIC = 2
+INTER_AREA = 3
 _COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
 _COEF_SCALE = 1 << _COEF_BITS
 _FLT_EPSILON = np.finfo(np.float32).eps
@@ -103,13 +112,20 @@ def _cubic_weights(x):
     return np.stack([c0, c1, c2, c3], -1)
 
 
-def _axis_taps(n_out, n_in, interpolation):
+def _axis_taps(n_out, n_in, interpolation, area_mode=False):
     """(indices, weights) of one axis: (n_out, k) source indices (replicated
-    at the border) and float32 weights, OpenCV's resize geometry."""
+    at the border) and float32 weights, OpenCV's resize geometry.
+    area_mode: INTER_AREA's bilinear taps where it enlarges."""
     scale = n_in / n_out
-    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = f - s.astype(np.float32)
+    if area_mode:
+        dx = np.arange(n_out)
+        s = np.floor(dx * scale).astype(np.int64)
+        f = ((dx + 1) - (s + 1) * (n_out / n_in)).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = f - s.astype(np.float32)
     if interpolation == INTER_LINEAR:
         low = s < 0
         f[low], s[low] = 0, 0
@@ -123,19 +139,63 @@ def _axis_taps(n_out, n_in, interpolation):
     return np.clip(idx, 0, n_in - 1), w
 
 
+def _area_weights(n_out, n_in):
+    """OpenCV's computeResizeAreaTab as an (n_out, n_in) float32 matrix: each
+    output cell's share of every source pixel it covers."""
+    scale = n_in / n_out
+    wts = np.zeros((n_out, n_in), np.float32)
+    for dx in range(n_out):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, n_in - fsx1)
+        sx2 = min(int(np.floor(fsx2)), n_in - 1)
+        sx1 = min(int(np.ceil(fsx1)), sx2)
+        if sx1 - fsx1 > 1e-3:
+            wts[dx, sx1 - 1] = np.float32((sx1 - fsx1) / cell)
+        wts[dx, sx1:sx2] = np.float32(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            wts[dx, sx2] = np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
+    return wts
+
+
+def _resize_area(src, w, h):
+    """INTER_AREA where both axes shrink; src (H, W, C) uint8."""
+    h_in, w_in = src.shape[:2]
+    sx, sy = w_in / w, h_in / h
+    if sx == int(sx) and sy == int(sy):
+        fx, fy = int(sx), int(sy)
+        blocks = src[:h * fy, :w * fx].astype(np.int32).reshape(h, fy, w, fx, -1)
+        total = blocks.sum(axis=(1, 3))
+        if fx == fy == 2:  # OpenCV's vector path: (a + b + c + d + 2) >> 2
+            return ((total + 2) >> 2).astype(np.uint8)
+        return np.rint(total.astype(np.float32) * np.float32(1.0 / (fx * fy))).astype(np.uint8)
+    wx = _area_weights(w, w_in).astype(np.float64)
+    wy = _area_weights(h, h_in).astype(np.float64)
+    c = src.shape[2]
+    rows = (wy @ src.reshape(h_in, -1).astype(np.float64)).reshape(h, w_in, c)
+    out = (rows.transpose(0, 2, 1) @ wx.T).transpose(0, 2, 1)        # (h, w, c)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def resize(img, dsize, interpolation=INTER_LINEAR):
     """``cv2.resize(img, (w, h), interpolation=...)``."""
     src, flat = _as_hwc(img)
     w, h = dsize
     if (h, w) == src.shape[:2]:
         return np.array(img, copy=True)
-    if interpolation not in (INTER_LINEAR, INTER_CUBIC):
-        raise NotImplementedError(f"resize interpolation {interpolation}: only INTER_LINEAR "
-                                  "and INTER_CUBIC are ported; others need OpenCV")
+    if interpolation not in (INTER_LINEAR, INTER_CUBIC, INTER_AREA):
+        raise NotImplementedError(f"resize interpolation {interpolation}: only INTER_LINEAR, "
+                                  "INTER_CUBIC and INTER_AREA are ported; others need OpenCV")
     if src.dtype != np.uint8:
         raise NotImplementedError(f"resize of {src.dtype}: only uint8 is ported")
-    xi, xw = _axis_taps(w, src.shape[1], interpolation)
-    yi, yw = _axis_taps(h, src.shape[0], interpolation)
+    area_mode = interpolation == INTER_AREA
+    if area_mode:
+        if w <= src.shape[1] and h <= src.shape[0]:
+            out = _resize_area(src, w, h)
+            return out[..., 0] if flat else out
+        interpolation = INTER_LINEAR  # enlarging: bilinear taps of area mode
+    xi, xw = _axis_taps(w, src.shape[1], interpolation, area_mode)
+    yi, yw = _axis_taps(h, src.shape[0], interpolation, area_mode)
     # 11-bit weights; the horizontal pass in integers, the vertical pass as
     # OpenCV's vector code does it
     ax = np.rint(xw * _COEF_SCALE).astype(np.int32)
@@ -195,6 +255,27 @@ def gaussian_blur(img, sigma):
     hs = hs[_reflect101(h, r)]
     vs = sum(int(k[i]) * hs[i:i + h] for i in range(ksize) if k[i])
     out = ((vs + (1 << 15)) >> 16).astype(np.uint8)
+    return out[..., 0] if flat else out
+
+
+def filter2d(img, kernel):
+    """``cv2.filter2D(img, -1, kernel)`` on a float32 (H, W[, C]) image:
+    correlation with the kernel anchored at its centre, reflect-101
+    borders, the nonzero taps summed in float32 in row-major order."""
+    src, flat = _as_hwc(img)
+    if src.dtype != np.float32:
+        raise NotImplementedError(f"filter2d of {src.dtype}: only float32 is ported")
+    k = np.asarray(kernel, np.float32)
+    kh, kw = k.shape
+    ay, ax = kh // 2, kw // 2
+    h, w = src.shape[:2]
+    padded = src[_reflect101(h, max(ay, kh - 1 - ay))][:, _reflect101(w, max(ax, kw - 1 - ax))]
+    oy, ox = max(ay, kh - 1 - ay) - ay, max(ax, kw - 1 - ax) - ax
+    out = np.zeros_like(src)
+    for i in range(kh):
+        for j in range(kw):
+            if k[i, j] != 0:
+                out = out + k[i, j] * padded[oy + i:oy + i + h, ox + j:ox + j + w]
     return out[..., 0] if flat else out
 
 

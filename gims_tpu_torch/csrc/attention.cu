@@ -10,11 +10,14 @@
 // does. Padded query rows are computed like any other and masked by the
 // caller. One C entry point, gims_attention_fwd; the dtype picks the kernel.
 //
-// Head widths: any D up to 128. Both kernels work on column blocks of 64:
-// one block for D <= 64, two for D <= 128. Columns from D up to the block's
-// end are read as zeros (TMA's out-of-bounds fill, or a bounds test in the
-// f32 kernel), which add nothing to Q K^T and give output columns that are
-// not stored. So D = 32 does the work of D = 64.
+// Head widths: any D up to 256. Both kernels work on column blocks of 64:
+// one block for D <= 64, two for D <= 128, three for D <= 192, four for
+// D <= 256. Columns from D up to the block's end are read as zeros (TMA's
+// out-of-bounds fill, or a bounds test in the f32 kernel), which add nothing
+// to Q K^T and give output columns that are not stored. So D = 32 does the
+// work of D = 64. The bf16 kernel needs D a multiple of 8 (TMA's 16-byte
+// strides): the wrapper zero-pads other widths and passes the scale of the
+// true D.
 //
 // What bounds it on the H100: 4*B*H*N*M*D operations (QK^T and PV, a
 // multiply and an add each) against 4*B*N*H*D + 2*(B*M*H*D) elements moved,
@@ -30,11 +33,16 @@
 //     TMA (cp.async.bulk.tensor, 4-D tensor maps over the (B, N, H, D)
 //     layout with a box of {64, 1, rows, 1}: 128-byte rows, 128-byte
 //     swizzle; one box per 64-column block) into a ring of 3 stages (2 at
-//     two column blocks, for shared memory) guarded by full/empty mbarriers. Its
+//     two or more column blocks, for shared memory) guarded by full/empty
+//     mbarriers. Heads wider than 128 (three or four column blocks) take
+//     tiles of 64 keys, so that Q, two stages of K and V, and the output
+//     accumulators (32 floats per column block and thread) still fit the
+//     SM's shared memory and registers. Its
 //     lanes also turn the tile's uint8 key mask into the additive bias (0,
 //     -1e9, or -inf past M, where TMA zero-fills K and V) in shared memory.
 //   * Each consumer warpgroup computes S = Q K^T for its 64 rows with wgmma
-//     (m64n128k16, both operands K-major in shared memory, f32 accumulators
+//     (m64n128k16, or m64n64k16 at three and four column blocks, both
+//     operands K-major in shared memory, f32 accumulators
 //     in registers), then the softmax in registers: s*scale*log2(e) + bias,
 //     the row max across the 4 lanes that share a row, one rescale of the
 //     running max, sum and output per key tile. P is rounded to bf16 in
@@ -54,8 +62,9 @@
 // f32: attn_f32_kernel, scalar FMAs (the tensor cores would round to TF32,
 // which the port keeps off). One block per (b*h, tile of 64 query rows), one
 // thread per query row holding q and its f32 accumulator in registers (at
-// 128 columns they spill); key tiles of 64 (32 at 128 columns) staged in
-// shared memory, scores 16 keys at a time. It reads any strides.
+// 128 and 256 columns they spill); key tiles of 64 (32 at 128 columns, 16 at
+// 256) staged in shared memory, scores 16 keys at a time. It reads any
+// strides.
 
 #include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -66,7 +75,7 @@
 namespace {
 
 constexpr int kBlockD = 64;   // columns per block of the head dim
-constexpr int kMaxD = 128;    // widest head dim: two blocks
+constexpr int kMaxD = 256;    // widest head dim: four blocks
 constexpr float kNegInf = -1e9f;
 constexpr int kMaxDevices = 64;
 
@@ -188,15 +197,17 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
 constexpr int kWgRows = 64;                       // query rows per consumer warpgroup
 constexpr int kConsumers = 2;                     // consumer warpgroups per CTA
 constexpr int kTcRows = kWgRows * kConsumers;     // 128 query rows per CTA
-constexpr int kTcKeys = 128;                      // keys per tile
 constexpr int kConsumerWarps = 4 * kConsumers;
 constexpr int kTcThreads = 32 * kConsumerWarps + 32;  // + one producer warp
-constexpr uint32_t kTileBytes = kTcKeys * kBlockD * 2;  // one K or V column block, bf16
 
-// K/V ring depth: 3 stages at one column block, 2 at two (shared memory).
+// Per count of column blocks: keys per tile (128 up to two blocks, 64 beyond,
+// for shared memory and registers), the K/V ring depth (3 stages at one
+// column block, 2 at more), and the bytes of one K or V column block.
 template <int NB>
 struct Ring {
+  static constexpr int kKeys = NB <= 2 ? 128 : 64;
   static constexpr int kStages = NB == 1 ? 3 : 2;
+  static constexpr uint32_t kTileBytes = kKeys * kBlockD * 2;
 };
 
 // NB column blocks of 64. Every tile is 1024-byte aligned: the 128-byte
@@ -205,9 +216,9 @@ struct Ring {
 template <int NB>
 struct __align__(1024) TcSmem {
   __nv_bfloat16 q[NB][kTcRows * kBlockD];
-  __nv_bfloat16 k[Ring<NB>::kStages][NB][kTcKeys * kBlockD];
-  __nv_bfloat16 v[Ring<NB>::kStages][NB][kTcKeys * kBlockD];
-  float bias[Ring<NB>::kStages][kTcKeys];
+  __nv_bfloat16 k[Ring<NB>::kStages][NB][Ring<NB>::kKeys * kBlockD];
+  __nv_bfloat16 v[Ring<NB>::kStages][NB][Ring<NB>::kKeys * kBlockD];
+  float bias[Ring<NB>::kStages][Ring<NB>::kKeys];
   uint64_t full[Ring<NB>::kStages];   // producer -> consumers: K, V and bias landed
   uint64_t empty[Ring<NB>::kStages];  // consumers -> producer: stage free again
   uint64_t q_full;
@@ -310,6 +321,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 64, f32) = A (64 x 16) * B (16 x 64) (+ D where scale_d != 0); A and B
+// K-major in shared memory, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// S (64 x kKeys) = Q K^T over one k-step of 16 columns: m64n128k16 for tiles
+// of 128 keys, m64n64k16 for tiles of 64.
+template <int kKeys>
+__device__ __forceinline__ void wgmma_qk(float (&d)[kKeys / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (kKeys == 128) {
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  }
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64); B
 // MN-major in shared memory, 128-byte swizzled, read with the transpose flag.
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
@@ -348,6 +388,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, long long osb, long long osn,
     long long osh, long long mask_sb, float scale_log2) {
   constexpr int kStages = Ring<NB>::kStages;
+  constexpr int kKeys = Ring<NB>::kKeys;
   extern __shared__ uint8_t smem_raw[];
   TcSmem<NB>& sm = *reinterpret_cast<TcSmem<NB>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -355,7 +396,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * kTcRows;
-  const int n_tiles = (M + kTcKeys - 1) / kTcKeys;
+  const int n_tiles = (M + kKeys - 1) / kKeys;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -379,13 +420,13 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kStages;
       mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);  // round 0 passes at once
-      const int key0 = t * kTcKeys;
-      for (int i = lane; i < kTcKeys; i += 32) {
+      const int key0 = t * kKeys;
+      for (int i = lane; i < kKeys; i += 32) {
         const int key = key0 + i;
         sm.bias[s][i] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.full[s], 2 * NB * kTileBytes);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * NB * Ring<NB>::kTileBytes);
         for (int c = 0; c < NB; ++c) {
           tma_load(sm.k[s][c], &k_map, &sm.full[s], kBlockD * c, h, key0, b);
           tma_load(sm.v[s][c], &v_map, &sm.full[s], kBlockD * c, h, key0, b);
@@ -417,10 +458,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
       const int s = t % kStages;
       mbar_wait(&sm.full[s], (t / kStages) & 1);
 
-      // S = Q K^T: 64 x 128 f32, four k-steps of 16 per column block
-      float sc[64];
+      // S = Q K^T: 64 x kKeys f32, four k-steps of 16 per column block
+      float sc[kKeys / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
@@ -428,7 +469,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
         const uint64_t k_desc = sw128_desc(sm.k[s][c]);
 #pragma unroll
         for (int kk = 0; kk < kBlockD / 16; ++kk) {  // +32 bytes per step
-          wgmma_m64n128k16_ss(sc, q_desc[c] + 2 * kk, k_desc + 2 * kk, c + kk);
+          wgmma_qk<kKeys>(sc, q_desc[c] + 2 * kk, k_desc + 2 * kk, c + kk);
         }
       }
       wgmma_commit();
@@ -440,7 +481,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
       const float* bias = sm.bias[s];
       float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kKeys / 8; ++j) {
         const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * cq);
         sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale_log2, bj.x);
         sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, bj.y);
@@ -455,10 +496,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
       const float corr_hi = exp2f(m_hi - mx_hi);
       m_lo = mx_lo;
       m_hi = mx_hi;
-      uint32_t p[32];  // P in bf16 pairs: the A fragments of P V
+      uint32_t p[kKeys / 4];  // P in bf16 pairs: the A fragments of P V
       float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kKeys / 8; ++j) {
         const float p0 = exp2f(sc[4 * j + 0] - m_lo);
         const float p1 = exp2f(sc[4 * j + 1] - m_lo);
         const float p2 = exp2f(sc[4 * j + 2] - m_hi);
@@ -482,14 +523,14 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
         fence_regs(o[c]);
       }
 
-      // O += P V: eight k-steps of 16 keys per column block; V rows are 128
+      // O += P V: kKeys / 16 k-steps of 16 keys per column block; V rows are 128
       // bytes, so a step advances the descriptor by 16 * 128 bytes
       wgmma_fence();
 #pragma unroll
       for (int c = 0; c < NB; ++c) {
         const uint64_t v_desc = sw128_desc(sm.v[s][c]);
 #pragma unroll
-        for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
           wgmma_m64n64k16_rs(o[c], p[4 * kk + 0], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3], v_desc + 128 * kk);
         }
@@ -579,8 +620,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* key_mas
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, k_map, v_map;
   if (!encode_bnhd(encode, &q_map, q, B, N, H, D, qs, kTcRows) ||
-      !encode_bnhd(encode, &k_map, k, B, M, H, D, ks, kTcKeys) ||
-      !encode_bnhd(encode, &v_map, v, B, M, H, D, vs, kTcKeys)) {
+      !encode_bnhd(encode, &k_map, k, B, M, H, D, ks, Ring<NB>::kKeys) ||
+      !encode_bnhd(encode, &v_map, v, B, M, H, D, vs, Ring<NB>::kKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = static_cast<int>(sizeof(TcSmem<NB>)) + 1024;  // + alignment slack
@@ -618,7 +659,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
 
 // dtype: 0 = float32 (scalar kernel, any strides), 1 = bfloat16 (tensor-core
 // kernel: unit D stride, 16-byte aligned bases and strides, so D a multiple
-// of 8). D from 1 to 128. Returns a cudaError_t (0 = launched).
+// of 8). D from 1 to 256. Returns a cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int dtype, int B, int N, int M, int H, int D, long long qsb,
@@ -632,14 +673,18 @@ extern "C" int gims_attention_fwd(
   const Strides qs{qsb, qsn, qsh, qsd}, ks{ksb, ksn, ksh, ksd},
       vs{vsb, vsn, vsh, vsd}, os{osb, osn, osh, osd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool one_block = D <= kBlockD;
+  const int blocks = (D + kBlockD - 1) / kBlockD;  // column blocks of 64
   if (dtype == 0) {
-    return (one_block ? launch_f32<kBlockD> : launch_f32<kMaxD>)(
-        q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
+    auto launch = blocks == 1 ? launch_f32<kBlockD> : blocks == 2 ? launch_f32<2 * kBlockD>
+                                                                  : launch_f32<kMaxD>;
+    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
   }
   if (dtype == 1) {
-    return (one_block ? launch_bf16<1> : launch_bf16<2>)(
-        q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
+    auto launch = blocks == 1   ? launch_bf16<1>
+                  : blocks == 2 ? launch_bf16<2>
+                  : blocks == 3 ? launch_bf16<3>
+                                : launch_bf16<4>;
+    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -386,8 +386,9 @@ class FusedMatching:
     `descriptor_source` is "carhynet" (the default, as in the JAX package),
     "dense", "dense_gray" or "devsift" (no CNN; `car_variables` unused); the
     colour sources, carhynet and dense, take (B, H, W, 3) BGR images and
-    need ``upsample=True``. ``devices=`` and a weightless ``init_scheme``
-    other than "default" raise.
+    need ``upsample=True``. ``devices=`` raises. Without `variables`, the
+    ``init_scheme`` key ("default" or "identity") picks the matcher's start
+    (``api.init_gmatcher_variables``).
     `variables` / `car_variables` are flax variables trees of numpy arrays
     (``matcher.convert.load_gims_checkpoint``,
     ``carhynet.convert.load_car_checkpoint``); without them the networks
@@ -405,9 +406,6 @@ class FusedMatching:
         source = config.get("descriptor_source", "carhynet")
         if source not in SOURCES:
             raise ValueError(f"descriptor_source={source!r}: one of {SOURCES}")
-        if variables is None and config.get("init_scheme", "default") != "default":
-            raise NotImplementedError(
-                f"init_scheme={config['init_scheme']!r} {TODO}")
         self.mcfg = MatcherConfig(
             sinkhorn_iterations=config.get("sinkhorn_iterations", 20),
             match_threshold=config.get("match_threshold", 0.02),
@@ -451,6 +449,10 @@ class FusedMatching:
                              "'devsift' (the colour pyramid paths assume the "
                              "2x-upsampled octave geometry)")
         self.total = total_keypoints
+        if variables is None and config.get("init_scheme", "default") != "default":
+            from gims_tpu_torch.api import init_gmatcher_variables
+
+            variables = init_gmatcher_variables(self.mcfg, seed, config["init_scheme"])
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = GMatcher(self.mcfg)

@@ -21,8 +21,9 @@ import torch
 
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
-KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel
-KERNEL_MAX_HEAD_DIM = 128  # the widest head the CUDA kernel takes
+KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel, heads up to 128 wide
+KERNEL_WIDE_BLOCK_K = 64  # keys per tile of its bf16 kernel for wider heads
+KERNEL_MAX_HEAD_DIM = 256  # the widest head the CUDA kernel takes
 FLASH_THRESHOLD = 4096
 FLASH_BLOCK = 1024
 
@@ -66,8 +67,14 @@ def masked_attention_flash(q, k, v, key_mask, block_size=FLASH_BLOCK):
     return out.permute(0, 2, 1, 3).to(q.dtype)  # back to (B, N, H, D)
 
 
-def masked_attention_tiled(q, k, v, key_mask, block_k=KERNEL_BLOCK_K,
-                           out_dtype=None):
+def kernel_block_k(d: int, dtype) -> int:
+    """Keys per tile of the CUDA kernel at head width `d`: its bf16 kernel
+    takes tiles of 64 keys above 128 columns (shared memory and registers);
+    the tile sets where P is rounded against the running max."""
+    return KERNEL_WIDE_BLOCK_K if dtype == torch.bfloat16 and d > 128 else KERNEL_BLOCK_K
+
+
+def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
     """The arithmetic of ``gims_tpu/matcher/pallas_attention.py::_attn_kernel``
     and of the CUDA kernel, one key tile of ``block_k`` at a time.
 
@@ -77,10 +84,12 @@ def masked_attention_tiled(q, k, v, key_mask, block_k=KERNEL_BLOCK_K,
     and P is rounded to v's dtype before P V, which is summed in f32; the
     output is acc / max(l, 1e-30). Keys past M are absent (p = 0). Returns
     (B, N, H, D) in ``out_dtype`` (q's dtype by default): pass float32 to
-    get the result before its one rounding.
+    get the result before its one rounding. ``block_k`` defaults to the
+    kernel's tile at this width and dtype (``kernel_block_k``).
     """
     b, n, h, d = q.shape
     m = k.shape[1]
+    block_k = block_k or kernel_block_k(d, v.dtype)
     c = LOG2E / math.sqrt(d)
     qt = q.permute(0, 2, 1, 3).float()                # (B, H, N, D)
     acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
@@ -102,6 +111,12 @@ def masked_attention_tiled(q, k, v, key_mask, block_k=KERNEL_BLOCK_K,
     return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype)
 
 
+def needs_grad(*tensors) -> bool:
+    """True where autograd would record an op on `tensors`: grad is enabled
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def masked_attention(q, k, v, key_mask, impl: str = "auto"):
     """Dispatch.
 
@@ -110,13 +125,16 @@ def masked_attention(q, k, v, key_mask, impl: str = "auto"):
     wrapper raises at a wider head. "direct" and "flash" force the plain
     versions. On the CPU "auto" takes
     direct up to FLASH_THRESHOLD keys and flash above, as the JAX package
-    does off the TPU. "ring" (multi-device) is not ported yet.
+    does off the TPU. The kernel has no backward (nor has the TPU kernel):
+    a call that needs a gradient (``needs_grad``) takes the plain versions
+    under "auto" by that same off-TPU rule, on every device, and raises
+    under "pallas". "ring" (multi-device) is not ported yet.
     """
     if impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' (multi-device ring attention) is not "
             "ported yet; see ROADMAP.md")
-    if impl == "pallas" or (impl == "auto" and q.is_cuda):
+    if impl == "pallas" or (impl == "auto" and q.is_cuda and not needs_grad(q, k, v)):
         from gims_tpu_torch.matcher.cuda_attention import masked_attention_cuda
 
         return masked_attention_cuda(q, k, v, key_mask)

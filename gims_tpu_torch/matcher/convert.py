@@ -13,6 +13,10 @@ leaf's path is its key, with the leaf renamed:
 
 ``load_variables`` then puts each attention layer's heads in the port's
 head-major order (``head_major_perm``) and loads the result strictly.
+``module_variables`` is the inverse: a module's parameters and buffers as
+the JAX layout's variables tree, heads back in the reference's channel
+interleave, so that ``core.checkpoint.save_npz`` writes a checkpoint the
+JAX package loads.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from gims_tpu_torch.core.checkpoint import unflatten_npz
-from gims_tpu_torch.matcher.layers import MultiHeadedAttention
+from gims_tpu_torch.matcher.layers import MaskedBatchNorm, MultiHeadedAttention
 
 _RENAME = {"kernel": "weight", "scale": "weight",
            "mean": "running_mean", "var": "running_var"}
@@ -85,3 +89,50 @@ def load_variables(model: torch.nn.Module, variables) -> None:
                     sd[f"{pre}{proj}.{leaf}"] = sd[f"{pre}{proj}.{leaf}"][perm]
             sd[f"{pre}merge.weight"] = sd[f"{pre}merge.weight"][:, perm]
     model.load_state_dict(sd, strict=True)
+
+
+def _put(tree, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def module_variables(model: torch.nn.Module, params=None):
+    """The JAX layout's variables tree (``params``, ``batch_stats``; f32 numpy
+    leaves) of a GMatcher. `params` optionally maps parameter names to
+    tensors that take the parameters' place (an EMA copy)."""
+    params = params or {}
+    out = {"params": {}, "batch_stats": {}}
+    attn = []
+    for name, mod in model.named_modules():
+        path = name.split(".") if name else []
+        pre = f"{name}." if name else ""
+        for leaf, p in mod.named_parameters(recurse=False):
+            arr = params.get(pre + leaf, p).detach().float().cpu().numpy()
+            key = leaf
+            if isinstance(mod, torch.nn.Linear) and leaf == "weight":
+                key, arr = "kernel", arr.T
+            elif isinstance(mod, MaskedBatchNorm) and leaf == "weight":
+                key = "scale"
+            _put(out["params"], path + [key], arr)
+        for leaf, buf in mod.named_buffers(recurse=False):
+            key = {"running_mean": "mean", "running_var": "var"}[leaf]
+            _put(out["batch_stats"], path + [key], buf.detach().float().cpu().numpy())
+        if isinstance(mod, MultiHeadedAttention):
+            attn.append((path, mod))
+    for path, mod in attn:  # heads back to the reference's interleave
+        inv = torch.argsort(head_major_perm(mod.d_model, mod.num_heads)).numpy()
+        node = out["params"]
+        for p in path:
+            node = node[p]
+        for proj in ("proj_q", "proj_k", "proj_v"):
+            node[proj]["kernel"] = node[proj]["kernel"][:, inv]
+            node[proj]["bias"] = node[proj]["bias"][inv]
+        node["merge"]["kernel"] = node["merge"]["kernel"][inv]
+    return _contiguous(out)
+
+
+def _contiguous(tree):
+    return {k: _contiguous(v) if isinstance(v, dict) else np.array(v, order="C")
+            for k, v in tree.items()}

@@ -4,11 +4,19 @@ Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
 (``csrc/attention.cu``) reads the (B, N, H, D) layout in place, so no
 transposed copies are made: bf16 on the tensor cores through TMA, f32 with
 scalar FMAs, both with f32 accumulation; the output has q's dtype. Head
-widths up to 128 (in bf16 a multiple of 8, for TMA's 16-byte strides). On a
+widths from 1 to 256. The bf16 kernel reads widths that are a multiple of 8
+(TMA's 16-byte strides); the wrapper zero-pads q, k and v along D to the
+next multiple of 8 for other widths (zeros add nothing to Q K^T, the extra
+output columns are dropped, and the scale stays that of the true D). On a
 CUDA tensor the wrapper launches the kernel or raises: q, k and v must have
-a unit D stride and 16-byte aligned bases and strides (what TMA reads), and
-are never copied to make them so. It takes the plain version
-(``attention.masked_attention_tiled``) only for a tensor on the CPU.
+a unit D stride and, in bf16, 16-byte aligned bases and strides (what TMA
+reads), and are never copied to make them so, but for that padding. It takes the plain
+version (``attention.masked_attention_tiled``) only for a tensor on the CPU.
+
+The kernel has no backward, as the TPU kernel has none: under autograd
+(grad enabled and an input that requires grad) the wrapper raises, on any
+device, instead of returning a result that carries no gradient.
+``attention.masked_attention`` routes such calls to the plain versions.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import torch
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import attention
 
-MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one or two column blocks of 64
+MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one to four column blocks of 64
+BF16_D_STEP = 8  # the bf16 kernel's widths: multiples of 8 (16-byte rows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # calls of masked_attention_cuda that launched the kernel
@@ -28,10 +37,13 @@ launches = 0
 
 
 def check_layout(name: str, t: torch.Tensor):
-    """Raise unless `t` (B, N, H, D) has a unit D stride and a 16-byte
-    aligned base and strides, as the kernel's tensor maps need."""
+    """Raise unless `t` (B, N, H, D) has a unit D stride, and in bf16 a
+    16-byte aligned base and strides, as the kernel's tensor maps need (the
+    f32 kernel reads any alignment)."""
     if t.stride(3) != 1:
         raise ValueError(f"{name} must have a unit D stride, got strides {t.stride()}")
+    if t.dtype != torch.bfloat16:
+        return
     esz = t.element_size()
     if t.data_ptr() % 16 or any(st * esz % 16 for st in t.stride()[:3]):
         raise ValueError(f"{name}: base and strides must be 16-byte aligned "
@@ -43,6 +55,10 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, N, H, D); k, v (B, M, H, D); key_mask (B, M) bool.
     Returns (B, N, H, D) in q's dtype."""
     global launches
+    if attention.needs_grad(q, k, v):
+        raise RuntimeError("masked_attention_cuda has no backward: q, k or v requires grad "
+                           "with grad enabled; use the plain versions (attention_impl "
+                           "'auto', 'direct' or 'flash') to train")
     if q.device.type == "cpu":
         return attention.masked_attention_tiled(q, k, v, key_mask)
     if q.device.type != "cuda":
@@ -66,18 +82,22 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("k", k), ("v", v), ("key_mask", key_mask)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    scale_log2 = attention.LOG2E / math.sqrt(d)  # of the true width
+    pad = -d % BF16_D_STEP if q.dtype == torch.bfloat16 else 0
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_layout(name, t)
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, n, h, d + pad), dtype=q.dtype, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.gims_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], b, n, m, h, d,
+            out.data_ptr(), _DTYPES[q.dtype], b, n, m, h, d + pad,
             *q.stride(), *k.stride(), *v.stride(), *out.stride(),
-            key_mask.stride(0), attention.LOG2E / math.sqrt(d), stream)
+            key_mask.stride(0), scale_log2, stream)
     if rc != 0:
         raise RuntimeError(f"gims_attention_fwd failed: cudaError {rc}")
     launches += 1
-    return out
+    return out[..., :d] if pad else out

@@ -12,6 +12,12 @@ builds the couplings in that layout; the wrapper copies a contiguous Z
 into it (one pass over Z, against the 100 of the kernel). The kernel is
 picked by size in C: one read of Z per iteration up to 14340 columns, two
 beyond, and where the batch has more items than the card has blocks.
+
+The kernel has no backward, as the TPU kernel has none. Adding its
+potentials to Z as constants would give Z a wrong gradient (it would miss
+how u and v depend on the scores), so under autograd (grad enabled and an
+input that requires grad) both wrappers raise, on any device; training
+runs ``sinkhorn.log_optimal_transport`` (``use_pallas_sinkhorn=False``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import sinkhorn
+from gims_tpu_torch.matcher.attention import needs_grad
 
 # calls of sinkhorn_uv_cuda that launched the kernel (one cooperative
 # launch runs every iteration)
@@ -32,6 +39,9 @@ def sinkhorn_uv_cuda(Z: torch.Tensor, log_mu: torch.Tensor,
     log_nu (B, N1), f32 on one device; the marginals contiguous, Z
     contiguous or a view of rows of N1 rounded up to 4 floats."""
     global launches
+    if needs_grad(Z, log_mu, log_nu):
+        raise RuntimeError("sinkhorn_uv_cuda has no backward: an input requires grad "
+                           "with grad enabled")
     if Z.device.type == "cpu":
         return sinkhorn.log_sinkhorn_uv(Z, log_mu, log_nu, iters)
     if Z.device.type != "cuda":
@@ -91,8 +101,12 @@ def z_reads_per_iter(b: int, m1: int, n1: int) -> int:
 def log_optimal_transport_cuda(scores: torch.Tensor, alpha, iters: int,
                                row_mask: torch.Tensor,
                                col_mask: torch.Tensor) -> torch.Tensor:
-    """Drop-in for sinkhorn.log_optimal_transport; returns the same
-    (B, M+1, N+1) log-coupling."""
+    """Drop-in for sinkhorn.log_optimal_transport at inference; returns the
+    same (B, M+1, N+1) log-coupling. Raises under autograd."""
+    if needs_grad(scores, *([alpha] if torch.is_tensor(alpha) else [])):
+        raise RuntimeError("log_optimal_transport_cuda has no backward: scores or the bin "
+                           "score requires grad with grad enabled; train with "
+                           "use_pallas_sinkhorn=False")
     n1 = scores.shape[2] + 1
     couplings, log_mu, log_nu, norm = sinkhorn.dustbin_couplings(
         scores, alpha, row_mask, col_mask, row_pitch=n1 + -n1 % 4)

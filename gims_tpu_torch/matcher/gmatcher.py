@@ -10,6 +10,8 @@ physical node removal.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -46,9 +48,20 @@ def normalize_keypoints(kpts, height: int, width: int, mode: str = "standard"):
 
 class GMatcher(nn.Module):
     """Inputs are per-pair padded tensors; returns log-couplings and the
-    projected descriptors. Extraction lives in pipeline.py."""
+    projected descriptors. Extraction and the loss live in pipeline.py.
 
-    def __init__(self, config: MatcherConfig = MatcherConfig()):
+    `param_dtype`: the dtype the trunk's linear layers hold their
+    parameters in. By default their compute dtype (``attention_dtype``),
+    cast once at load, for inference; training passes ``torch.float32``,
+    so that the optimizer updates f32 parameters that each use casts, as
+    flax does. With ``train=True`` the sides never run stacked, every
+    MaskedBatchNorm normalizes by its batch statistics (the caller collects
+    the running-statistics updates, ``layers.batch_stat_updates``), and
+    with ``config.remat`` each GNN layer runs under
+    ``torch.utils.checkpoint``."""
+
+    def __init__(self, config: MatcherConfig = MatcherConfig(),
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
         if cfg.attention_dtype not in _DTYPES:
@@ -60,7 +73,8 @@ class GMatcher(nn.Module):
         self.gnn = AttentionalGNN(
             d, ["self", "cross"] * (cfg.num_gnn_layers // 2), cfg.num_heads,
             cfg.use_layernorm, dtype=self.attn_dtype,
-            attn_impl=cfg.attention_impl, stack_sides=cfg.stack_sides)
+            attn_impl=cfg.attention_impl, stack_sides=cfg.stack_sides,
+            remat=cfg.remat, param_dtype=param_dtype)
         self.final_proj = nn.Linear(d, d)
         if cfg.input_dim != d:
             self.input_proj = nn.Linear(cfg.input_dim, d)
@@ -68,12 +82,9 @@ class GMatcher(nn.Module):
 
     def forward(self, kpts0n, desc0, adj0, kept0, kpts1n, desc1, adj1, kept1,
                 train: bool = False):
-        if train:
-            raise NotImplementedError("GMatcher training is not ported yet; "
-                                      "see ROADMAP.md")
         cfg = self.config
         attn_dtype = self.attn_dtype
-        stack = (cfg.stack_sides and desc0.shape == desc1.shape
+        stack = (cfg.stack_sides and not train and desc0.shape == desc1.shape
                  and kpts0n.shape == kpts1n.shape)
 
         # Zero pruned/padded tokens first: padding keypoints sit at 1e6,
@@ -107,10 +118,13 @@ class GMatcher(nn.Module):
             with record_function("gims.encoder"):
                 if project:
                     desc0, desc1 = self.input_proj(desc0), self.input_proj(desc1)
-                d0 = self.gnn_encoder(desc0, adj0) + self.kenc(kpts0n, kept0)
-                d1 = self.gnn_encoder(desc1, adj1) + self.kenc(kpts1n, kept1)
+                h0 = self.gnn_encoder(desc0, adj0)
+                h1 = self.gnn_encoder(desc1, adj1)
+                # side 0's batch statistics update before side 1's, as in flax
+                d0 = h0 + self.kenc(kpts0n, kept0, train)
+                d1 = h1 + self.kenc(kpts1n, kept1, train)
             with record_function("gims.trunk"):
-                d0, d1 = self.gnn(d0.to(attn_dtype), d1.to(attn_dtype), kept0, kept1)
+                d0, d1 = self.gnn(d0.to(attn_dtype), d1.to(attn_dtype), kept0, kept1, train)
             mdesc0 = self.final_proj(d0.float())
             mdesc1 = self.final_proj(d1.float())
 

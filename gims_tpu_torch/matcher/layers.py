@@ -4,28 +4,82 @@ Port of ``gims_tpu/matcher/layers.py``. Layout is tokens, then channels:
 (B, N, C) at every public function, as in the JAX package. Submodules carry
 the flax module names (``dense_0``, ``norm_0``, ``proj_q``, ``layer_3``...),
 so a JAX variables tree maps onto ``state_dict`` keys by path
-(``matcher/convert.py``). Linear layers are ``nn.Linear`` held in ``dtype``,
-the compute dtype of the matmuls (flax ``Dense(dtype=...)`` casts its f32
-parameters to it on every use; the port casts them once, at load), and
-normalization statistics always run in f32. Inference only: the batch
-statistics of training are not ported yet.
+(``matcher/convert.py``). Linear layers are ``Dense``: they compute in
+``dtype``, the compute dtype of the matmuls, as flax ``Dense(dtype=...)``
+does. For inference their parameters are held in that dtype (cast once, at
+load); for training (``param_dtype=torch.float32``) they stay f32 and are
+cast on every use, as flax casts its f32 parameters. Normalization
+statistics always run in f32.
+
+Training's batch statistics: ``MaskedBatchNorm`` in train mode normalizes
+by the masked batch statistics, and, inside ``batch_stat_updates()``,
+records the running-statistics update instead of writing its buffers, as
+flax returns its ``batch_stats`` collection as ``updates``. A second call
+of the same module in one forward (the other side of the pair) updates
+from the first call's result, in call order, as flax does. A forward that
+``torch.utils.checkpoint`` runs again in the backward runs outside the
+block and records nothing, so each update is taken once.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import threading
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gims_tpu_torch.matcher.attention import masked_attention
 
+# the record of this thread's open batch_stat_updates() block (like torch's
+# grad mode, per thread)
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stat_updates():
+    """Collect the running-statistics updates of the train-mode
+    ``MaskedBatchNorm`` calls this thread makes within the block: yields a
+    dict that maps each module to its (running_mean, running_var) after the
+    block's calls, detached. The buffers themselves are left as they are."""
+    outer = getattr(_local, "updates", None)
+    _local.updates = {}
+    try:
+        yield _local.updates
+    finally:
+        _local.updates = outer
+
+
+class Dense(nn.Linear):
+    """flax ``Dense(dtype=...)``: computes in `dtype`; the parameters are
+    held in `param_dtype` (by default `dtype`) and cast to `dtype` at use."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over (batch, tokens) at eval: running statistics."""
+    """BatchNorm1d over (batch, tokens) with a validity mask.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Parity with torch.nn.BatchNorm1d as the JAX package has it: biased
+    variance for normalization, unbiased variance in the running buffer,
+    momentum 0.1, eps 1e-5; padded tokens add nothing to the statistics.
+    At eval it reads the running statistics."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -33,10 +87,25 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x, mask=None, train: bool = False):
-        if train:
-            raise NotImplementedError("masked batch statistics (training) "
-                                      "are not ported yet; see ROADMAP.md")
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            # x (B, N, C), mask (B, N)
+            w = mask[..., None].to(x.dtype)
+            cnt = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(dim=(0, 1)) / cnt
+            var = (torch.square(x - mean) * w).sum(dim=(0, 1)) / cnt
+            updates = getattr(_local, "updates", None)
+            if updates is not None:
+                # from detached values: a checkpointed recomputation saves
+                # exactly what the first forward saved
+                ra_mean, ra_var = updates.get(self, (self.running_mean, self.running_var))
+                mean_d, var_d, cnt_d = mean.detach(), var.detach(), cnt.detach()
+                unbiased = var_d * cnt_d / torch.clamp(cnt_d - 1.0, min=1.0)
+                m = self.momentum
+                updates[self] = ((1 - m) * ra_mean + m * mean_d,
+                                 (1 - m) * ra_var + m * unbiased)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
@@ -64,13 +133,14 @@ class MLP1d(nn.Module):
 
     def __init__(self, in_features: int, channels: Sequence[int],
                  use_layernorm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         self.n = len(channels)
         prev = in_features
         for i, ch in enumerate(channels):
-            self.add_module(f"dense_{i}", nn.Linear(prev, ch, dtype=dtype))
+            self.add_module(f"dense_{i}", Dense(prev, ch, dtype=dtype, param_dtype=param_dtype))
             if i < self.n - 1:
                 norm = ChannelLayerNorm(ch) if use_layernorm else MaskedBatchNorm(ch)
                 self.add_module(f"norm_{i}", norm)
@@ -109,18 +179,17 @@ class MultiHeadedAttention(nn.Module):
     """
 
     def __init__(self, num_heads: int, d_model: int,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
         self.d_model = d_model
         self.dtype = dtype
         self.attn_impl = attn_impl
-        self.proj_q = nn.Linear(d_model, d_model, dtype=dtype)
-        self.proj_k = nn.Linear(d_model, d_model, dtype=dtype)
-        self.proj_v = nn.Linear(d_model, d_model, dtype=dtype)
-        self.merge = nn.Linear(d_model, d_model, dtype=dtype)
+        for name in ("proj_q", "proj_k", "proj_v", "merge"):
+            self.add_module(name, Dense(d_model, d_model, dtype=dtype, param_dtype=param_dtype))
 
-    def _heads(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    def _heads(self, layer: Dense, x: torch.Tensor) -> torch.Tensor:
         y = layer(x.to(self.dtype))
         return y.view(x.shape[0], x.shape[1], self.num_heads, -1)
 
@@ -137,11 +206,12 @@ class AttentionalPropagation(nn.Module):
 
     def __init__(self, feature_dim: int, num_heads: int,
                  use_layernorm: bool = False,
-                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attn = MultiHeadedAttention(num_heads, feature_dim, dtype, attn_impl)
+        self.attn = MultiHeadedAttention(num_heads, feature_dim, dtype, attn_impl, param_dtype)
         self.mlp = MLP1d(2 * feature_dim, [2 * feature_dim, feature_dim],
-                         use_layernorm, dtype=dtype)
+                         use_layernorm, dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x, source, x_mask, source_mask, train: bool = False):
         message = self.attn(x, source, source, source_mask)
@@ -150,18 +220,29 @@ class AttentionalPropagation(nn.Module):
 
 class AttentionalGNN(nn.Module):
     """Alternating self/cross attention stack
-    (reference: models/gmatcher.py:127-143)."""
+    (reference: models/gmatcher.py:127-143).
+
+    remat: in training, each layer's call runs under
+    ``torch.utils.checkpoint`` (flax ``nn.remat``), so the backward
+    recomputes its attention instead of keeping the (B, H, N, M) softmax."""
 
     def __init__(self, feature_dim: int, layer_names: Sequence[str],
                  num_heads: int = 4, use_layernorm: bool = False,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
-                 stack_sides: bool = True):
+                 stack_sides: bool = True, remat: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layer_names = list(layer_names)
         self.stack_sides = stack_sides
+        self.remat = remat
         for i in range(len(self.layer_names)):
             self.add_module(f"layer_{i}", AttentionalPropagation(
-                feature_dim, num_heads, use_layernorm, dtype, attn_impl))
+                feature_dim, num_heads, use_layernorm, dtype, attn_impl, param_dtype))
+
+    def _call(self, layer, x, src, x_mask, src_mask, train):
+        if self.remat and train and torch.is_grad_enabled():
+            return checkpoint(layer, x, src, x_mask, src_mask, train, use_reentrant=False)
+        return layer(x, src, x_mask, src_mask, train)
 
     def forward(self, desc0, desc1, mask0, mask1, train: bool = False):
         layers = [getattr(self, f"layer_{i}") for i in range(len(self.layer_names))]
@@ -184,8 +265,8 @@ class AttentionalGNN(nn.Module):
                 src0, src1, sm0, sm1 = desc1, desc0, mask1, mask0
             else:
                 src0, src1, sm0, sm1 = desc0, desc1, mask0, mask1
-            delta0 = layer(desc0, src0, mask0, sm0, train)
-            delta1 = layer(desc1, src1, mask1, sm1, train)
+            delta0 = self._call(layer, desc0, src0, mask0, sm0, train)
+            delta1 = self._call(layer, desc1, src1, mask1, sm1, train)
             desc0 = desc0 + delta0.to(desc0.dtype)
             desc1 = desc1 + delta1.to(desc1.dtype)
         return desc0, desc1

@@ -1,11 +1,12 @@
 """Matcher pipeline: AGC -> GMatcher -> optimal transport -> matches.
 
 Port of ``gims_tpu/matcher/pipeline.py`` (reference: models/gmatcher.py:
-219-307), inference only, with the trunk compaction of the fused path
-(``compact_to``), the band build's deferred un-permutation and precomputed
-adjacency (D-GIMS: a side given its adjacency skips AGC and keeps every
-valid keypoint). The keypoint-axis sharding option is not ported yet and
-raises.
+219-386): inference (``forward_match``) with the trunk compaction of the
+fused path (``compact_to``), the band build's deferred un-permutation and
+precomputed adjacency (D-GIMS: a side given its adjacency skips AGC and
+keeps every valid keypoint); and the training loss (``training_forward``,
+``remap_gt_to_dustbin``). The keypoint-axis sharding option is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from gims_tpu_torch.agc.graph import build_graph, build_graph_band, check_impls
 from gims_tpu_torch.config import AGCConfig
 from gims_tpu_torch.matcher import sinkhorn
 from gims_tpu_torch.matcher.gmatcher import GMatcher, normalize_keypoints
+from gims_tpu_torch.matcher.layers import batch_stat_updates
 
 
 def run_agc(kpts, descs, valid, acfg: AGCConfig, k=None,
@@ -204,3 +206,81 @@ def forward_match(
                                  out["mdesc0"], out["mdesc1"])
     return {**ext, "kept0": kept0, "kept1": kept1,
             "mdesc0": out["mdesc0"], "mdesc1": out["mdesc1"]}
+
+
+def remap_gt_to_dustbin(gt_rows, gt_valid, kept0, kept1, nb0: int, nb1: int,
+                        neg_cells: str = "corner"):
+    """Reference: models/gmatcher.py:337-374.
+
+    GT rows are (R, 3) = (batch, i0, i1) in the padded index space. A row
+    with a -1, or with an endpoint that AGC pruned, is a negative.
+    neg_cells="corner" reproduces the reference: every negative indexes the
+    dustbin-dustbin corner (nb0, nb1), whose clamped score saturates at 0
+    (no gradient, the reference's defect). neg_cells="dustbin" sends a bad
+    side-0 endpoint to row nb0 and a bad side-1 endpoint to column nb1, so
+    negatives supervise the real dustbin cells. Returns (b, i0, i1,
+    negative, row_valid), the indices int64."""
+    b = gt_rows[:, 0].long()
+    i0 = gt_rows[:, 1].long()
+    i1 = gt_rows[:, 2].long()
+    i0c = i0.clamp(0, nb0 - 1)
+    i1c = i1.clamp(0, nb1 - 1)
+    bad0 = (i0 < 0) | (~kept0[b, i0c] & (i0 >= 0))
+    bad1 = (i1 < 0) | (~kept1[b, i1c] & (i1 >= 0))
+    neg_flag = bad0 | bad1
+    if neg_cells == "dustbin":
+        i0_eff = torch.where(bad0, nb0, i0c)
+        i1_eff = torch.where(bad1, nb1, i1c)
+    else:
+        i0_eff = torch.where(neg_flag, nb0, i0c)
+        i1_eff = torch.where(neg_flag, nb1, i1c)
+    return b, i0_eff, i1_eff, neg_flag & gt_valid, gt_valid
+
+
+def training_forward(model: GMatcher, acfg: AGCConfig,
+                     kpts0, desc0, valid0, kpts1, desc1, valid1,
+                     gt_rows, gt_valid, image_shape, k0=None, k1=None):
+    """Train-mode forward: returns (total, (pos, neg, updates)).
+
+    Loss parity with reference models/gmatcher.py:369-386: the couplings at
+    the GT indices clamped to [-100, 0] and negated, averaged per batch
+    item separately over positive and negative rows, weighted and averaged
+    over the batch. AGC gives no gradient (its outputs are integer and
+    bool), so it runs on detached descriptors without autograd. `updates`
+    is ``{"batch_stats": {buffer name: tensor}}``, the running statistics
+    after this forward, for the caller to write into `model`'s buffers, as
+    flax returns its mutated ``batch_stats``."""
+    batch = kpts0.shape[0]
+    nb0, nb1 = kpts0.shape[1], kpts1.shape[1]
+    with torch.no_grad(), record_function("gims.agc"):
+        adj0, kept0, _ = run_agc(kpts0, desc0.detach(), valid0, acfg, k0)
+        adj1, kept1, _ = run_agc(kpts1, desc1.detach(), valid1, acfg, k1)
+
+    h, w = image_shape
+    kpts0n = normalize_keypoints(kpts0, h, w, model.config.normalization)
+    kpts1n = normalize_keypoints(kpts1, h, w, model.config.normalization)
+    with batch_stat_updates() as stats:
+        out = model(kpts0n, desc0, adj0, kept0, kpts1n, desc1, adj1, kept1, train=True)
+    names = {mod: name for name, mod in model.named_modules()}
+    updates = {"batch_stats": {}}
+    for mod, (mean, var) in stats.items():
+        updates["batch_stats"][names[mod] + ".running_mean"] = mean
+        updates["batch_stats"][names[mod] + ".running_var"] = var
+    Z = out["Z"]
+
+    mcfg = model.config
+    with record_function("gims.train.loss"):
+        b, i0_eff, i1_eff, neg_flag, row_valid = remap_gt_to_dustbin(
+            gt_rows, gt_valid, kept0, kept1, nb0, nb1, mcfg.neg_cells)
+    loss_vec = -torch.clamp(Z[b, i0_eff, i1_eff], -100.0, 0.0)
+    pos_w = (row_valid & ~neg_flag).float()
+    neg_w = (row_valid & neg_flag).float()
+
+    def segment_sum(x):
+        return torch.zeros(batch, dtype=x.dtype, device=x.device).index_add(0, b, x)
+
+    batched_pos = segment_sum(loss_vec * pos_w) / torch.clamp(segment_sum(pos_w), min=1.0)
+    batched_neg = segment_sum(loss_vec * neg_w) / torch.clamp(segment_sum(neg_w), min=1.0)
+    pos_loss = mcfg.pos_loss_weight * batched_pos.mean()
+    neg_loss = mcfg.neg_loss_weight * batched_neg.mean()
+    return pos_loss + neg_loss, (pos_loss, neg_loss, updates)

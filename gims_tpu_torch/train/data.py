@@ -1,17 +1,27 @@
-"""Homography synthesis for self-supervised pairs (numpy).
+"""Training data: self-supervised homography pairs (numpy, on the host).
 
-Port of the geometry of ``gims_tpu/train/data.py`` (reference:
-utils/preprocess_utils.py:6-72 and 134-143): ``get_perspective_mat`` draws
-from the caller's ``RandomState`` in the JAX package's order, so that one
-seed gives the same homographies in both packages. The corner projection
-uses the port's ``imgproc.perspective_transform`` in place of OpenCV's.
-The photometric augmentation and the datasets wait for the training slice.
+Port of ``gims_tpu/train/data.py`` (reference: utils/preprocess_utils.py:
+6-72, 134-175, utils/dataset.py): ``get_perspective_mat`` draws from the
+caller's ``RandomState`` in the JAX package's order, so that one seed gives
+the same homographies, the same photometric draws and the same pairs in
+both packages. OpenCV's calls are the port's ``core/imgproc.py``:
+``perspective_transform``, ``warp_perspective`` (5-bit fixed-point
+weights in OpenCV, so a few pixels of a warped image differ by one level),
+``resize`` (INTER_CUBIC, INTER_LINEAR, INTER_AREA), ``gaussian_blur`` and
+``filter2d``; the port reads PNG only (``core/image_io.py``), so
+``ImageFolderPairDataset`` and ``FixedHomographyDataset`` raise on a JPEG,
+naming the ROADMAP item of its decoder. ``CocoPairDataset`` is not ported
+(the repo holds no COCO).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from gims_tpu_torch.config import DatasetConfig
+from gims_tpu_torch.core import imgproc
 from gims_tpu_torch.core.imgproc import perspective_transform
 
 
@@ -88,3 +98,185 @@ def scale_homography(H, src_h, src_w, dst_h, dst_w):
     """Reference: preprocess_utils.py:134-143."""
     s = np.diag([dst_w / src_w, dst_h / src_h, 1.0])
     return s @ H @ np.linalg.inv(s)
+
+
+def resize_aspect_ratio(image, resize_h, resize_w, rng=None):
+    """Reference: preprocess_utils.py:156-175 (cv2.resize's default,
+    INTER_LINEAR)."""
+    rng = rng or np.random
+    h, w = image.shape[:2]
+    channels = 1 if image.ndim == 2 else image.shape[2]
+    max_size = max(h, w)
+    nh, nw = int(resize_h * h / max_size), int(resize_w * w / max_size)
+    resized = imgproc.resize(image, (nw, nh))
+    fill = rng.randint(0, 127)
+    shape = (resize_h, resize_w) if channels == 1 else (resize_h, resize_w, channels)
+    template = np.full(shape, fill, np.uint8)
+    sh, sw = (resize_h - nh) // 2, (resize_w - nw) // 2
+    template[sh:sh + nh, sw:sw + nw] = resized
+    return template
+
+
+# --- photometric augmentation (the JAX package's replacement of
+#     albumentations; reference: utils/dataset.py:25-29 distributions) ---
+
+def apply_photometric(image, rng):
+    """OneOf(brightness 0.4 | contrast 0.3) p=0.6, then
+    OneOf(motion blur | gauss noise) p=0.5, wrapped at p=0.65."""
+    if rng.uniform() > 0.65:
+        return image
+    img = image.astype(np.float32)
+    if rng.uniform() < 0.6:
+        if rng.uniform() < 0.6 / 1.3:
+            img = img * (1.0 + rng.uniform(-0.4, 0.4))
+        else:
+            mean = img.mean()
+            img = (img - mean) * (1.0 + rng.uniform(-0.3, 0.3)) + mean
+    if rng.uniform() < 0.5:
+        if rng.uniform() < 0.5:
+            k = rng.choice([3, 5, 7])
+            kernel = np.zeros((k, k), np.float32)
+            if rng.uniform() < 0.5:
+                kernel[k // 2, :] = 1.0 / k
+            else:
+                kernel[:, k // 2] = 1.0 / k
+            img = imgproc.filter2d(img, kernel)
+        else:
+            img = img + rng.normal(0, rng.uniform(3, 7), img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# --- datasets ---
+
+def _read_png(path):
+    from gims_tpu_torch.core.image_io import imread
+
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(
+            f"{os.path.basename(path)}: the port reads PNG only; a JPEG decoder is "
+            "ROADMAP.md section 1 item 4")
+    return imread(path)
+
+
+class ImageFolderPairDataset:
+    """Homography pairs from a small folder of source images: each index
+    picks a source image (cycling) and a random crop of 55-100% of its area,
+    resized with INTER_AREA."""
+
+    def __init__(self, cfg: DatasetConfig, folder, length=1000, seed=0):
+        self.cfg = cfg
+        self.paths = sorted(p for p in os.listdir(folder)
+                            if p.lower().endswith((".jpg", ".jpeg", ".png")))
+        self.folder = folder
+        self.length = length
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self._cache = {}
+
+    def __len__(self):
+        return self.length
+
+    def _load(self, name):
+        if name not in self._cache:
+            self._cache[name] = _read_png(os.path.join(self.folder, name))
+        return self._cache[name]
+
+    def __getitem__(self, index):
+        rng = np.random.RandomState(self.seed * 99991 + index)
+        img = self._load(self.paths[index % len(self.paths)])
+        h, w = img.shape[:2]
+        f = rng.uniform(0.55, 1.0)
+        ch, cw = max(int(h * f), 64), max(int(w * f), 64)
+        y0 = rng.randint(0, h - ch + 1)
+        x0 = rng.randint(0, w - cw + 1)
+        crop = img[y0:y0 + ch, x0:x0 + cw]
+        crop = imgproc.resize(crop, (self.cfg.image_width, self.cfg.image_height),
+                              imgproc.INTER_AREA)
+        return make_pair(crop, self.cfg, rng)
+
+
+class MixedPairDataset:
+    """Round-robin mix of several pair datasets."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.length = sum(len(d) for d in self.datasets)
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index):
+        k = index % len(self.datasets)
+        d = self.datasets[k]
+        return d[(index // len(self.datasets)) % len(d)]
+
+
+class SyntheticPairDataset:
+    """Procedural textured images, so the train loop runs without a dataset
+    on disk: uniform noise at a quarter of the frame, cubic 4x upscale,
+    Gaussian blur of sigma 1, then ``make_pair``; one RandomState per index."""
+
+    def __init__(self, cfg: DatasetConfig, length=1000, seed=0):
+        self.cfg = cfg
+        self.length = length
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index):
+        rng = np.random.RandomState(self.seed * 100003 + index)
+        h, w = self.cfg.image_height, self.cfg.image_width
+        img = rng.randint(0, 255, (h // 4, w // 4, 3)).astype(np.uint8)
+        img = imgproc.resize(img, (w, h), imgproc.INTER_CUBIC)
+        img = imgproc.gaussian_blur(img, 1.0)
+        return make_pair(img, self.cfg, rng)
+
+
+def make_pair(image, cfg: DatasetConfig, rng):
+    """image -> (orig, warped, H) at (image_height, image_width)."""
+    if cfg.resize_aspect:
+        image = resize_aspect_ratio(image, cfg.image_height, cfg.image_width, rng)
+    height, width = image.shape[:2]
+    H = get_perspective_mat(
+        cfg.patch_ratio, width // 2, height // 2, cfg.perspective_x,
+        cfg.perspective_y, cfg.shear_ratio, cfg.shear_angle,
+        cfg.rotation_angle, cfg.scale, cfg.translation, rng,
+    )
+    warped = imgproc.warp_perspective(image.copy(), H, (width, height))
+    if not cfg.resize_aspect:
+        image = imgproc.resize(image, (cfg.image_width, cfg.image_height), imgproc.INTER_AREA)
+        warped = imgproc.resize(warped, (cfg.image_width, cfg.image_height), imgproc.INTER_AREA)
+    if cfg.apply_color_aug:
+        image = apply_photometric(image, rng)
+        warped = apply_photometric(warped, rng)
+    H = scale_homography(H, height, width, cfg.image_height, cfg.image_width).astype(np.float32)
+    return image, warped, H
+
+
+class FixedHomographyDataset:
+    """Validation pairs from a '<name> h00..h22' text file
+    (reference: utils/dataset.py:68-101 + assets/coco_val_images_homo.txt)."""
+
+    def __init__(self, cfg: DatasetConfig, txt_path, images_path):
+        self.cfg = cfg
+        self.images_path = images_path
+        with open(txt_path) as f:
+            self.entries = [line.strip().split(" ") for line in f if line.strip()]
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, index):
+        parts = self.entries[index]
+        H = np.array(list(map(float, parts[1:]))).reshape(3, 3).astype(np.float32)
+        image = _read_png(os.path.join(self.images_path, parts[0]))
+        height, width = image.shape[:2]
+        warped = imgproc.warp_perspective(image.copy(), H, (width, height))
+        size = (self.cfg.image_width, self.cfg.image_height)
+        image = imgproc.resize(image, size, imgproc.INTER_AREA)
+        warped = imgproc.resize(warped, size, imgproc.INTER_AREA)
+        H = scale_homography(H, height, width, self.cfg.image_height,
+                             self.cfg.image_width).astype(np.float32)
+        return image, warped, H

@@ -1,0 +1,422 @@
+"""Training orchestration: the reference train.py:28-186 rebuilt, on one device.
+
+Port of ``gims_tpu/train/loop.py:156-639`` for the fused end-to-end trainer
+(``fused_e2e=True``): per batch the host synthesizes an image pair and its
+homography, and one step (``train/fused_step.py``) detects, describes,
+matches the ground truth and trains the descriptor CNN and the matcher on
+the device. Validation runs the fused inference program
+(``FusedMatching``) with the EMA weights once per epoch. Checkpoint policy
+parity: lastiter every ``lastiter_every`` iterations, minloss on a new
+rolling-mean minimum every ``minloss_every``, last and best per epoch by
+the validation weighted score (reference: train.py:155-184).
+
+Where the port departs from the JAX package:
+- Checkpoints. The JAX package writes orbax checkpoints; the port writes
+  the same payload fields (epoch, iter, params, batch_stats, ema,
+  ema_updates, opt_state, step) with ``torch.save`` to
+  ``<save_dir>/weights/<name>.pt`` for the same names at the same moments,
+  and ``restore_train_state`` reads them back. At every ``last`` and
+  ``best`` it also exports the EMA weights (the parameters without EMA) in
+  the JAX layout: ``<name>.npz`` (the matcher, as
+  ``scripts/export_checkpoint.py --e2e`` writes it) and ``<name>_car.npz``
+  (the CNN), which both packages load.
+- Not ported yet, and raising NotImplementedError: the classic trainer,
+  whose batches come from host OpenCV SIFT (``build_batch``,
+  ``build_batch_raw``; ROADMAP.md section 1 item 4), and more than one
+  device or process (ROADMAP.md section 1 item 2).
+- The loop runs on ``cuda`` unless ``device`` says otherwise. On CUDA each
+  step's device time is taken with a pair of CUDA events and written to
+  metrics.jsonl as ``step_ms`` (the JAX loop's ``model_time`` is the
+  host's dispatch time, kept beside it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gims_tpu_torch.api import init_gmatcher_variables
+from gims_tpu_torch.carhynet.convert import load_car_checkpoint
+from gims_tpu_torch.carhynet.convert import load_variables as load_car_variables
+from gims_tpu_torch.carhynet.convert import module_variables as car_module_variables
+from gims_tpu_torch.carhynet.model import CARHyNet
+from gims_tpu_torch.config import GIMSConfig
+from gims_tpu_torch.core import checkpoint as ckpt_io
+from gims_tpu_torch.core.device import resolve_device
+from gims_tpu_torch.core.imgproc import bgr_to_gray
+from gims_tpu_torch.eval import metrics as M
+from gims_tpu_torch.eval.homography import evaluate_pair
+from gims_tpu_torch.matcher.convert import load_variables, module_variables
+from gims_tpu_torch.matcher.gmatcher import GMatcher
+from gims_tpu_torch.train import data as data_mod
+from gims_tpu_torch.train import fused_step as fstep_mod
+from gims_tpu_torch.train import step as step_mod
+
+HOST_SIFT = ("the classic trainer's batches come from host OpenCV SIFT, which the port "
+             "does not have yet (ROADMAP.md section 1 item 4); train with fused_e2e=True "
+             "(--fused_e2e)")
+MULTI_DEVICE = ("data-parallel and multi-host training are not ported yet "
+                "(ROADMAP.md section 1 item 2)")
+
+
+def build_batch(frontend, pairs, max_keypoints, rng, pool=None, seeds=None):
+    """The classic trainer's batch (frontend features with host SIFT top-up)."""
+    raise NotImplementedError(HOST_SIFT)
+
+
+def build_batch_raw(fe_cfg, pairs, max_keypoints, rng, pool=None, seeds=None):
+    """The classic trainer's raw SIFT batch."""
+    raise NotImplementedError(HOST_SIFT)
+
+
+def test_model(matcher, val_dataset, val_count: int, agc=None, min_matches: int = 12,
+               device=None):
+    """In-training validation (reference: utils/common.py:912-977):
+    skipped pairs contribute penalty records (error=500, P=R=0)."""
+    records = []
+    for i in range(min(val_count, len(val_dataset))):
+        image, warped, H = val_dataset[i]
+        record, _ = evaluate_pair(matcher, image, warped, H, min_matches, agc, device=device)
+        if record is None:
+            record = {"error_dlt": 500.0, "error_ransac": 500.0,
+                      "precision": 0.0, "recall": 0.0}
+        records.append(record)
+    thresholds = [5, 10, 25]
+    results = {
+        "dlt_auc": [100.0 * a for a in M.pose_auc([r["error_dlt"] for r in records],
+                                                  thresholds)],
+        "ransac_auc": [100.0 * a for a in M.pose_auc([r["error_ransac"] for r in records],
+                                                     thresholds)],
+        "precision": 100.0 * float(np.mean([r["precision"] for r in records])),
+        "recall": 100.0 * float(np.mean([r["recall"] for r in records])),
+        "thresholds": thresholds,
+    }
+    results["weight_score"] = M.weighted_score(results)
+    return results
+
+
+def build_batch_e2e(pairs, device):
+    """Fused end-to-end batch: gray uint8 frames and the homography on
+    `device` (the step detects and describes on the device)."""
+    g0 = np.stack([bgr_to_gray(p[0]) for p in pairs])
+    g1 = np.stack([bgr_to_gray(p[1]) for p in pairs])
+    hs = np.stack([p[2] for p in pairs]).astype(np.float32)
+    return {"img0_u8": torch.from_numpy(g0).to(device),
+            "img1_u8": torch.from_numpy(g1).to(device),
+            "homography": torch.from_numpy(hs).to(device)}
+
+
+def _joint_from_variables(cfg: GIMSConfig, m_vars, car_vars, seed: int):
+    """The trained module: a GMatcher with f32 parameters and the gray
+    dense CAR-HyNet, loaded from JAX-layout trees (the CNN randomly
+    initialized from `seed` where `car_vars` is None)."""
+    matcher = GMatcher(cfg.matcher, param_dtype=torch.float32)
+    load_variables(matcher, m_vars)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        car = CARHyNet(dense=True, in_channels=1)
+    if car_vars is not None:
+        load_car_variables(car, car_vars)
+    return fstep_mod.joint_variables(matcher, car.eval())
+
+
+def eval_config(cfg: GIMSConfig) -> dict:
+    """The FusedMatching config of validation: the fused inference program
+    with the current weights (bf16 trunk and dense maps, as the bench and the
+    evaluation run it), at the trained configuration's knobs."""
+    return {
+        "sinkhorn_iterations": cfg.matcher.sinkhorn_iterations,
+        "match_threshold": cfg.matcher.match_threshold,
+        "attention_dtype": "bfloat16",
+        "fast_frontend": True,
+        "descriptor_source": "dense_gray",
+        "upsample": cfg.frontend.upsample,
+        "dense_layers": cfg.frontend.dense_layers,
+        "dense_first_map_oct": cfg.frontend.dense_first_map_oct,
+        "radius": cfg.agc.radius, "percentile": cfg.agc.percentile,
+        "min_size": cfg.agc.min_size,
+    }
+
+
+def load_eval_weights(fused_eval, state: step_mod.TrainState) -> None:
+    """Put the EMA weights (the parameters, without EMA) and the buffers of
+    `state` into a FusedMatching; its modules cast them to their dtypes."""
+    ema = fstep_mod.ema_modules(state)
+    matcher, car = fstep_mod.split_joint(state.model)
+    fused_eval.model.load_state_dict({**dict(matcher.named_buffers()), **ema["gmatcher"]})
+    fused_eval.car_model.load_state_dict({**dict(car.named_buffers()), **ema["carhynet"]})
+
+
+def export_npz(state: step_mod.TrainState, path: str) -> None:
+    """The EMA weights (the parameters, without EMA) as the JAX layout's
+    joint export pair: `path` (the matcher) and `path` with ``_car`` before
+    ``.npz`` (the CNN)."""
+    ema = fstep_mod.ema_modules(state)
+    matcher, car = fstep_mod.split_joint(state.model)
+    ckpt_io.save_npz(path, module_variables(matcher, ema["gmatcher"]))
+    stem = path[:-4] if path.endswith(".npz") else path
+    ckpt_io.save_npz(stem + "_car.npz", car_module_variables(car, ema["carhynet"]))
+
+
+def _ckpt_payload(state: step_mod.TrainState, epoch: int, it: int):
+    model = state.model
+    return {
+        "epoch": epoch,
+        "iter": it,
+        "params": {n: p.detach() for n, p in model.named_parameters()},
+        "batch_stats": {n: b.detach() for n, b in model.named_buffers()},
+        "ema": state.ema_params if state.ema_params is not None else {},
+        "ema_updates": state.ema_updates,
+        "opt_state": state.opt_state,
+        "step": state.step,
+    }
+
+
+def _checkpoint_file(path: str) -> str:
+    """`path`, or `path`.pt (the name the loop writes, given without the
+    suffix as the JAX package's orbax directory is)."""
+    if not os.path.exists(path) and os.path.exists(path + ".pt"):
+        return path + ".pt"
+    return path
+
+
+def restore_train_state(cfg: GIMSConfig, path: str, num_batches: int, model):
+    """Resume: load a checkpoint of ``_ckpt_payload`` into `model` (the
+    trained module, as built for a fresh run) and return (state, tx, epoch,
+    iter)."""
+    loaded = torch.load(_checkpoint_file(path), map_location="cpu", weights_only=True)
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(loaded["params"][n])
+        for n, b in model.named_buffers():
+            b.copy_(loaded["batch_stats"][n])
+    state, tx = step_mod.create_train_state(cfg, model, num_batches)
+
+    def to_dev(x):
+        if isinstance(x, dict):
+            return {k: to_dev(v) for k, v in x.items()}
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    state.step = int(loaded["step"])
+    state.opt_state = to_dev(loaded["opt_state"])
+    state.ema_params = to_dev(loaded["ema"]) if cfg.train.use_ema else None
+    state.ema_updates = int(loaded["ema_updates"])
+    return state, tx, int(loaded["epoch"]), int(loaded["iter"])
+
+
+def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
+          save_dir: Optional[str] = None, limit: int = -1,
+          n_devices: int = 1, carhynet_weights: Optional[str] = None,
+          max_steps: int = -1, fast_frontend: bool = False,
+          restore_path: Optional[str] = None, cache_features: bool = False,
+          init_weights: Optional[str] = None, fused_e2e: bool = False,
+          multihost: bool = False, log_fn=print, device=None):
+    """Main loop. Returns the final TrainState."""
+    if n_devices > 1 or multihost:
+        raise NotImplementedError(MULTI_DEVICE)
+    if not fused_e2e:
+        raise NotImplementedError(HOST_SIFT)
+    if cfg.frontend.descriptor_source != "dense_gray":
+        raise ValueError("fused_e2e requires descriptor_source='dense_gray'")
+    device = resolve_device(device)
+    tcfg = cfg.train
+    if fast_frontend:
+        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
+            cfg.frontend, interpolation="linear", warp_size=32))
+    save_dir = Path(save_dir or os.path.join(tcfg.output_dir, tcfg.experiment_name))
+    weight_dir = save_dir / "weights"
+    weight_dir.mkdir(parents=True, exist_ok=True)
+    results_file = open(save_dir / "results.txt", "a")
+    metrics_file = open(save_dir / "metrics.jsonl", "a")
+
+    np.random.seed(tcfg.init_seed)
+    rng = np.random.RandomState(tcfg.init_seed)
+
+    m_vars = init_gmatcher_variables(cfg.matcher, seed=tcfg.init_seed,
+                                     scheme=cfg.matcher.init_scheme)
+    car_vars = load_car_checkpoint(carhynet_weights) if carhynet_weights else None
+
+    if train_dataset is None:
+        log_fn("[train] no COCO in the port; using synthetic pairs")
+        train_dataset = data_mod.SyntheticPairDataset(
+            cfg.dataset, length=limit if limit > 0 else 1000, seed=tcfg.init_seed)
+    if val_dataset is None:
+        val_dataset = data_mod.SyntheticPairDataset(
+            cfg.dataset, length=tcfg.val_images_count, seed=999)
+
+    bsz = tcfg.batch_size
+    if bsz != 1:
+        raise ValueError("fused_e2e uses batch_size=1 per device")
+    num_batches = max(len(train_dataset) // bsz, 1)
+    start_epoch = tcfg.start_epoch
+    if restore_path:
+        model = _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        state, tx, r_epoch, r_it = restore_train_state(cfg, restore_path, num_batches, model)
+        # iter == -1 marks an end-of-epoch checkpoint (last/best); anything
+        # else resumes the same epoch from its start
+        start_epoch = r_epoch + 1 if r_it < 0 else r_epoch
+        log_fn(f"[train] resumed {restore_path}: epoch {r_epoch} iter {r_it} "
+               f"(opt step {state.step})")
+    else:
+        if init_weights:
+            # warm start from exported npz weights: the model's variables
+            # come from the file, the optimizer and the schedule start fresh
+            loaded = ckpt_io.unflatten_npz(init_weights)
+            m_vars = {"params": loaded["params"],
+                      "batch_stats": loaded.get("batch_stats", m_vars.get("batch_stats", {}))}
+            car_path = (init_weights[:-4] if init_weights.endswith(".npz")
+                        else init_weights) + "_car.npz"
+            if os.path.exists(car_path):
+                car_vars = load_car_checkpoint(car_path)
+                log_fn(f"[train] CNN warm start from {car_path}")
+            log_fn(f"[train] warm start from {init_weights}")
+        model = _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        state, tx = step_mod.create_train_state(cfg, model, num_batches)
+
+    from gims_tpu_torch.fused import FusedMatching, octave_budgets
+
+    image_shape = (cfg.dataset.image_height, cfg.dataset.image_width)
+    budgets = octave_budgets(*image_shape, tcfg.max_keypoints, cfg.frontend.upsample)
+    freeze_steps = tcfg.freeze_gmatcher_epochs * num_batches
+    if freeze_steps:
+        log_fn(f"[train] matcher frozen for first {freeze_steps} steps "
+               f"({tcfg.freeze_gmatcher_epochs} epochs)")
+    step_fn = fstep_mod.make_fused_e2e_train_step(cfg, tx, image_shape, budgets,
+                                                  freeze_steps=freeze_steps)
+    fused_eval = FusedMatching(eval_config(cfg), variables=m_vars, car_variables=car_vars,
+                               total_keypoints=tcfg.max_keypoints, device=device)
+
+    def eval_matcher(data):
+        return fused_eval(data["image0"][0], data["image1"][0])
+
+    best_val_score = 1e-10
+    best_min_loss = 1e9
+    order = np.arange(len(train_dataset))
+    global_step = state.step
+    log_fn(f"Started training for {tcfg.num_epochs} epochs, {num_batches} batches/epoch, "
+           f"1 device ({device})")
+    header = ("%10s" * 8) % ("Epoch", "Iter", "PosLoss", "NegLoss", "TotLoss",
+                             "Dtime", "Ptime", "Mtime")
+    # the prefetch worker prepares batch i+1 on the host while the device
+    # runs step i; it alone touches the dataset and rng, so the data order
+    # stays deterministic
+    prefetch = ThreadPoolExecutor(max_workers=1)
+    batch_cache = {} if cache_features else None
+    timed = device.type == "cuda"
+
+    def make_batch(idxs):
+        key = tuple(int(i) for i in idxs) if cache_features else None
+        if batch_cache is not None and key in batch_cache:
+            return batch_cache[key], 0.0, 0.0
+        t1 = time.time()
+        pairs = [train_dataset[int(i)] for i in idxs]
+        t2 = time.time()
+        batch = build_batch_e2e(pairs, device)
+        if batch_cache is not None:
+            batch_cache[key] = batch
+        return batch, t2 - t1, time.time() - t2
+
+    try:
+        for epoch in range(start_epoch, tcfg.num_epochs):
+            log_fn(header)
+            if cache_features:
+                groups = order[: num_batches * bsz].reshape(num_batches, -1)[
+                    rng.permutation(num_batches)]
+                order = groups.reshape(-1)
+            else:
+                rng.shuffle(order)
+            mloss = np.zeros(3)
+            fut = prefetch.submit(make_batch, order[:bsz])
+            flush_every = max(1, min(tcfg.log_interval, tcfg.minloss_every))
+            pending = []
+
+            def flush_pending():
+                nonlocal mloss
+                if not pending:
+                    return
+                # one stacked readout per flush, not one per step
+                vals = torch.stack([m for _, _, m, _, _ in pending]).cpu().numpy()
+                for (ep_i, it_i, _, times, events), loss_items in zip(pending, vals):
+                    mloss = (mloss * it_i + loss_items) / (it_i + 1)
+                    log_fn(("%10s%10d" + "%10.4g" * 6) % (str(ep_i), it_i, *mloss, *times))
+                    rec = {"epoch": ep_i, "iter": it_i,
+                           "pos_loss": float(loss_items[0]),
+                           "neg_loss": float(loss_items[1]),
+                           "total_loss": float(loss_items[2]),
+                           "mloss": float(mloss[2]),
+                           "data_time": times[0], "preprocess_time": times[1],
+                           "model_time": times[2]}
+                    if events is not None:
+                        rec["step_ms"] = events[0].elapsed_time(events[1])
+                    metrics_file.write(json.dumps(rec) + "\n")
+                metrics_file.flush()
+                ep_i, it_i = pending[-1][:2]
+                results_file.write(f"Epoch: {ep_i} Iter: {it_i}, Loss: {mloss[0]}\n")
+                results_file.flush()
+                pending.clear()
+
+            for it in range(num_batches):
+                batch, dt_data, dt_prep = fut.result()
+                if it + 1 < num_batches and not (0 < max_steps <= global_step + 1):
+                    fut = prefetch.submit(make_batch, order[(it + 1) * bsz:(it + 2) * bsz])
+                t1 = time.time()
+                events = None
+                if timed:
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                state, metrics = step_fn(state, batch)
+                if timed:
+                    events[1].record()
+                pending.append((epoch, it, metrics["vec"],
+                                (dt_data, dt_prep, time.time() - t1), events))
+                if (it + 1) % flush_every == 0 or it + 1 == num_batches \
+                        or (0 < max_steps <= global_step + 1):
+                    flush_pending()
+                    ckpt_state = None
+                    if (it + 1) % tcfg.lastiter_every < flush_every:
+                        ckpt_state = _ckpt_payload(state, epoch, it)
+                        torch.save(ckpt_state, weight_dir / "lastiter.pt")
+                    if ((it + 1) % tcfg.minloss_every < flush_every
+                            and mloss[2] < best_min_loss):
+                        best_min_loss = float(mloss[2])
+                        log_fn(f"save minloss {epoch} with loss {best_min_loss}")
+                        torch.save(ckpt_state or _ckpt_payload(state, epoch, it),
+                                   weight_dir / "minloss.pt")
+                global_step += 1
+                if 0 < max_steps <= global_step:
+                    break
+
+            # per-epoch validation with the EMA (or raw) weights
+            load_eval_weights(fused_eval, state)
+            results = test_model(eval_matcher, val_dataset, tcfg.val_images_count,
+                                 agc={"radius": cfg.agc.radius,
+                                      "percentile": cfg.agc.percentile,
+                                      "min_size": cfg.agc.min_size},
+                                 device=device)
+            log_fn(f"Validation: {results}")
+            score = float(results["weight_score"])
+            ckpt_state = _ckpt_payload(state, epoch, -1)
+            torch.save(ckpt_state, weight_dir / "last.pt")
+            export_npz(state, str(weight_dir / "last.npz"))
+            if score > best_val_score:
+                best_val_score = score
+                log_fn(f"Saving best model at epoch {epoch} with score {best_val_score}")
+                torch.save(ckpt_state, weight_dir / "best.pt")
+                export_npz(state, str(weight_dir / "best.npz"))
+            if 0 < max_steps <= global_step:
+                break
+    finally:
+        prefetch.shutdown(wait=True)
+        results_file.close()
+        metrics_file.close()
+    return state

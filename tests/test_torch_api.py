@@ -83,3 +83,53 @@ def test_ported_requests_accepted(request_and_matchers, kind):
     got = m({**images, "features": feats})
     assert got["keypoints0"].shape == (1, 0, 2) and got["matches0"].shape == (1, 0)
     assert got["descriptors0"].shape == (1, 256, 0)
+
+
+def test_matching_honours_every_agc_knob_where_jax_passes_defaults():
+    """The port's Matching runs every GIMSConfig.agc knob; JAX's passes
+    AGCConfig() to its forward (only radius, percentile and min_size reach
+    its AGC). With cc_rounds=1 the port equals JAX's pipeline.forward_match
+    called directly with the same AGCConfig (kept keypoints and matches
+    equal, matching scores 1e-4), and that graph differs from the default
+    one that JAX's Matching builds."""
+    import jax
+    import jax.numpy as jnp
+
+    from gims_tpu.config import AGCConfig as JAGCConfig
+    from gims_tpu.config import MatcherConfig as JMatcherConfig
+    from gims_tpu.core.bucketing import compact_indices, pad_keypoint_set
+    from gims_tpu.matcher import pipeline as jpipeline
+    from gims_tpu_torch.config import AGCConfig, GIMSConfig, MatcherConfig
+    from gims_tpu_torch.matcher.convert import load_gims_checkpoint
+
+    req, _ = synthetic_request(7, 230, frame=(120, 160))
+    knobs = dict(radius=15.0, percentile=2.0, min_size=7)
+    variables = load_gims_checkpoint(WEIGHTS)
+    port = Matching(GIMSConfig(agc=AGCConfig(cc_rounds=1, **knobs),
+                               matcher=MatcherConfig(sinkhorn_iterations=20)),
+                    variables=variables, device="cpu")
+    got = port({**req, **knobs})
+    sides = [pad_keypoint_set(np.asarray(req[f"keypoints{s}"]),
+                              np.asarray(req[f"descriptors{s}"], np.float32),
+                              np.asarray(req[f"scores{s}"], np.float32)) for s in "01"]
+    ks = [jnp.asarray([jpipeline.percentile_rank(int(v.sum()), knobs["percentile"])], jnp.int32)
+          for _, _, _, v in sides]
+    args = [jnp.asarray(x)[None] for kp, de, _, v in sides for x in (kp, de, v)]
+    mcfg = JMatcherConfig(sinkhorn_iterations=20)
+
+    def run(acfg):
+        return jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda *a: jpipeline.forward_match(variables, mcfg, acfg, *a, (120, 160),
+                                               k0=ks[0], k1=ks[1]))(*args))
+
+    want = run(JAGCConfig(cc_rounds=1, **knobs))
+    default = run(JAGCConfig(**knobs))
+    assert not np.array_equal(want["kept0"], default["kept0"]) or not np.array_equal(
+        want["kept1"], default["kept1"])
+    new0, old0 = compact_indices(want["kept0"][0])
+    new1, old1 = compact_indices(want["kept1"][0])
+    np.testing.assert_array_equal(got["keypoints0"][0], sides[0][0][old0])
+    np.testing.assert_array_equal(got["keypoints1"][0], sides[1][0][old1])
+    m0 = want["matches0"][0][old0]
+    np.testing.assert_array_equal(got["matches0"][0], np.where(m0 >= 0, new1[np.clip(m0, 0, None)], -1))
+    assert np.abs(got["matching_scores0"][0] - want["matching_scores0"][0][old0]).max() <= 1e-4

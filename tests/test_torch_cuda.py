@@ -144,10 +144,10 @@ def test_sinkhorn_kernel_vs_plain(cuda, nb, ms, ns, iters):
 
 
 def test_wrappers_refuse_what_they_do_not_take(cuda):
-    q = torch.randn((1, 8, 4, 160), device=cuda)
+    q = torch.randn((1, 8, 4, 300), device=cuda)
     mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
-        cuda_attention.masked_attention_cuda(q, q, q, mask)  # head dim 160 > 128
+        cuda_attention.masked_attention_cuda(q, q, q, mask)  # head dim 300 > 256
     z = torch.randn((1, 9, 9), device=cuda)
     with pytest.raises(TypeError):
         cuda_sinkhorn.sinkhorn_uv_cuda(z.double(), z[:, :, 0].double(), z[:, 0].double(), 3)
@@ -177,11 +177,13 @@ def test_gmatcher_kernels_vs_plain(cuda):
     assert (outs[0][valid] - outs[1][valid]).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [1, 8, 20, 24, 32, 40, 64, 96, 128, 160, 192, 250, 256])
 def test_attention_auto_by_head_width(cuda, d):
-    """On the card "auto" launches the kernel at every head width up to 128
-    (one or two column blocks of 64; 32 reads zeros past its end), in f32
-    and bf16; the wrapper raises at a wider head. f32 against the direct
+    """On the card "auto" launches the kernel at every head width up to 256
+    (one to four column blocks of 64; a width short of its last block reads
+    zeros past its end, and in bf16 a width that is not a multiple of 8, as
+    1, 20 and 250, is zero-padded to one by the wrapper), in f32 and bf16;
+    the wrapper raises at a wider head. f32 against the direct
     version, 1e-4. bf16 against the tiled version: every element within the
     output's rounding rule plus one bf16 ulp of every rounded P (2**-7 times
     the attention of |v|: where a p lies at a rounding boundary the kernel
@@ -213,11 +215,170 @@ def test_attention_auto_by_head_width(cuda, d):
             bf_direct = attention.masked_attention_direct(qd.float(), kd.float(), vd.float(), mask)
             err = out.float() - bf_direct
             assert err.pow(2).mean().sqrt() <= 2.0 ** -8 * bf_direct.pow(2).mean().sqrt()
-    wide = torch.randn((2, 300, 4, 160), generator=g, device=cuda)
+    wide = torch.randn((2, 300, 4, 300), generator=g, device=cuda)
     for impl in ("auto", "pallas"):
         with pytest.raises(ValueError, match="head dim"):
             attention.masked_attention(wide, wide, wide, torch.ones_like(mask[:, :300]),
                                        impl=impl)
+
+
+def test_kernels_refuse_autograd(cuda):
+    """K1 and K2 have no backward: their wrappers raise under autograd
+    instead of returning a result without (K1) or with a wrong (K2)
+    gradient. "auto" under grad takes the plain versions and launches
+    nothing, and its gradient equals the direct version's; "pallas" and
+    use_pallas_sinkhorn=True raise. Without grad, "auto" launches K1."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 100, 4, 64), generator=g, device=cuda, requires_grad=True)
+               for _ in range(3))
+    mask = torch.rand((1, 100), generator=g, device=cuda) < 0.9
+    before = cuda_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_attention.masked_attention_cuda(q, k, v, mask)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.masked_attention(q, k, v, mask, impl="pallas")
+    out = attention.masked_attention(q, k, v, mask, impl="auto")
+    assert cuda_attention.launches == before
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    want = torch.autograd.grad(attention.masked_attention_direct(q, k, v, mask).square().sum(),
+                               (q, k, v))
+    for a, b in zip(grads, want):
+        assert (a - b).abs().max().item() <= 1e-5
+    with torch.no_grad():
+        attention.masked_attention(q, k, v, mask, impl="auto")
+    assert cuda_attention.launches == before + 1
+
+    scores = torch.randn((1, 50, 60), generator=g, device=cuda, requires_grad=True)
+    rows = torch.ones((1, 50), dtype=torch.bool, device=cuda)
+    cols = torch.ones((1, 60), dtype=torch.bool, device=cuda)
+    before = cuda_sinkhorn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_sinkhorn.log_optimal_transport_cuda(scores, 1.0, 5, rows, cols)
+    z = torch.randn((1, 51, 61), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_sinkhorn.sinkhorn_uv_cuda(z, z[:, :, 0].detach().contiguous(),
+                                       z[:, 0].detach().contiguous(), 5)
+    assert cuda_sinkhorn.launches == before
+    model = GMatcher(MatcherConfig(num_gnn_layers=2, use_pallas_sinkhorn=True)).to(cuda)
+    kp = torch.rand((1, 64, 2), device=cuda) - 0.5
+    de = torch.rand((1, 64, 256), device=cuda)
+    adj = torch.zeros((1, 64, 64), dtype=torch.bool, device=cuda)
+    kept = torch.ones((1, 64), dtype=torch.bool, device=cuda)
+    before = cuda_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(kp, de, adj, kept, kp, de, adj, kept)
+    assert cuda_attention.launches == before  # the trunk took the plain versions
+
+
+def test_wide_head_gmatcher_kernel_vs_plain(cuda, monkeypatch):
+    """A 512-d GMatcher of 2 heads (head width 256), 4 GNN layers, random
+    weights, 300 keypoints per side in a 384 bucket: the trunk through K1
+    against the same trunk through the kernel's plain version
+    (masked_attention_tiled), Z on the valid block within 5e-2 in bf16 (the
+    bf16 bar of tests/test_torch_gmatcher.py) and 1e-3 in f32 (its f32
+    bar)."""
+    from gims_tpu_torch.matcher import layers
+
+    rng = np.random.RandomState(1)
+    nb = 384
+    kpts = torch.from_numpy(rng.rand(1, nb, 2).astype(np.float32) - 0.5).to(cuda)
+    desc = torch.from_numpy(rng.rand(1, nb, 512).astype(np.float32)).to(cuda)
+    adj = torch.from_numpy(rng.rand(1, nb, nb) < 0.02).to(cuda)
+    adj = adj | adj.transpose(1, 2)
+    kept = torch.arange(nb, device=cuda)[None] < 300
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
+        torch.manual_seed(0)
+        cfg = MatcherConfig(descriptor_dim=512, input_dim=512, num_heads=2, num_gnn_layers=4,
+                            attention_dtype=dtype, sinkhorn_iterations=20)
+        model = GMatcher(cfg).to(cuda).eval()
+        outs = []
+        for plain in (False, True):
+            if plain:
+                monkeypatch.setattr(layers, "masked_attention",
+                                    lambda q, k, v, mask, impl: attention.masked_attention_tiled(
+                                        q, k, v, mask))
+            before = cuda_attention.launches
+            with torch.no_grad():
+                outs.append(model(kpts, desc, adj, kept, kpts, desc, adj, kept)["Z"])
+            assert cuda_attention.launches - before == (0 if plain else 4)
+        monkeypatch.undo()
+        valid = outs[1] > -1e8
+        assert torch.isfinite(outs[0][valid]).all()
+        assert (outs[0][valid] - outs[1][valid]).abs().max().item() <= tol
+
+
+def test_fused_train_step_card_vs_cpu(cuda, monkeypatch):
+    """One fused end-to-end train step in f32 (a 2-layer 256-d matcher,
+    remat, dense AGC, InfoNCE, a 512-keypoint budget at 120x160) on the card
+    against the same step on the CPU, from the same random start, TF32 off:
+    the same detections (valid equal, keypoints 1e-3 px) and the same AGC
+    graphs (adjacency and kept equal), losses within 1e-4 relative, and
+    every gradient at a cosine of at least 0.9999 to the CPU's and within
+    2e-2 * max|g_cpu| per tensor (measured: 9.3e-3 at most, on the first
+    layer's MLP weight, whose gradient sums the batch norm's cancelling
+    terms over every token in another order on each device); a gradient of
+    at most 1e-6 (a bias ahead of a batch norm: 0 up to rounding) within
+    1e-5. On the card the step launches the label-rounds kernel twice (one
+    AGC per side) and neither K1 nor K2."""
+    from gims_tpu_torch import fused as tfused
+    from gims_tpu_torch.agc import labels
+    from gims_tpu_torch.config import (AGCConfig, DatasetConfig, GIMSConfig, OptimizerConfig,
+                                       TrainConfig)
+    from gims_tpu_torch.fused import octave_budgets
+    from gims_tpu_torch.matcher import pipeline
+    from gims_tpu_torch.train import data as tdata
+    from gims_tpu_torch.train import fused_step, step as tstep
+    from gims_tpu_torch.train.loop import build_batch_e2e
+
+    h, w = 120, 160
+    cfg = GIMSConfig(
+        matcher=MatcherConfig(descriptor_dim=256, input_dim=256, keypoint_encoder=(32, 64),
+                              num_gnn_layers=2, sinkhorn_iterations=5, remat=True,
+                              neg_cells="dustbin"),
+        agc=AGCConfig(radius=40.0, percentile=5.0, min_size=2),
+        frontend=FrontendConfig(descriptor_source="dense_gray", dense_dtype="float32"),
+        optimizer=OptimizerConfig(), train=TrainConfig(desc_loss_weight=1.0))
+    pair = tdata.SyntheticPairDataset(DatasetConfig(image_height=h, image_width=w,
+                                                    apply_color_aug=False), 1)[0]
+    budgets = octave_budgets(h, w, 512)
+    real_extract, real_agc = tfused._extract_side, pipeline.run_agc
+    runs = {}
+    for dev in ("cpu", cuda):
+        seen = {"extract": [], "agc": []}
+        monkeypatch.setattr(tfused, "_extract_side", lambda *a: seen["extract"].append(
+            real_extract(*a)) or seen["extract"][-1])
+        monkeypatch.setattr(pipeline, "run_agc", lambda *a, **k: seen["agc"].append(
+            real_agc(*a, **k)) or seen["agc"][-1])
+        torch.manual_seed(0)
+        joint = fused_step.joint_variables(GMatcher(cfg.matcher, param_dtype=torch.float32),
+                                           CARHyNet(dense=True, in_channels=1)).to(dev)
+        state, tx = tstep.create_train_state(cfg, joint, num_batches=10)
+        step = fused_step.make_fused_e2e_train_step(cfg, tx, (h, w), budgets)
+        before = (labels.launches, cuda_attention.launches, cuda_sinkhorn.launches)
+        state, metrics = step(state, build_batch_e2e([pair], dev))
+        after = (labels.launches, cuda_attention.launches, cuda_sinkhorn.launches)
+        runs[str(dev)] = (state, metrics, tuple(a - b for a, b in zip(after, before)), seen)
+    (cpu_state, cpu_m, _, cpu_seen), (card_state, card_m, card_launches, card_seen) = (
+        runs["cpu"], runs[str(cuda)])
+    assert card_launches == (2, 0, 0)
+    for (kc, _, vc, _), (kg, _, vg, _) in zip(cpu_seen["extract"], card_seen["extract"]):
+        assert torch.equal(vc, vg.cpu()) and vc.sum() > 50
+        assert (kc - kg.cpu())[vc].abs().max().item() <= 1e-3
+    for (ac, kc, _), (ag, kg, _) in zip(cpu_seen["agc"], card_seen["agc"]):
+        assert torch.equal(ac, ag.cpu()) and torch.equal(kc, kg.cpu())
+    for key in ("total_loss", "pos_loss", "neg_loss"):
+        want = cpu_m[key].item()
+        assert abs(card_m[key].item() - want) <= 1e-4 * max(1.0, abs(want)), key
+    want = dict(cpu_state.model.named_parameters())
+    for name, p in card_state.model.named_parameters():
+        g, got = want[name].grad, p.grad.cpu()
+        scale = g.abs().max().item()
+        if scale <= 1e-6:
+            assert (got - g).abs().max().item() <= 1e-5, name
+            continue
+        assert (got - g).abs().max().item() <= 2e-2 * scale, name
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), g.flatten(), dim=0)
+        assert cos.item() >= 0.9999, name
 
 
 def test_dense_cnn_bf16_vs_f32(cuda):

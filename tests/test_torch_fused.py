@@ -237,12 +237,25 @@ def test_fused_matching_contract_on_cpu(slice_inputs):
     assert tfused.FusedMatching(device="cpu", total_keypoints=6144).compact_to is None
 
 
+@pytest.mark.parametrize("knob", [{}, {"descriptor_source": "devsift"}])
+def test_unported_knobs_raise(knob):
+    """The multi-device split is not ported (init_scheme="identity", refused
+    here before, is: see test_identity_init_scheme_builds)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfused.FusedMatching(knob, device="cpu", devices=2)
+
+
 @pytest.mark.parametrize("knob", [
     {"init_scheme": "identity"},
     {"init_scheme": "identity", "descriptor_source": "devsift"}])
-def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.FusedMatching(knob, device="cpu")
+def test_identity_init_scheme_builds(knob):
+    """Without variables, init_scheme="identity" starts the matcher from the
+    zero-residual warm start: final_proj is s*I, s^2 * 2 / sqrt(256) = 10."""
+    m = tfused.FusedMatching(knob, device="cpu")
+    w = m.model.final_proj.weight.detach()
+    s = np.float32(np.sqrt(10.0 * np.sqrt(256) / 2.0))
+    np.testing.assert_array_equal(w.numpy(), np.eye(256, dtype=np.float32) * s)
+    assert not m.model.gnn.layer_0.mlp.dense_1.weight.detach().any()
 
 
 @pytest.mark.parametrize("knob", [

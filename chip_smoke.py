@@ -93,11 +93,15 @@ Phases, one line each with its seconds:
     devsift with the staged checkpoint, 12288 keypoints compacted to 6144,
     upsampled; both with AGC 15/2/7, 20 Sinkhorn iterations, threshold
     0.02, the card's AGC defaults (band 512, threshold stride 4, centroid
-    1024, approximate top-k), ground-truth matching and RANSAC on the card.
-    One line each: RANSAC and DLT AUC@5/10/25, precision, recall, skip
+    1024, approximate top-k), ground-truth matching and RANSAC on the card;
+    (c) staged Matching with OpenCV's SIFT detector and descriptors as the
+    port computes them (frontend/sift.py, on the card) at the staged host
+    record's args: the staged checkpoint, 2048 keypoints, 20 iterations,
+    threshold 0.02, bf16 trunk and the Sinkhorn kernel. One line each: RANSAC and DLT AUC@5/10/25, precision, recall, skip
     share, ms per pair (host clock, reading and warping included), launches
     per pair and the record's numbers; it fails if a pair is skipped, if a
-    pair does not take 18 attention, 1 Sinkhorn and 1 label-rounds launch,
+    pair does not take 18 attention, 1 Sinkhorn and 1 label-rounds launch
+    (staged: 36 and 2 where the sides fall in two buckets and run apart),
     or if RANSAC AUC@5/10/25, precision or recall lies more than 3.0 points
     from its record, precision and recall scored as the records scored them
     (record_gt_scores: the TPU's bf16-rounded ground truth; the port's exact
@@ -124,8 +128,34 @@ Phases, one line each with its seconds:
     continues the optimizer's step count. Prints ms per frozen and per
     joint step, peak memory, validation ms per pair, the launches, and the
     stage split of one more joint step in a torch.profiler trace.
+  17 host SIFT (run after phase 16): OpenCV's SIFT as the port computes it
+    (frontend/sift.py) on two synthetic 800x600 colour pairs, on the card
+    and on the CPU: each side's keypoints within the tolerances of
+    tests/test_torch_sift.py in the other (98%), the CPU's strongest 2048
+    described on both devices (99% of the bytes within one level, cosine
+    >= 0.99); ms per image of detection and of description, keypoints per
+    image, and the stage split and idle share of one profiled image. Then
+    staged Matching with host SIFT detection and descriptors (the staged
+    checkpoint, 2048 keypoints, 20 iterations, threshold 0.02, bf16, the
+    Sinkhorn kernel) on 8 gray pairs: 18 attention, 1 Sinkhorn and 1
+    label-rounds launch a request, a correct share >= 0.5, ms per pair; and
+    Matching() at the JAX defaults (carhynet descriptors at host SIFT
+    keypoints, every keypoint kept, a random colour CAR-HyNet) on 2 colour
+    pairs: structure and launches, no correct-share bound.
+  18 training (run after phase 17): the classic trainer,
+    train.loop.train without fused_e2e, at configs/synth_sift.yaml's widths
+    (640x480, 2048 keypoints, batch 1, the f32 18-layer matcher, 100
+    Sinkhorn iterations) with host SIFT descriptors: 2 epochs of 3 synthetic
+    pairs, 2 validation pairs, then a resume from `last`. It fails unless
+    every loss is finite, last.pt, minloss.pt and the EMA npz are written,
+    each step launches the label rounds twice and neither K1 nor K2,
+    validation launches as staged Matching does, and the resume continues
+    the step count. Prints ms per step, the host SIFT batch times, peak
+    memory. Then 5 steps of CAR-HyNet's trainer
+    (carhynet.train.train_descriptor) on synthetic patch pairs at 256
+    points: the losses finite.
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15 and 16):
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-18):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -134,14 +164,14 @@ Phases, one line each with its seconds:
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
-    nine paths' shapes; the script's total seconds.
+    twelve paths' shapes; the script's total seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
-gims_tpu_torch/_build/ but phase 15's pairs and artifacts and phase 16's
-checkpoints, in temporary directories that it removes.
+gims_tpu_torch/_build/ but phase 15's pairs and artifacts and phases 16's
+and 18's checkpoints, in temporary directories that it removes.
 """
 
 from __future__ import annotations
@@ -173,6 +203,8 @@ from gims_tpu_torch.config import FrontendConfig, MatcherConfig, load_config  # 
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
 from gims_tpu_torch.eval import homography  # noqa: E402
 from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
+from gims_tpu_torch.carhynet import train as car_train  # noqa: E402
+from gims_tpu_torch.frontend import sift  # noqa: E402
 from gims_tpu_torch.frontend.feature import FeatureFrontend  # noqa: E402
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pipeline, sinkhorn  # noqa: E402
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
@@ -242,7 +274,9 @@ SINKHORN_CASES = ((2048, [1800], [1750], SINKHORN_ITERS), (8192, [7000], [6900],
                    [2950, 3000, 2600, 3072, 2750, 3050, 2800, 2900], FUSED_ITERS),
                   (6144, [5900, 6144, 5200, 6050], [6000, 5800, 6144, 4900], FUSED_ITERS),
                   (6144, [6144], [6100], FUSED_ITERS),
-                  (3072, [2900], [2950], FUSED_ITERS))
+                  (3072, [2900], [2950], FUSED_ITERS),
+                  # staged Matching with host SIFT at 2048 keypoints (phases 15, 17)
+                  (2048, [1800], [1750], FUSED_ITERS))
 # the fused image path as the JAX package's bench runs it (bench.py:223-275)
 FUSED_FRAME = (600, 800)
 FUSED_BATCH = 8
@@ -322,7 +356,17 @@ EVAL_BOUND = 3.0  # points of RANSAC AUC@5/10/25, precision and recall
 EVAL_STAGED_PAIRS = 8
 EVAL_RECORDS = {
     "dense_gray": "fused_fo0_dense_gray_gims_tpu_dense_gray_e2e_r15p2m7_n199.json",
-    "devsift": "fused_devsift_gims_tpu_sift_last_r15p2m7_n199.json"}
+    "devsift": "fused_devsift_gims_tpu_sift_last_r15p2m7_n199.json",
+    "staged_host": "staged_sift_gims_tpu_sift_last_r15p2m7_n199.json"}
+# the third row: staged Matching with OpenCV's SIFT detector and descriptors
+# (the port's, on the card) at the record's args (scripts/quality_eval.py
+# without --fused: the staged checkpoint, 2048 keypoints, 20 iterations,
+# threshold 0.02; bf16 trunk and the Sinkhorn kernel, Matching's defaults
+# on the card as on the TPU, passed explicitly)
+EVAL_STAGED_HOST = {"sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
+                    "max_keypoints": 2048, "descriptor_source": "sift", "detector": "host",
+                    "sift_descriptor": "host", "attention_dtype": "bfloat16",
+                    "use_pallas_sinkhorn": True}
 EVAL_CONFIGS = {  # scripts/quality_eval.py --fused with each record's args
     "dense_gray": ({"descriptor_source": "dense_gray", "upsample": False, "compact_to": None},
                    6144),
@@ -343,6 +387,29 @@ TRAIN_WIDTHS = {"dim": 256, "layers": 18, "heads": 4, "attention_dtype": "bfloat
                 "source": "dense_gray", "upsample": False, "keypoints": 6144,
                 "frame": [600, 800], "agc": [15.0, 2.0, 7], "desc_loss_weight": 1.0,
                 "batch_size": 1}
+# host SIFT (phase 17): OpenCV's SIFT as the port computes it, on two
+# synthetic 800x600 colour pairs, on the card and on the CPU; the CPU run is
+# the reference the card is held to, with the tolerances of
+# tests/test_torch_sift.py against OpenCV: 98% of each side's keypoints
+# within 1e-3 px (same octave and layer, size and response 1e-4 relative,
+# angle 0.05 degrees), 99% of the descriptor bytes within one level, every
+# descriptor at cosine >= 0.99
+HOST_SIFT_SEEDS = (610, 611)
+HOST_SIFT_KEYPOINTS = 2048
+HOST_SIFT_STAGES = ("gims.sift.pyramid", "gims.sift.extrema", "gims.sift.adjust",
+                    "gims.sift.orientation", "gims.sift.sort", "gims.sift.describe")
+HOST_STAGED_PAIRS = 8
+HOST_STAGED_CONFIG = EVAL_STAGED_HOST
+# the classic trainer (phase 18): configs/synth_sift.yaml at its widths
+# (640x480, 2048 keypoints, batch 1, f32 matcher of 18 layers, 100 Sinkhorn
+# iterations) with host SIFT descriptors (--descriptor_source sift, as the
+# config's comment says); only the loop is cut. Then CAR-HyNet's trainer.
+CLASSIC_CONFIG = os.path.join(REPO, "configs", "synth_sift.yaml")
+CLASSIC_CUTS = {"limit": 3, "num_epochs": 2, "val_images_count": 2}
+CLASSIC_WIDTHS = {"frame": [480, 640], "keypoints": 2048, "batch_size": 1, "layers": 18,
+                  "dim": 256, "attention_dtype": "float32", "sinkhorn_iterations": 100}
+DESCRIPTOR_STEPS = 5
+DESCRIPTOR_POINTS = 256
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
@@ -599,7 +666,7 @@ def sinkhorn_phase():
                "library_ms": None}
         # the kernel's reads of Z over its time
         row["gbps"] = row["z_reads_per_iter"] * iters * 4 * b * m1 * n1p / row["ms"] / 1e6
-        rows[(nb, b)] = row
+        rows[(nb, b, iters)] = row
         print(f"  sinkhorn {json.dumps(row)}", flush=True)
         del z, mu, nu
     torch.cuda.empty_cache()
@@ -1327,12 +1394,35 @@ def record_gt_scores(out_dir, txt):
     return 100.0 * float(np.mean(prec)), 100.0 * float(np.mean(rec))
 
 
+def staged_launches_ok(c, pairs, sinkhorn=1):
+    """Launch counts of `pairs` staged Matching requests: `sinkhorn` K2
+    launches a pair (0 where the config takes the plain Sinkhorn); a pair
+    whose sides fill the same bucket stacks them (one AGC, one trunk call a
+    layer: 18 K1, 1 label rounds), another runs them apart (36, 2)."""
+    return (c["sinkhorn"] == sinkhorn * pairs and pairs <= c["label_rounds"] <= 2 * pairs
+            and c["attention"] == NUM_LAYERS * c["label_rounds"])
+
+
+class TimedMatching:
+    """A staged Matching as run_benchmark's matcher, summing its host
+    seconds of frontend and matcher (``Matching.timings``)."""
+
+    def __init__(self, m):
+        self.m, self.seconds, self.frontend_seconds = m, 0.0, 0.0
+
+    def __call__(self, data):
+        out = self.m(data)
+        self.seconds += self.m.timings["matcher"]
+        self.frontend_seconds += self.m.timings["frontend"]
+        return out
+
+
 def eval_phase(sift_variables, e2e_variables, e2e_car):
     """The homography benchmark of the JAX package's quality records on the
-    card: 199 generated pairs, both fused configurations through
-    eval.homography.run_benchmark (ground-truth matching and RANSAC on the
-    card), each held to its record; then the CLI with staged Matching on 8
-    of the pairs."""
+    card: 199 generated pairs, both fused configurations and staged Matching
+    with host SIFT through eval.homography.run_benchmark (ground-truth
+    matching and RANSAC on the card), each held to its record; then the CLI
+    with staged Matching on 8 of the pairs."""
     t0 = time.perf_counter()
     rows = {}
     with tempfile.TemporaryDirectory(prefix="gims_eval_") as tmp:
@@ -1343,34 +1433,53 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
         gen_s = time.perf_counter() - t
         print(f"  eval generated {EVAL_PAIRS} pairs in {gen_s:.3f}s", flush=True)
         launches = {}
-        for name, (config, total) in EVAL_CONFIGS.items():
+        for name in EVAL_RECORDS:
             with open(os.path.join(REPO, "docs", "quality_records", EVAL_RECORDS[name])) as f:
                 record = json.load(f)
             rec = record["rows"]["synthetic"]
             args = record["args"]
-            if not (args["pairs"] == EVAL_PAIRS and args["max_keypoints"] == total
-                    and args["compact_to"] == config["compact_to"]
-                    and bool(args["upsample"]) == config["upsample"]
-                    and record["skip"]["synthetic"] == 0.0):
-                raise AssertionError(f"eval {name}: the record's settings {args} differ")
-            variables = e2e_variables if name == "dense_gray" else sift_variables
-            m = fused.FusedMatching({**EVAL_COMMON, **config}, variables=variables,
-                                    car_variables=e2e_car if name == "dense_gray" else None,
-                                    total_keypoints=total, device=DEVICE)
-            rc = m.resolved_config()
-            want = {k: v for k, v in record["resolved_config"]["agc"].items()
-                    if k in ("agc_impl", "band_halfwidth", "threshold_impl", "threshold_stride",
-                             "reconnect_impl", "reconnect_buckets", "cc_impl", "cc_rounds")}
-            got = {k: rc["agc"][k] for k in want}
-            if got != want or rc["frontend"]["topk_impl"] != "approx" \
-                    or rc["compact_to"] != config["compact_to"]:
-                raise AssertionError(f"eval {name}: FusedMatching {rc} against the record's "
-                                     f"{record['resolved_config']}")
-            matcher = FusedAsMatching(m, gray=name == "dense_gray")
+            if name == "staged_host":
+                want_args = {"pairs": EVAL_PAIRS, "max_keypoints": 2048,
+                             "sinkhorn_iterations": FUSED_ITERS, "match_threshold": 0.02,
+                             "agc": [15, 2, 7], "descriptor_source": "sift", "detector": "host",
+                             "fused": False, "weights": "weights/gims_tpu_sift_last.npz"}
+                if {k: args.get(k) for k in want_args} != want_args \
+                        or record["skip"]["synthetic"] != 0.0:
+                    raise AssertionError(f"eval {name}: the record's settings {args} differ")
+                m = Matching(EVAL_STAGED_HOST, variables=sift_variables, device=DEVICE)
+                fe, mc = m.frontend.cfg, m.cfg.matcher
+                if (fe.descriptor_source, fe.detector, fe.sift_descriptor, m.max_keypoints,
+                        mc.attention_dtype, mc.use_pallas_sinkhorn) != (
+                            "sift", "host", "host", 2048, "bfloat16", True):
+                    raise AssertionError(f"eval {name}: Matching {fe} {mc}")
+                matcher = TimedMatching(m)
+            else:
+                config, total = EVAL_CONFIGS[name]
+                if not (args["pairs"] == EVAL_PAIRS and args["max_keypoints"] == total
+                        and args["compact_to"] == config["compact_to"]
+                        and bool(args["upsample"]) == config["upsample"]
+                        and record["skip"]["synthetic"] == 0.0):
+                    raise AssertionError(f"eval {name}: the record's settings {args} differ")
+                variables = e2e_variables if name == "dense_gray" else sift_variables
+                m = fused.FusedMatching({**EVAL_COMMON, **config}, variables=variables,
+                                        car_variables=e2e_car if name == "dense_gray" else None,
+                                        total_keypoints=total, device=DEVICE)
+                rc = m.resolved_config()
+                want = {k: v for k, v in record["resolved_config"]["agc"].items()
+                        if k in ("agc_impl", "band_halfwidth", "threshold_impl",
+                                 "threshold_stride", "reconnect_impl", "reconnect_buckets",
+                                 "cc_impl", "cc_rounds")}
+                got = {k: rc["agc"][k] for k in want}
+                if got != want or rc["frontend"]["topk_impl"] != "approx" \
+                        or rc["compact_to"] != config["compact_to"]:
+                    raise AssertionError(f"eval {name}: FusedMatching {rc} against the "
+                                         f"record's {record['resolved_config']}")
+                matcher = FusedAsMatching(m, gray=name == "dense_gray")
             out = os.path.join(tmp, name)
             warm0, warm1, _ = fused_pairs(1, 990, colour=True)
-            matcher({"image0": warm0, "image1": warm1})  # warm-up
+            matcher({"image0": warm0, "image1": warm1, **EVAL_AGC})  # warm-up
             matcher.seconds = 0.0
+            matcher.frontend_seconds = 0.0
             torch.cuda.synchronize()
             reset_counts()
             t = time.perf_counter()
@@ -1391,6 +1500,9 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
                               "ransac_auc": rec["ransac_auc"], "dlt_auc": rec["dlt_auc"],
                               "precision": rec["precision"], "recall": rec["recall"],
                               "skip_share": record["skip"]["synthetic"]}}
+            if name == "staged_host":
+                # the staged frontend (host SIFT on the card, both images)
+                row["frontend_ms_per_pair"] = 1e3 * matcher.frontend_seconds / EVAL_PAIRS
             # precision and recall as the record measured them (TPU ground
             # truth), beside the port's own above
             row["precision_record_gt"], row["recall_record_gt"] = record_gt_scores(out, txt)
@@ -1402,7 +1514,14 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
             if n_lines != EVAL_PAIRS or skipped:
                 raise AssertionError(f"eval {name}: {n_lines} pairs evaluated, skip share "
                                      f"{skipped}")
-            if per_pair != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+            if name == "staged_host":
+                # staged Matching stacks a pair's sides where both fill the
+                # same bucket (one AGC, one trunk call a layer: 18, 1, 1), and
+                # else runs them apart (36, 1, 2)
+                if not staged_launches_ok(launches[name], EVAL_PAIRS):
+                    raise AssertionError(f"eval {name}: launches {launches[name]} over "
+                                         f"{EVAL_PAIRS} pairs")
+            elif per_pair != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
                 raise AssertionError(f"eval {name}: launches per pair {per_pair}")
             if not all(abs(d) <= EVAL_BOUND for d in row["difference_to_record"]):
                 raise AssertionError(f"eval {name}: RANSAC AUC@5/10/25, precision, recall "
@@ -1429,8 +1548,9 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
         print(f"  eval {json.dumps(row)}", flush=True)
         if n_lines != EVAL_STAGED_PAIRS or skipped or len(npz) != 2 * EVAL_STAGED_PAIRS:
             raise AssertionError(f"eval CLI: {row}")
-    phase("15 evaluation (199 generated pairs, fused dense_gray and devsift against the JAX "
-          "records; the CLI with staged Matching on 8)", t0, launches=json.dumps(launches))
+    phase("15 evaluation (199 generated pairs, fused dense_gray, devsift and staged host SIFT "
+          "against the JAX records; the CLI with staged Matching on 8)", t0,
+          launches=json.dumps(launches))
     return launches
 
 
@@ -1635,6 +1755,308 @@ def train_phase():
     return launches
 
 
+def sift_share_within(a, b):
+    """Share of a's keypoints (x, y, size, angle, response, packed octave
+    columns) with a counterpart in b: within 1e-3 px, the same octave and
+    layer bytes, size and response within 1e-4 relative, angle within 0.05
+    degrees (circular)."""
+    pa, sa, aa, ra, oa = a
+    pb, sb, ab, rb, ob = b
+    if len(pa) == 0:
+        return 1.0
+    order = np.argsort(pb[:, 0], kind="stable")
+    xs = pb[order, 0]
+    lo = np.searchsorted(xs, pa[:, 0] - 1e-3, "left")
+    hi = np.searchsorted(xs, pa[:, 0] + 1e-3, "right")
+    ok = 0
+    for i in range(len(pa)):
+        for j in order[lo[i]:hi[i]]:
+            da = abs((float(aa[i]) - float(ab[j]) + 180.0) % 360.0 - 180.0)
+            if (abs(float(pa[i, 1]) - float(pb[j, 1])) <= 1e-3
+                    and (oa[i] & 0xFFFF) == (ob[j] & 0xFFFF) and da <= 0.05
+                    and abs(sb[j] / sa[i] - 1) <= 1e-4
+                    and abs(rb[j] - ra[i]) <= 1e-4 * max(abs(float(ra[i])), 1e-12)):
+                ok += 1
+                break
+    return ok / len(pa)
+
+
+def host_sift_phase(variables):
+    """OpenCV's SIFT as the port computes it (frontend/sift.py) on the card
+    against the CPU on the same images; staged Matching with host SIFT
+    detection and descriptors at 2048 keypoints; Matching at the JAX
+    defaults."""
+    t0 = time.perf_counter()
+    cfg = FrontendConfig()
+    if (cfg.detector, cfg.sift_descriptor, cfg.contrast_threshold, cfg.edge_threshold,
+            cfg.sigma, cfg.n_octave_layers) != ("host", "host", 0.001, 80.0, 1.6, 3):
+        raise AssertionError(f"host SIFT: FrontendConfig defaults {cfg}")
+    card, cpu = sift.make_sift(cfg, DEVICE), sift.make_sift(cfg, "cpu")
+    images = [im for seed in HOST_SIFT_SEEDS
+              for im in synthetic_image_pair(seed, FUSED_FRAME, colour=True)[:2]]
+    card.compute_device(images[0], sift.filter_top_responses(
+        card.detect(images[0]), HOST_SIFT_KEYPOINTS))  # warm-up
+    rows = []
+    for i, img in enumerate(images):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kp, packed, gauss = card.detect_raw(img)
+        torch.cuda.synchronize()
+        det_ms = 1e3 * (time.perf_counter() - t)
+        top_card = sift.filter_top_responses(kp, HOST_SIFT_KEYPOINTS)
+        t = time.perf_counter()
+        desc_card = card.compute_device(img, top_card, gauss)
+        torch.cuda.synchronize()
+        desc_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        kp_cpu, packed_cpu, _ = cpu.detect_raw(img)
+        cpu_s = time.perf_counter() - t
+        cols = (kp.pt, kp.size, kp.angle, kp.response, packed)
+        cols_cpu = (kp_cpu.pt, kp_cpu.size, kp_cpu.angle, kp_cpu.response, packed_cpu)
+        share_card, share_cpu = sift_share_within(cols, cols_cpu), sift_share_within(cols_cpu, cols)
+        # the same keypoints (the CPU's strongest) described on both devices
+        top = sift.filter_top_responses(kp_cpu, HOST_SIFT_KEYPOINTS)
+        d_card = card.compute(img, top).astype(np.int64)
+        d_cpu = cpu.compute(img, top).astype(np.int64)
+        within = float((np.abs(d_card - d_cpu) <= 1).mean())
+        cos = (d_card * d_cpu).sum(1) / np.maximum(
+            np.linalg.norm(d_card, axis=1) * np.linalg.norm(d_cpu, axis=1), 1e-9)
+        row = {"image": i, "keypoints_card": len(kp), "keypoints_cpu": len(kp_cpu),
+               "detect_ms": det_ms, "describe_ms_2048": desc_ms, "cpu_detect_s": cpu_s,
+               "share_card_in_cpu": share_card, "share_cpu_in_card": share_cpu,
+               "same_points_and_octaves": bool(len(kp) == len(kp_cpu) and np.array_equal(
+                   kp.pt, kp_cpu.pt) and np.array_equal(packed, packed_cpu)),
+               "descriptor_bytes_within_1": within,
+               "descriptor_bytes_equal": float((d_card == d_cpu).mean()),
+               "min_cosine": float(cos.min()),
+               "described": int(desc_card.shape[0])}
+        print(f"  host sift {json.dumps(row)}", flush=True)
+        rows.append(row)
+        if not (share_card >= 0.98 and share_cpu >= 0.98 and within >= 0.99
+                and cos.min() >= 0.99 and desc_card.shape == (len(top_card), 128)):
+            raise AssertionError(f"host SIFT on the card against the CPU: {row}")
+    profiled(lambda: sift.detect_and_describe_device(images[0], cfg, HOST_SIFT_KEYPOINTS,
+                                                     device=DEVICE),
+             HOST_SIFT_STAGES, "host SIFT one image", "host sift stages")
+    summary = {"detect_ms_per_image": [r["detect_ms"] for r in rows],
+               "describe_ms_per_image": [r["describe_ms_2048"] for r in rows],
+               "keypoints_per_image": [r["keypoints_card"] for r in rows]}
+    print(f"  host sift summary {json.dumps(summary)}", flush=True)
+
+    # staged Matching, host SIFT detection and descriptors, 2048 keypoints
+    m = Matching(HOST_STAGED_CONFIG, variables=variables, device=DEVICE)
+    fe = m.frontend.cfg
+    if (fe.descriptor_source, fe.detector, fe.sift_descriptor, m.max_keypoints) != (
+            "sift", "host", "host", HOST_SIFT_KEYPOINTS):
+        raise AssertionError(f"host staged configuration: {fe}")
+    pairs = [synthetic_image_pair(620 + i, FUSED_FRAME) for i in range(HOST_STAGED_PAIRS + 1)]
+    staged_request(m, pairs[0], return_descriptors=False)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    preds, per_request = [], []
+    t = time.perf_counter()
+    with record_labels("host_sift_staged"):
+        for pair in pairs[1:]:
+            feats = m.prepare_features(pair[:2])
+            before = counts()
+            pred = staged_request(m, pair, features=feats, return_descriptors=False)
+            per_request.append({k: v - before[k] for k, v in counts().items()})
+            preds.append((pred, feats, pair[2]))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t
+    launches = counts()
+    n_good = n_all = 0
+    for pred, feats, H in preds:
+        check_request(pred, feats, "host staged")
+        k = int((pred["matches0"][0] >= 0).sum())
+        if k <= 0:
+            raise AssertionError("host staged: a pair has no matches")
+        share = correct_share(pred, H)
+        n_good += share * k
+        n_all += k
+    info = {"pairs": HOST_STAGED_PAIRS, "ms_per_pair": 1e3 * elapsed / HOST_STAGED_PAIRS,
+            "keypoints_per_image": [p[1]["0"]["n"] for p in preds],
+            "matches_per_pair": n_all / HOST_STAGED_PAIRS, "correct_share": n_good / n_all,
+            "launches": launches, "launches_per_request": per_request[0],
+            "timings_last_pair_s": m.timings}
+    print(f"  host staged {json.dumps(info)}", flush=True)
+    # both sides fill the 2048 bucket: stacked, one AGC and one trunk call a layer
+    want = {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}
+    if any(r != want for r in per_request):
+        raise AssertionError(f"host staged: launches per request {per_request}, expected {want}")
+    if not info["correct_share"] >= 0.5:
+        raise AssertionError(f"host staged: {info['correct_share']} of matches within 3 px < 0.5")
+    del m
+    torch.cuda.empty_cache()
+
+    # Matching at the JAX defaults: carhynet descriptors at host SIFT
+    # keypoints, all of them kept (max_keypoints -1), a random colour CNN
+    m = Matching(variables=variables, device=DEVICE)
+    fe = m.frontend.cfg
+    if (fe.descriptor_source, fe.detector, fe.sift_descriptor, m.max_keypoints) != (
+            "carhynet", "host", "host", -1):
+        raise AssertionError(f"Matching defaults: {fe}")
+    defaults = []
+    for seed in (630, 631):
+        img0, img1, _ = synthetic_image_pair(seed, FUSED_FRAME, colour=True)
+        feats = m.prepare_features((img0, img1))
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        pred = m({"image0": img0, "image1": img1, "features": feats})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        check_request(pred, feats, "Matching defaults")
+        got = counts()
+        defaults.append({"keypoints": [feats["0"]["n"], feats["1"]["n"]], "matcher_ms": ms,
+                         "matches": int((pred["matches0"][0] >= 0).sum()), "launches": got})
+        if not staged_launches_ok(got, 1, int(m.cfg.matcher.use_pallas_sinkhorn)):
+            raise AssertionError(f"Matching defaults: launches {got}")
+    print(f"  matching defaults {json.dumps(defaults)}", flush=True)
+    del m
+    torch.cuda.empty_cache()
+    phase("17 host SIFT on the card vs the CPU; staged Matching host/host (2048, 8 pairs); "
+          "Matching at the JAX defaults (2 pairs)", t0, launches=json.dumps(launches))
+    return launches
+
+
+def classic_train_phase():
+    """The classic trainer at configs/synth_sift.yaml's widths with host
+    SIFT descriptors: 2 epochs of 3 synthetic pairs, 2 validation pairs, one
+    resume; then 5 steps of CAR-HyNet's trainer."""
+    t0 = time.perf_counter()
+    cfg = load_config(CLASSIC_CONFIG)
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend,
+                                                                descriptor_source="sift"))
+    got = {"frame": [cfg.dataset.image_height, cfg.dataset.image_width],
+           "keypoints": cfg.train.max_keypoints, "batch_size": cfg.train.batch_size,
+           "layers": cfg.matcher.num_gnn_layers, "dim": cfg.matcher.descriptor_dim,
+           "attention_dtype": cfg.matcher.attention_dtype,
+           "sinkhorn_iterations": cfg.matcher.sinkhorn_iterations}
+    if got != CLASSIC_WIDTHS:
+        raise AssertionError(f"{CLASSIC_CONFIG}: {got}, expected {CLASSIC_WIDTHS}")
+    print(f"  classic cuts {json.dumps(CLASSIC_CUTS)}, widths as configured {json.dumps(got)}",
+          flush=True)
+    tcfg = dataclasses.replace(cfg.train, num_epochs=CLASSIC_CUTS["num_epochs"],
+                               val_images_count=CLASSIC_CUTS["val_images_count"])
+    cfg = dataclasses.replace(cfg, train=tcfg)
+    steps, vals = [], []
+    real_make, real_test = train_step.make_train_step, train_loop.test_model
+
+    def make_step(*args, **kwargs):
+        inner = real_make(*args, **kwargs)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            before, t = counts(), time.perf_counter()
+            state, metrics = inner(state, batch)
+            torch.cuda.synchronize()
+            after = counts()
+            steps.append({"step": state.step - 1, "ms": 1e3 * (time.perf_counter() - t),
+                          "losses": [float(x) for x in metrics["vec"].tolist()],
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return state, metrics
+
+        return step
+
+    def test_model(matcher, val_dataset, val_count, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, t = counts(), time.perf_counter()
+        res = real_test(matcher, val_dataset, val_count, *args, **kwargs)
+        torch.cuda.synchronize()
+        after, n = counts(), min(val_count, len(val_dataset))
+        vals.append({"pairs": n, "ms_per_pair": 1e3 * (time.perf_counter() - t) / n,
+                     "launches": {k: after[k] - before[k] for k in after},
+                     "weight_score": res["weight_score"]})
+        return res
+
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    train_step.make_train_step, train_loop.test_model = make_step, test_model
+    try:
+        with tempfile.TemporaryDirectory(prefix="gims_classic_") as tmp, record_labels(
+                "classic_train_side", want=lambda mode, edges: not steps, n=2):
+            reset_counts()
+            t = time.perf_counter()
+            state = train_loop.train(cfg, save_dir=os.path.join(tmp, "run"),
+                                     limit=CLASSIC_CUTS["limit"], device=DEVICE,
+                                     log_fn=logs.append)
+            train_s = time.perf_counter() - t
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            weights = os.path.join(tmp, "run", "weights")
+            written = sorted(os.listdir(weights))
+            metrics = [json.loads(line) for line in open(os.path.join(tmp, "run",
+                                                                      "metrics.jsonl"))]
+            steps_before = len(steps)
+            resumed = train_loop.train(
+                dataclasses.replace(cfg, train=dataclasses.replace(tcfg, num_epochs=3)),
+                save_dir=os.path.join(tmp, "run"), limit=CLASSIC_CUTS["limit"],
+                max_steps=state.step + 1, restore_path=os.path.join(weights, "last"),
+                device=DEVICE, log_fn=logs.append)
+    finally:
+        train_step.make_train_step, train_loop.test_model = real_make, real_test
+    n_steps = CLASSIC_CUTS["limit"] * CLASSIC_CUTS["num_epochs"]
+    main_steps = steps[:steps_before]
+    if len(main_steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"classic training: {len(main_steps)} steps, state.step {state.step}")
+    if not (resumed.step == n_steps + 1 and resumed.opt_state["count"] == n_steps + 1):
+        raise AssertionError(f"classic training resume: step {resumed.step}")
+    for name in ("last.pt", "minloss.pt", "last.npz"):
+        if name not in written:
+            raise AssertionError(f"classic training: {name} not written ({written})")
+    for st in steps:
+        if not all(math.isfinite(x) for x in st["losses"]):
+            raise AssertionError(f"classic training: a loss is not finite: {st}")
+        if st["launches"] != {"attention": 0, "sinkhorn": 0, "label_rounds": 2}:
+            raise AssertionError(f"classic training: launches per step {st['launches']}")
+    for v in vals:
+        # Matching with every keypoint kept: a pair's sides may fall in two
+        # buckets and run apart; the config's use_pallas_sinkhorn (false in
+        # synth_sift.yaml, as in the JAX package) picks the plain Sinkhorn
+        if not staged_launches_ok(v["launches"], v["pairs"],
+                                  int(cfg.matcher.use_pallas_sinkhorn)):
+            raise AssertionError(f"classic training validation: launches {v}")
+
+    # CAR-HyNet's trainer on synthetic patch pairs
+    car_logs = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    car_vars = car_train.train_descriptor(steps=DESCRIPTOR_STEPS,
+                                          batch_points=DESCRIPTOR_POINTS, log_every=1,
+                                          log_fn=car_logs.append, device=DEVICE)
+    torch.cuda.synchronize()
+    car_s = time.perf_counter() - t
+    car_losses = [float(line.split("loss=")[1].split()[0]) for line in car_logs]
+    if len(car_losses) != DESCRIPTOR_STEPS or not all(map(math.isfinite, car_losses)):
+        raise AssertionError(f"CAR-HyNet training: losses {car_logs}")
+    if not all(np.all(np.isfinite(v)) for v in _leaves(car_vars)):
+        raise AssertionError("CAR-HyNet training: non-finite variables")
+    info = {"steps": len(main_steps), "ms_per_step": [st["ms"] for st in main_steps],
+            "mean_ms_after_first": sum(st["ms"] for st in main_steps[1:]) / (n_steps - 1),
+            "losses": [st["losses"] for st in main_steps],
+            "batch_ms": [{"data": 1e3 * r["data_time"], "sift": 1e3 * r["preprocess_time"]}
+                         for r in metrics],
+            "max_memory_allocated_gb": peak / 1e9, "train_seconds": train_s,
+            "validation": vals, "written": written, "resumed_step": resumed.step,
+            "launches": launches, "launches_per_step": main_steps[0]["launches"],
+            "descriptor_steps": DESCRIPTOR_STEPS, "descriptor_points": DESCRIPTOR_POINTS,
+            "descriptor_losses": car_losses,
+            "descriptor_ms_per_step": 1e3 * car_s / DESCRIPTOR_STEPS}
+    print(f"  classic train {json.dumps(info)}", flush=True)
+    phase("18 training (the classic trainer at synth_sift widths, 2 epochs of 3 pairs, a "
+          "resume; CAR-HyNet's trainer, 5 steps)", t0, launches=json.dumps(launches))
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def degrees(mode, edges, valid):
     """(B, N) degree of each node of the recorded graphs, 0 where invalid:
     dense rows less the diagonal; band forward plus backward edges; sparse
@@ -1734,7 +2156,7 @@ def kernel_rows(attn, sk, lab, path_launches):
     no_library = ("none: no single PyTorch call computes the Sinkhorn "
                   "iterations' potentials")
     rows = []
-    for suffix, attn_case, sk_case, label_path in (
+    for suffix, attn_case, sk_case, label_path, *dtype in (
             ("", ATTN_CASES[1], SINKHORN_CASES[1], "matching"),
             ("_fused_path", ATTN_CASES[3], SINKHORN_CASES[3], "fused_B"),
             ("_devsift_path", ATTN_CASES[4], SINKHORN_CASES[4], "devsift"),
@@ -1746,9 +2168,19 @@ def kernel_rows(attn, sk, lab, path_launches):
             ("_eval_devsift_path", ATTN_CASES[5], SINKHORN_CASES[5], "eval_devsift"),
             # training: K1 and K2 run in validation (one pair compacted to
             # 3072), the label rounds in the steps and in validation
-            ("_train_path", ATTN_CASES[6], SINKHORN_CASES[6], "train_side0")):
+            ("_train_path", ATTN_CASES[6], SINKHORN_CASES[6], "train_side0"),
+            # staged Matching with host SIFT: one pair at 2048 keypoints,
+            # 20 iterations (phase 15's third row, phase 17)
+            ("_eval_staged_host_path", ATTN_CASES[0], SINKHORN_CASES[7], "eval_staged_host"),
+            ("_host_sift_staged_path", ATTN_CASES[0], SINKHORN_CASES[7], "host_sift_staged"),
+            # the classic trainer: K1 (f32, the config's) and K2 (100
+            # iterations) in validation, whose pairs of 640x480 take bucket
+            # 8192; the label rounds in the steps and in validation
+            ("_classic_train_path", ATTN_CASES[1], SINKHORN_CASES[1], "classic_train_side0",
+             "float32")):
         b, n, m, _ = attn_case
-        a, s = attn[(b, n, m, "bfloat16")], sk[(sk_case[0], len(sk_case[1]))]
+        a = attn[(b, n, m, dtype[0] if dtype else "bfloat16")]
+        s = sk[(sk_case[0], len(sk_case[1]), sk_case[3])]
         c = path_launches[suffix]
         rows += [
             {"name": "masked_attention" + suffix, "route": "cuda",
@@ -1805,6 +2237,10 @@ def main():
     torch.cuda.empty_cache()
     train_launches = train_phase()
     torch.cuda.empty_cache()
+    host_launches = host_sift_phase(load_gims_checkpoint(WEIGHTS))
+    torch.cuda.empty_cache()
+    classic_launches = classic_train_phase()
+    torch.cuda.empty_cache()
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -1815,7 +2251,10 @@ def main():
                                        "_fused_dense_path": colour_launches["dense"],
                                        "_eval_dense_gray_path": eval_launches["dense_gray"],
                                        "_eval_devsift_path": eval_launches["devsift"],
-                                       "_train_path": train_launches})
+                                       "_train_path": train_launches,
+                                       "_eval_staged_host_path": eval_launches["staged_host"],
+                                       "_host_sift_staged_path": host_launches,
+                                       "_classic_train_path": classic_launches})
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

@@ -76,9 +76,11 @@ class Matching:
 
     The frontend defaults are the JAX package's: descriptor_source
     "carhynet" with detector "host", OpenCV's SIFT detector, which the port
-    does not have. An image request with those defaults raises
-    NotImplementedError; pass ``detector="device"`` (and, for
-    ``descriptor_source="sift"``, ``sift_descriptor="device"``).
+    runs as PyTorch ops on the frontend's device (``frontend/sift.py``);
+    ``descriptor_source="sift"`` describes with OpenCV's SIFT descriptor
+    there too (``sift_descriptor="host"``). ``detector="device"`` and
+    ``sift_descriptor="device"`` take the device DoG detector and the
+    sampled-grid SIFT descriptor instead.
 
     AGC knobs: the port honours every field of ``GIMSConfig.agc``
     (``agc_impl``, ``threshold_impl``, ``cc_impl``, ``cc_rounds``,
@@ -208,8 +210,8 @@ class Matching:
         returns the dict to pass as data["features"]. The two sides run one
         after the other. The JAX package runs them on two threads so that
         one host OpenCV detection hides behind the other; the port detects
-        on the card, where two threads only contend for the GIL and the one
-        stream."""
+        on the card (host SIFT included), where two threads only contend for
+        the GIL and the one stream."""
         return {"0": self._features(pair[0]), "1": self._features(pair[1])}
 
     def _compact(self, out, f0, f1, return_desc):

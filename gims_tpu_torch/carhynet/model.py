@@ -1,4 +1,4 @@
-"""CAR-HyNet descriptor CNN as torch modules (NCHW), inference only.
+"""CAR-HyNet descriptor CNN as torch modules (NCHW).
 
 Port of ``gims_tpu/carhynet/model.py`` (reference: carhynet/models.py:
 311-399): FRN/TLU filter response normalization, coordinate attention and
@@ -12,11 +12,23 @@ Padding follows the flax model: symmetric ((k-1)//2 on every side) for the
 which ``padding=`` cannot express, so it is an explicit ``F.pad``. The
 statistics of FRN and CoordAtt are per sample and channel over the whole
 map, accumulated in f32 when the network runs in bf16.
+
+``forward(x, train=True, generator=...)`` is flax's ``apply(..., train=True,
+mutable=["batch_stats"])``: every BatchNorm normalizes by the batch's mean and
+its variance E[x^2] - E[x]^2 (clipped at 0, flax's fast variance) and moves
+its running statistics by momentum 0.9 (biased variance, as flax keeps it),
+in place, in the order the forward reaches them; the dropout before the
+head keeps each value with probability 1 - drop_rate, drawn from the
+caller's ``torch.Generator``, and scales the kept ones by 1 / (1 -
+drop_rate). It returns (descriptors, raw head outputs), as flax's train
+mode does. Without ``train`` the module is the inference network, whatever
+``nn.Module.training`` says.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -57,12 +69,15 @@ class TLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm with flax's arithmetic:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    """Batch norm with flax's arithmetic:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias; the running statistics
+    in inference, the batch's (and a running update) with ``train``."""
 
-    def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5):
+    def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -71,11 +86,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x, train: bool = False):
+        mean, var = self.running_mean, self.running_var
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - _chan(self.running_mean, x)) * _chan(mul, x)
+        y = (x - _chan(mean, x)) * _chan(mul, x)
         if self.bias is not None:
             y = y + _chan(self.bias, x)
         return y
@@ -104,12 +128,12 @@ class CoordAtt(nn.Module):
         self.conv_h = nn.Conv2d(mip, oup, 1, bias=True)
         self.conv_w = nn.Conv2d(mip, oup, 1, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         h = x.shape[2]
         x_h = x.mean(dim=3, keepdim=True, dtype=torch.float32).to(x.dtype)  # (B, C, H, 1)
         x_w = x.mean(dim=2, keepdim=True, dtype=torch.float32).to(x.dtype)  # (B, C, 1, W)
         y = torch.cat([x_h, x_w.transpose(2, 3)], dim=2)       # (B, C, H+W, 1)
-        y = h_swish(self.bn1(self.conv1(y)))
+        y = h_swish(self.bn1(self.conv1(y), train))
         y_h, y_w = y[:, :, :h], y[:, :, h:].transpose(2, 3)
         a_h = torch.sigmoid(self.conv_h(y_h))
         a_w = torch.sigmoid(self.conv_w(y_w))
@@ -124,8 +148,8 @@ class ConvBNReLU6(nn.Module):
         self.conv = _conv(cin, cout, kernel, stride, groups)
         self.bn = BatchNorm(cout)
 
-    def forward(self, x):
-        return torch.clamp(self.bn(self.conv(x)), 0.0, 6.0)
+    def forward(self, x, train: bool = False):
+        return torch.clamp(self.bn(self.conv(x), train), 0.0, 6.0)
 
 
 def _make_divisible(v, divisor, min_value=None):
@@ -158,10 +182,10 @@ class SandGlass(nn.Module):
         self.dw2 = _conv(oup, oup, 3, stride, groups=oup)
         self.dw2_bn = BatchNorm(oup)
 
-    def forward(self, x):
-        out = self.coord(self.dw1(x))
-        out = self.pw_expand(self.pw_reduce_bn(self.pw_reduce(out)))
-        return x + self.dw2_bn(self.dw2(out))
+    def forward(self, x, train: bool = False):
+        out = self.coord(self.dw1(x, train), train)
+        out = self.pw_expand(self.pw_reduce_bn(self.pw_reduce(out), train), train)
+        return x + self.dw2_bn(self.dw2(out), train)
 
 
 class CARHyNet(nn.Module):
@@ -170,9 +194,11 @@ class CARHyNet(nn.Module):
     (B, ceil(H/4), ceil(W/4), 128) map of L2-normalized descriptors,
     channels last (the layout the keypoint sampler gathers rows from)."""
 
-    def __init__(self, dim_desc: int = 128, dense: bool = False, in_channels: int = 3):
+    def __init__(self, dim_desc: int = 128, dense: bool = False, in_channels: int = 3,
+                 drop_rate: float = 0.2):
         super().__init__()
         self.dense = dense
+        self.drop_rate = drop_rate
         self.in_channels = in_channels
         self.l1_frn_in = FRN(in_channels)
         self.l1_tlu_in = TLU(in_channels)
@@ -201,21 +227,27 @@ class CARHyNet(nn.Module):
         self.l7_conv = nn.Conv2d(128, dim_desc, 8, bias=False)
         self.l7_bn = BatchNorm(dim_desc, affine=False)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         x = self.l1_tlu_in(self.l1_frn_in(x))
-        x = self.l1_tlu(self.l1_coord(self.l1_frn(self.l1_conv(x))))
-        x1 = self.l2_tlu(self.l2_coord(self.l2_frn(self.l2_conv(x))))
-        x = x1 + self.l2_sg(x1)
+        x = self.l1_tlu(self.l1_coord(self.l1_frn(self.l1_conv(x)), train))
+        x1 = self.l2_tlu(self.l2_coord(self.l2_frn(self.l2_conv(x)), train))
+        x = x1 + self.l2_sg(x1, train)
         x = self.l3_tlu(self.l3_frn(self.l3_conv(x)))
         x1 = self.l4_tlu(self.l4_frn(self.l4_conv(x)))
-        x = x1 + self.l4_sg(x1)
+        x = x1 + self.l4_sg(x1, train)
         x = self.l5_tlu(self.l5_frn(self.l5_conv(x)))
         x = self.l6_tlu(self.l6_frn(self.l6_conv(x)))
+        if train and self.drop_rate > 0:
+            keep = 1.0 - self.drop_rate
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = torch.where(mask, x / keep, torch.zeros_like(x))
         if self.dense:
             x = F.pad(x, (3, 4, 3, 4))  # SAME for an 8x8 kernel: 3 before, 4 after
-        x = self.l7_bn(self.l7_conv(x)).float()
+        raw = self.l7_bn(self.l7_conv(x), train).float()
         if self.dense:
-            x = x.permute(0, 2, 3, 1)
-            return x / torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True) + EPS_L2_NORM)
-        x = x.reshape(x.shape[0], -1)
-        return x / torch.sqrt(torch.sum(x * x, dim=1, keepdim=True) + EPS_L2_NORM)
+            raw = raw.permute(0, 2, 3, 1)
+            x = raw / torch.sqrt(torch.sum(raw * raw, dim=-1, keepdim=True) + EPS_L2_NORM)
+        else:
+            raw = raw.reshape(raw.shape[0], -1)
+            x = raw / torch.sqrt(torch.sum(raw * raw, dim=1, keepdim=True) + EPS_L2_NORM)
+        return (x, raw) if train else x

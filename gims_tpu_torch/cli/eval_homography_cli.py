@@ -2,14 +2,14 @@
 ``gims_tpu/cli/eval_homography_cli.py`` (reference eval_homography.py:108-125),
 plus ``--detector`` and ``--sift_descriptor`` (the choices of
 ``scripts/quality_eval.py``) and ``--device``. The JAX defaults
-(``--detector host``, ``--sift_descriptor host``) need OpenCV's SIFT,
-which the port does not have: pass ``--detector device`` (and, with
-``--descriptor_source sift``, ``--sift_descriptor device``). ``--save_viz``
+(``--detector host``, ``--sift_descriptor host``) run OpenCV's SIFT as the
+port computes it, on the device (``frontend/sift.py``); ``device`` takes
+the DoG detector and the sampled-grid SIFT descriptor. ``--save_viz``
 raises (OpenCV drawing). Runs on ``cuda`` unless ``--device cpu``.
 
     python -m gims_tpu_torch.cli.eval_homography_cli --generate 8 --fast \\
         --weights_path weights/gims_tpu_sift_last.npz --descriptor_source sift \\
-        --detector device --sift_descriptor device --max_keypoints 6144
+        --max_keypoints 2048
 """
 
 from __future__ import annotations
@@ -55,11 +55,12 @@ def build_parser():
     parser.add_argument("--descriptor_source", type=str, default="carhynet",
                         choices=["carhynet", "sift", "dense", "dense_gray"])
     parser.add_argument("--detector", default="host", choices=["host", "device"],
-                        help="keypoint detector: host OpenCV SIFT (not ported: raises) "
-                             "or the DoG detector on the device")
+                        help="keypoint detector: OpenCV's SIFT (computed by the port, "
+                             "on the device) or the device DoG detector")
     parser.add_argument("--sift_descriptor", default="host", choices=["host", "device"],
-                        help="--detector device with --descriptor_source sift: host "
-                             "OpenCV SIFT.compute (not ported: raises) or on the device")
+                        help="--descriptor_source sift: OpenCV's SIFT descriptor "
+                             "(computed by the port, on the device) or the sampled-grid "
+                             "device descriptor")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda)")
     return parser

@@ -1,14 +1,13 @@
 """Match-count eval CLI — the flags of the JAX package's
 ``gims_tpu/cli/eval_matches_cli.py`` (reference eval_matches.py __main__),
 plus ``--descriptor_source``, ``--detector``, ``--sift_descriptor`` and
-``--device`` as in ``eval_homography_cli``: the JAX defaults need OpenCV's
-SIFT, which the port does not have. Inliers are counted by the port's
+``--device`` as in ``eval_homography_cli``: the JAX defaults run OpenCV's
+SIFT as the port computes it (``frontend/sift.py``). Inliers are counted by the port's
 RANSAC in place of OpenCV's USAC. ``--save_match`` raises (OpenCV
 drawing). Images are PNG.
 
     python -m gims_tpu_torch.cli.eval_matches_cli --image0 a.png --image1 'dir/*.png' \\
-        --weights_path weights/gims_tpu_sift_last.npz --descriptor_source sift \\
-        --detector device --sift_descriptor device
+        --weights_path weights/gims_tpu_sift_last.npz --descriptor_source sift
 """
 
 from __future__ import annotations

@@ -3,11 +3,14 @@
 
     python -m gims_tpu_torch.cli.train_cli --config_path configs/e2e_fo0_800.yaml \
         --fused_e2e --init_weights weights/gims_tpu_dense_gray_e2e.npz
+    python -m gims_tpu_torch.cli.train_cli --config_path configs/synth_sift.yaml \
+        --descriptor_source sift
 
-Runs on ``cuda`` unless ``--device cpu``. What the port does not have yet
-raises NotImplementedError naming its ROADMAP.md item: ``--devices`` above
-1 and ``--coordinator`` (multi-device), and training without
-``--fused_e2e`` (the classic trainer's host SIFT).
+The second is the classic trainer: OpenCV's SIFT as the port computes it
+(``frontend/sift.py``), on the device, feeds the matcher. Runs on ``cuda``
+unless ``--device cpu``. What the port does not have yet raises
+NotImplementedError naming its ROADMAP.md item: ``--devices`` above 1 and
+``--coordinator`` (multi-device).
 """
 
 from __future__ import annotations

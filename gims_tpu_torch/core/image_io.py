@@ -1,13 +1,17 @@
-"""PNG reading and writing with the standard library's zlib and numpy.
+"""PNG reading and writing with the standard library's zlib and numpy, and
+uncompressed BMP reading.
 
 The port's counterpart of ``cv2.imread`` / ``cv2.imwrite`` for the files
 the evaluation reads and writes: 8-bit, non-interlaced PNG of colour type
 0 (gray), 2 (RGB) or 6 (RGBA), every row filter. ``IMREAD_COLOR`` gives
 (H, W, 3) BGR uint8 (alpha dropped, gray replicated), ``IMREAD_GRAYSCALE``
-(H, W) uint8, converted as libpng converts for OpenCV. Other files (JPEG,
-16-bit, palette, interlaced) raise ``NotImplementedError``: they need
-OpenCV's decoders (``ROADMAP.md`` §1, JPEG decoding). ``imwrite`` writes
-filter 0 (none) at zlib level 1, OpenCV's default PNG compression.
+(H, W) uint8, converted as libpng converts for OpenCV. ``imread`` also
+reads uncompressed BMP of 8 bits (a palette) or 24 bits, as OpenCV's BMP
+decoder does (the UBC patch montages): rows bottom-up or top-down, a gray
+conversion in OpenCV's 14-bit fixed point. Other files (JPEG, 16-bit,
+palette PNG, interlaced, compressed BMP) raise ``NotImplementedError``:
+they need OpenCV's decoders (``ROADMAP.md`` §1, JPEG decoding). ``imwrite``
+writes PNG, filter 0 (none) at zlib level 1, OpenCV's default compression.
 """
 
 from __future__ import annotations
@@ -139,12 +143,56 @@ def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     return np.ascontiguousarray(px[..., 2::-1])  # RGB(A) -> BGR, alpha dropped
 
 
+def _bgr_to_gray_bmp(bgr):
+    """OpenCV's icvCvt_BGR2Gray_8u_C3C1R: 14-bit weights, rounded."""
+    x = bgr.astype(np.int32)
+    return ((1868 * x[..., 0] + 9617 * x[..., 1] + 4899 * x[..., 2] + (1 << 13)) >> 14
+            ).astype(np.uint8)
+
+
+def decode_bmp(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """`imread` on the bytes of an uncompressed 8-bit (palette) or 24-bit BMP."""
+    if not data.startswith(b"BM"):
+        raise ValueError("not a BMP file")
+    offset = struct.unpack("<I", data[10:14])[0]
+    hsize = struct.unpack("<I", data[14:18])[0]
+    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+    if bpp not in (8, 24) or comp != 0:
+        raise NotImplementedError(f"BMP of {bpp} bits, compression {comp}: only "
+                                  f"uncompressed 8- and 24-bit are decoded here; this file "
+                                  f"{_NEEDS_OPENCV}")
+    rows, width = abs(h), w
+    stride = (width * bpp // 8 + 3) & ~3
+    raw = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if h > 0:
+        raw = raw[::-1]  # bottom-up rows
+    if bpp == 24:
+        bgr = raw[:, :width * 3].reshape(rows, width, 3)
+    else:
+        n_pal = struct.unpack("<I", data[46:50])[0] if hsize >= 40 else 0
+        pal = np.frombuffer(data, np.uint8, 4 * (n_pal or 256), 14 + hsize).reshape(-1, 4)
+        pal = np.concatenate([pal, np.zeros((256 - len(pal), 4), np.uint8)])[:, :3]
+        idx = raw[:, :width]
+        if flags == IMREAD_GRAYSCALE:
+            return np.ascontiguousarray(_bgr_to_gray_bmp(pal)[idx])
+        bgr = pal[idx]
+    if flags == IMREAD_GRAYSCALE:
+        return _bgr_to_gray_bmp(bgr)
+    if flags != IMREAD_COLOR:
+        raise NotImplementedError(f"imread flags {flags}: only IMREAD_COLOR and "
+                                  "IMREAD_GRAYSCALE are ported")
+    return np.ascontiguousarray(bgr)
+
+
 def imread(path, flags: int = IMREAD_COLOR):
-    """``cv2.imread`` for PNG: None when the file cannot be read."""
+    """``cv2.imread`` for PNG and uncompressed BMP: None when the file cannot
+    be read."""
     try:
         data = Path(path).read_bytes()
     except OSError:
         return None
+    if data.startswith(b"BM"):
+        return decode_bmp(data, flags)
     return decode_png(data, flags)
 
 

@@ -12,6 +12,9 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
 - ``resize``: ``cv2.resize``, INTER_LINEAR (the default), INTER_CUBIC or
   INTER_AREA, on uint8, with OpenCV's half-pixel centres, replicated
   borders and 11-bit fixed-point weights. The same size returns a copy.
+  On float32, INTER_LINEAR with OpenCV's float weights (a horizontal then a
+  vertical pass, as OpenCV's float code sums them), and a shrink by exactly
+  2 on both axes as OpenCV takes it, the mean of each 2x2 block.
   INTER_AREA shrinks by OpenCV's area weights (the mean of each 2x2 block
   rounded half up at a factor of 2, other integer factors rounded to
   nearest even, fractional factors by OpenCV's float cell weights, here
@@ -29,6 +32,12 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
 - ``filter2d``: ``cv2.filter2D(img, -1, kernel)`` on float32 images, the
   kernel anchored at its centre, reflect-101 borders; the nonzero taps are
   summed in float32 in row-major order, as OpenCV's direct filter sums them.
+- ``warp_affine``: ``cv2.warpAffine(img, M, (w, h))`` on float32 images,
+  INTER_LINEAR, BORDER_CONSTANT 0, as OpenCV 5 computes it for float: the
+  inverse map in float32 (x M00 + (y M01 + M02) as one fused multiply-add),
+  then two horizontal and one vertical lerp, each a fused multiply-add;
+  equal to OpenCV's to the bit on the tested images.
+- ``get_rotation_matrix_2d``: ``cv2.getRotationMatrix2D``, in float64.
 - ``bgr_to_gray``: ``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` on uint8.
 - ``perspective_transform``: ``cv2.perspectiveTransform`` on float32
   points, float32 out.
@@ -186,8 +195,12 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
     if interpolation not in (INTER_LINEAR, INTER_CUBIC, INTER_AREA):
         raise NotImplementedError(f"resize interpolation {interpolation}: only INTER_LINEAR, "
                                   "INTER_CUBIC and INTER_AREA are ported; others need OpenCV")
+    if src.dtype == np.float32 and interpolation == INTER_LINEAR:
+        out = _resize_linear_f32(src, w, h)
+        return out[..., 0] if flat else out
     if src.dtype != np.uint8:
-        raise NotImplementedError(f"resize of {src.dtype}: only uint8 is ported")
+        raise NotImplementedError(f"resize of {src.dtype}: only uint8, and float32 with "
+                                  "INTER_LINEAR, are ported")
     area_mode = interpolation == INTER_AREA
     if area_mode:
         if w <= src.shape[1] and h <= src.shape[0]:
@@ -215,6 +228,76 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
             acc = taps[:, k].astype(np.float32) * scaled[:, k, None, None] + acc
         out = np.rint(acc)
     out = np.clip(out, 0, 255).astype(np.uint8)
+    return out[..., 0] if flat else out
+
+
+def _resize_linear_f32(src, w, h):
+    """INTER_LINEAR of a float32 (H, W, C) image."""
+    h_in, w_in = src.shape[:2]
+    if w_in == 2 * w and h_in == 2 * h:
+        # OpenCV takes an exact 2x shrink as INTER_AREA: ((a + b) + (c + d)) / 4
+        s = src[:2 * h, :2 * w]
+        tl, tr, bl, br = s[0::2, 0::2], s[0::2, 1::2], s[1::2, 0::2], s[1::2, 1::2]
+        return (((tl + tr) + (bl + br)) * np.float32(0.25)).astype(np.float32)
+    xi, xw = _axis_taps(w, w_in, INTER_LINEAR)
+    yi, yw = _axis_taps(h, h_in, INTER_LINEAR)
+    rows = src[:, xi[:, 0]] * xw[None, :, 0, None] + src[:, xi[:, 1]] * xw[None, :, 1, None]
+    out = rows[yi[:, 0]] * yw[:, 0, None, None] + rows[yi[:, 1]] * yw[:, 1, None, None]
+    return out.astype(np.float32)
+
+
+def get_rotation_matrix_2d(center, angle, scale):
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: (2, 3) float64."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def _invert_affine(m):
+    """``cv2.invertAffineTransform`` in float64."""
+    m = np.asarray(m, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[1, 1] * d, m[0, 0] * d, -m[0, 1] * d, -m[1, 0] * d
+    b1 = -a11 * m[0, 2] - a12 * m[1, 2]
+    b2 = -a21 * m[0, 2] - a22 * m[1, 2]
+    return np.array([[a11, a12, b1], [a21, a22, b2]])
+
+
+def _fmaf(a, b, c):
+    """fmaf of float32 arrays: the float32 product is exact in float64."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_affine(img, M, dsize):
+    """``cv2.warpAffine(img, M, (w, h))``: INTER_LINEAR, border 0, float32."""
+    src, flat = _as_hwc(img)
+    if src.dtype != np.float32:
+        raise NotImplementedError(f"warp_affine of {src.dtype}: only float32 is ported")
+    h_in, w_in, _ = src.shape
+    w, h = dsize
+    m = _invert_affine(M).astype(np.float32)
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    sx = _fmaf(m[0, 0], xs, m[0, 1] * ys + m[0, 2])
+    sy = _fmaf(m[1, 0], xs, m[1, 1] * ys + m[1, 2])
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy < h_in) & (xx >= 0) & (xx < w_in)
+        v = src[np.clip(yy, 0, h_in - 1), np.clip(xx, 0, w_in - 1)]
+        return np.where(ok[..., None], v, np.float32(0))
+
+    p00, p01 = tap(y0, x0), tap(y0, x0 + 1)
+    p10, p11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    r0 = _fmaf(fx, p01 - p00, p00)
+    r1 = _fmaf(fx, p11 - p10, p10)
+    out = _fmaf(fy, r1 - r0, r0)
     return out[..., 0] if flat else out
 
 

@@ -12,10 +12,15 @@ utils/common.py:891, torch.cat([d, d], dim=1)):
   "sift" with ``sift_descriptor="device"``: SIFT descriptors from the
     detection pyramid's gradients (``frontend/sift_descriptor.py``).
 
-The keypoints come from the device DoG detector (``detector="device"``).
-The JAX package's defaults, ``detector="host"`` and
-``sift_descriptor="host"``, run OpenCV's SIFT on the host; the port has no
-OpenCV, so they raise (``frontend/sift.py``).
+The keypoints come from OpenCV's SIFT detector (``detector="host"``, the
+JAX package's default), here ``frontend/sift.py``'s cv2-free SIFT on the
+frontend's device, or from the device DoG detector (``detector="device"``).
+``descriptor_source="sift"`` with ``sift_descriptor="host"`` (the default)
+describes with OpenCV's ``calcSIFTDescriptor`` (``frontend/sift.py``): at
+host-detected keypoints in the same pass, or at device-detected ones, as
+the JAX package's ``arrays_to_keypoints`` then ``compute``. A train-time
+top-up (``train_topup=True``) takes the host detector whatever the knob
+says, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from gims_tpu_torch.carhynet.engine import DescriptorEngine
 from gims_tpu_torch.config import FrontendConfig
 from gims_tpu_torch.core.bucketing import DEFAULT_BUCKETS, bucket_size
 from gims_tpu_torch.core.device import resolve_device
-from gims_tpu_torch.frontend.sift import OPENCV_TODO
+from gims_tpu_torch.frontend import sift as sift_mod
 from gims_tpu_torch.frontend.patches import extract_patches_device
 from gims_tpu_torch.frontend.pyramid import pyramid_from_uint8
 
@@ -83,15 +88,6 @@ class FeatureFrontend:
                 weights_from=self.engine.model)
         self.timings = {}
 
-    def _check(self, train_topup: bool):
-        if self.cfg.detector != "device":
-            raise NotImplementedError(f"detector={self.cfg.detector!r} {OPENCV_TODO}")
-        if train_topup:
-            raise NotImplementedError(f"train_topup (random top-up keypoints) {OPENCV_TODO}")
-        if self.cfg.descriptor_source == "sift" and self.cfg.sift_descriptor != "device":
-            raise NotImplementedError(
-                f"sift_descriptor={self.cfg.sift_descriptor!r} {OPENCV_TODO}")
-
     def extract(self, image_bgr: np.ndarray, max_keypoints: Optional[int] = None,
                 train_topup: bool = False, rng=None):
         """image_bgr: (H, W, 3) uint8. Returns host arrays: keypoints (N, 2)
@@ -116,20 +112,37 @@ class FeatureFrontend:
         the last image, as in the JAX package."""
         from gims_tpu_torch.frontend.detect_device import detect_device, gray_pyramid
 
-        self._check(train_topup)
         t0 = time.perf_counter()
         cfg = self.cfg
-        mk = max_keypoints if max_keypoints and max_keypoints > 0 else (bucket or 12288)
+        sift_src = cfg.descriptor_source == "sift"
+        device_detect = cfg.detector == "device" and not train_topup
+        sift_desc = None     # (N, 128) uint8 OpenCV-SIFT descriptors on the device
         with record_function("gims.frontend.detect"):
-            kp, _ = detect_device(image_bgr, mk, cfg.contrast_threshold, cfg.edge_threshold,
-                                  device=self.device)
+            if device_detect:
+                mk = max_keypoints if max_keypoints and max_keypoints > 0 else (bucket or 12288)
+                kp, _ = detect_device(image_bgr, mk, cfg.contrast_threshold,
+                                      cfg.edge_threshold, device=self.device)
+                if sift_src and cfg.sift_descriptor != "device":
+                    sift_desc = sift_mod.make_sift(cfg, self.device).compute_device(
+                        image_bgr, kp)
+            elif sift_src:
+                kp, sift_desc = sift_mod.detect_and_describe_device(
+                    image_bgr, cfg, max_keypoints, train_topup, rng, self.device)
+            else:
+                kp = sift_mod.detect(image_bgr, cfg, max_keypoints, train_topup, rng,
+                                     self.device)
         n = len(kp)
         nb = bucket if bucket is not None else bucket_size(n, DEFAULT_BUCKETS)
         if n > nb:
             kp, n = kp.head(nb), nb
+            sift_desc = None if sift_desc is None else sift_desc[:nb]
         img = torch.from_numpy(np.ascontiguousarray(image_bgr)).to(self.device)
         t1 = time.perf_counter()
-        if cfg.descriptor_source == "sift":
+        if sift_desc is not None:
+            t2 = time.perf_counter()
+            desc = sift_desc.new_zeros((nb, 128))
+            desc[:n] = sift_desc
+        elif sift_src:
             from gims_tpu_torch.frontend.sift_descriptor import describe_device
 
             with record_function("gims.frontend.pyramid"):
@@ -157,7 +170,7 @@ class FeatureFrontend:
             with record_function("gims.frontend.cnn"):
                 desc = self.engine.compute_device(patches)
         # 128 -> 256 by duplication; SIFT's integer descriptors unit-normed first
-        desc = (_normalize_duplicate(desc) if cfg.descriptor_source == "sift"
+        desc = (_normalize_duplicate(desc) if sift_src
                 else torch.cat([desc, desc], dim=1))
         t3 = time.perf_counter()
 

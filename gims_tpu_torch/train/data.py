@@ -9,13 +9,14 @@ both packages. OpenCV's calls are the port's ``core/imgproc.py``:
 weights in OpenCV, so a few pixels of a warped image differ by one level),
 ``resize`` (INTER_CUBIC, INTER_LINEAR, INTER_AREA), ``gaussian_blur`` and
 ``filter2d``; the port reads PNG only (``core/image_io.py``), so
-``ImageFolderPairDataset`` and ``FixedHomographyDataset`` raise on a JPEG,
-naming the ROADMAP item of its decoder. ``CocoPairDataset`` is not ported
-(the repo holds no COCO).
+``CocoPairDataset``, ``ImageFolderPairDataset`` and
+``FixedHomographyDataset`` raise on a JPEG, naming the ROADMAP item of its
+decoder.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -148,14 +149,50 @@ def apply_photometric(image, rng):
 
 # --- datasets ---
 
-def _read_png(path):
-    from gims_tpu_torch.core.image_io import imread
+def _read_png(path, flags=None):
+    from gims_tpu_torch.core.image_io import IMREAD_COLOR, imread
 
     if not path.lower().endswith(".png"):
         raise NotImplementedError(
             f"{os.path.basename(path)}: the port reads PNG only; a JPEG decoder is "
             "ROADMAP.md section 1 item 4")
-    return imread(path)
+    return imread(path, IMREAD_COLOR if flags is None else flags)
+
+
+class CocoPairDataset:
+    """COCO2017 self-supervised pairs (reference: utils/dataset.py:10-66).
+
+    Parses annotations/instances_{split}2017.json directly (only file names
+    are used), or lists the image directory when the json is absent. Each
+    index draws its pair from its own RandomState, so sample i is the same
+    pair in any order and in both packages."""
+
+    def __init__(self, cfg: DatasetConfig, split="train", limit=-1, color=True, seed=0):
+        self.cfg = cfg
+        self.color = color
+        self.images_path = os.path.join(cfg.dataset_path, f"{split}2017")
+        json_path = os.path.join(cfg.dataset_path, "annotations",
+                                 f"instances_{split}2017.json")
+        if os.path.exists(json_path):
+            with open(json_path) as f:
+                files = [im["file_name"] for im in json.load(f)["images"]]
+        else:
+            files = sorted(os.listdir(self.images_path))
+        if limit and limit > 0:
+            files = files[:limit]
+        self.files = files
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, index):
+        from gims_tpu_torch.core.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE
+
+        image = _read_png(os.path.join(self.images_path, self.files[index]),
+                          IMREAD_COLOR if self.color else IMREAD_GRAYSCALE)
+        rng = np.random.RandomState(self.seed * 100003 + 59 + index)
+        return make_pair(image, self.cfg, rng)
 
 
 class ImageFolderPairDataset:

@@ -1,14 +1,29 @@
 """Training orchestration: the reference train.py:28-186 rebuilt, on one device.
 
-Port of ``gims_tpu/train/loop.py:156-639`` for the fused end-to-end trainer
-(``fused_e2e=True``): per batch the host synthesizes an image pair and its
-homography, and one step (``train/fused_step.py``) detects, describes,
-matches the ground truth and trains the descriptor CNN and the matcher on
-the device. Validation runs the fused inference program
-(``FusedMatching``) with the EMA weights once per epoch. Checkpoint policy
-parity: lastiter every ``lastiter_every`` iterations, minloss on a new
-rolling-mean minimum every ``minloss_every``, last and best per epoch by
-the validation weighted score (reference: train.py:155-184).
+Port of ``gims_tpu/train/loop.py``. Two trainers:
+
+- the classic trainer (``fused_e2e=False``): per batch the host loads or
+  synthesizes image pairs and their homographies; with
+  ``descriptor_source="sift"`` each image is detected and described by
+  OpenCV's SIFT as the port computes it (``frontend/sift.py``, on the
+  device), topped up to exactly ``max_keypoints`` (``build_batch_raw``), and
+  the step normalizes the descriptors and matches the ground truth
+  (``train/step.py``); with another source the feature frontend extracts
+  padded features (host-SIFT keypoints, topped up) and the ground truth is
+  matched per pair (``build_batch``). Only the matcher trains. Validation
+  runs the staged ``Matching`` with the EMA weights;
+- the fused end-to-end trainer (``fused_e2e=True``): one step
+  (``train/fused_step.py``) detects, describes, matches the ground truth and
+  trains the descriptor CNN and the matcher on the device. Validation runs
+  the fused inference program (``FusedMatching``).
+
+Batches come from COCO when ``<dataset_path>/train2017`` exists (PNG files;
+a JPEG raises), else from synthetic pairs. A prefetch worker prepares batch
+i + 1 while the device runs step i, and a side pool of threads extracts the
+images of a batch. Checkpoint policy parity: lastiter every
+``lastiter_every`` iterations, minloss on a new rolling-mean minimum every
+``minloss_every``, last and best per epoch by the validation weighted score
+(reference: train.py:155-184).
 
 Where the port departs from the JAX package:
 - Checkpoints. The JAX package writes orbax checkpoints; the port writes
@@ -18,12 +33,10 @@ Where the port departs from the JAX package:
   and ``restore_train_state`` reads them back. At every ``last`` and
   ``best`` it also exports the EMA weights (the parameters without EMA) in
   the JAX layout: ``<name>.npz`` (the matcher, as
-  ``scripts/export_checkpoint.py --e2e`` writes it) and ``<name>_car.npz``
-  (the CNN), which both packages load.
-- Not ported yet, and raising NotImplementedError: the classic trainer,
-  whose batches come from host OpenCV SIFT (``build_batch``,
-  ``build_batch_raw``; ROADMAP.md section 1 item 4), and more than one
-  device or process (ROADMAP.md section 1 item 2).
+  ``scripts/export_checkpoint.py`` writes it) and, for the fused trainer,
+  ``<name>_car.npz`` (the CNN), which both packages load.
+- Not ported yet, and raising NotImplementedError: more than one device or
+  process (ROADMAP.md section 1 item 2).
 - The loop runs on ``cuda`` unless ``device`` says otherwise. On CUDA each
   step's device time is taken with a pair of CUDA events and written to
   metrics.jsonl as ``step_ms`` (the JAX loop's ``model_time`` is the
@@ -54,27 +67,103 @@ from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.core.imgproc import bgr_to_gray
 from gims_tpu_torch.eval import metrics as M
 from gims_tpu_torch.eval.homography import evaluate_pair
+from gims_tpu_torch.frontend.feature import FeatureFrontend
 from gims_tpu_torch.matcher.convert import load_variables, module_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.train import data as data_mod
 from gims_tpu_torch.train import fused_step as fstep_mod
+from gims_tpu_torch.train import gt as gt_mod
 from gims_tpu_torch.train import step as step_mod
 
-HOST_SIFT = ("the classic trainer's batches come from host OpenCV SIFT, which the port "
-             "does not have yet (ROADMAP.md section 1 item 4); train with fused_e2e=True "
-             "(--fused_e2e)")
 MULTI_DEVICE = ("data-parallel and multi-host training are not ported yet "
                 "(ROADMAP.md section 1 item 2)")
 
 
+def extract_batch(frontend, images, max_keypoints, seeds, pool=None):
+    """images: list of (H, W, 3) uint8 -> stacked padded device tensors
+    (kpts, desc, valid). Each image draws its top-up from its own
+    RandomState (seeded by the caller), so a thread pool may extract the
+    images concurrently."""
+    def one(args):
+        img, seed = args
+        return frontend.extract_padded(img, max_keypoints=max_keypoints, bucket=max_keypoints,
+                                       train_topup=True, rng=np.random.RandomState(seed))
+
+    outs = list((pool.map if pool is not None else map)(one, zip(images, seeds)))
+    return (torch.stack([o["kpts"] for o in outs]), torch.stack([o["desc"] for o in outs]),
+            torch.stack([o["valid"] for o in outs]))
+
+
+def row_seeds(idxs, base_seed: int) -> np.ndarray:
+    """Per-image top-up seeds derived from dataset indices (originals first,
+    then warps: the builders' image order), so cached batches keep the same
+    noise across epochs."""
+    idxs = np.asarray(idxs, np.int64)
+    out = [(base_seed + 1000003 * idxs + 7919 * side) % (2**31 - 1) for side in (0, 1)]
+    return np.concatenate(out).astype(np.int64)
+
+
 def build_batch(frontend, pairs, max_keypoints, rng, pool=None, seeds=None):
-    """The classic trainer's batch (frontend features with host SIFT top-up)."""
-    raise NotImplementedError(HOST_SIFT)
+    """pairs: list of (orig, warped, H) -> the train step's batch: padded
+    keypoints and validity, the 128-d halves of the duplicated descriptors
+    in bf16 (as the JAX package caches them), and each pair's ground-truth
+    rows (reprojection at 3 px)."""
+    origs = [p[0] for p in pairs]
+    warps = [p[1] for p in pairs]
+    if seeds is None:
+        seeds = rng.randint(0, 2**31 - 1, size=2 * len(pairs))
+    half = len(pairs)
+    kp, de, va = extract_batch(frontend, origs + warps, max_keypoints, seeds, pool)
+    hs = torch.from_numpy(np.stack([p[2] for p in pairs]).astype(np.float32)).to(kp.device)
+    rows_list, valid_list = [], []
+    for b in range(half):
+        m0, m1 = gt_mod.find_matches(kp[b], kp[half + b], hs[b], va[b], va[half + b],
+                                     dist_thresh=3.0, n_iters=1)
+        rows, valid = gt_mod.build_gt_rows(m0, m1, va[b], va[half + b], batch_index=0)
+        rows_list.append(rows)
+        valid_list.append(valid)
+    return {"kpts0": kp[:half], "desc0_h": de[:half, :, :128].to(torch.bfloat16),
+            "valid0": va[:half],
+            "kpts1": kp[half:], "desc1_h": de[half:, :, :128].to(torch.bfloat16),
+            "valid1": va[half:],
+            "gt_rows": torch.stack(rows_list), "gt_valid": torch.stack(valid_list)}
 
 
-def build_batch_raw(fe_cfg, pairs, max_keypoints, rng, pool=None, seeds=None):
-    """The classic trainer's raw SIFT batch."""
-    raise NotImplementedError(HOST_SIFT)
+def build_batch_raw(fe_cfg, pairs, max_keypoints, rng, pool=None, seeds=None, device=None):
+    """The raw SIFT batch: each image detected and described by OpenCV's
+    SIFT (``frontend/sift.py``, on `device`) with its top-up, padded to
+    max_keypoints; the step normalizes the descriptors and matches the
+    ground truth from the homographies."""
+    from gims_tpu_torch.frontend.sift import detect_and_describe_device
+
+    dev = resolve_device(device)
+    images = [p[0] for p in pairs] + [p[1] for p in pairs]
+    if seeds is None:
+        seeds = rng.randint(0, 2**31 - 1, size=len(images))
+    nb = max_keypoints
+
+    def one(args):
+        img, seed = args
+        kp, d = detect_and_describe_device(img, fe_cfg, max_keypoints, train_topup=True,
+                                           rng=np.random.RandomState(seed), device=dev)
+        n = min(len(kp), nb)
+        kpts = np.full((nb, 2), 1e6, np.float32)
+        kpts[:n] = kp.pt[:n]
+        du8 = d.new_zeros((nb, 128))
+        du8[:n] = d[:n]
+        valid = np.zeros((nb,), bool)
+        valid[:n] = True
+        return kpts, du8, valid
+
+    outs = list((pool.map if pool is not None else map)(one, zip(images, seeds)))
+    half = len(pairs)
+    kpts = torch.from_numpy(np.stack([o[0] for o in outs])).to(dev)
+    du8 = torch.stack([o[1] for o in outs])
+    valid = torch.from_numpy(np.stack([o[2] for o in outs])).to(dev)
+    hs = np.stack([p[2] for p in pairs]).astype(np.float32)
+    return {"kpts0": kpts[:half], "desc0_u8": du8[:half], "valid0": valid[:half],
+            "kpts1": kpts[half:], "desc1_u8": du8[half:], "valid1": valid[half:],
+            "homography": torch.from_numpy(hs).to(dev)}
 
 
 def test_model(matcher, val_dataset, val_count: int, agc=None, min_matches: int = 12,
@@ -146,19 +235,39 @@ def eval_config(cfg: GIMSConfig) -> dict:
     }
 
 
-def load_eval_weights(fused_eval, state: step_mod.TrainState) -> None:
+def _matcher_from_variables(cfg: GIMSConfig, m_vars):
+    """The classic trainer's module: a GMatcher with f32 parameters."""
+    matcher = GMatcher(cfg.matcher, param_dtype=torch.float32)
+    load_variables(matcher, m_vars)
+    return matcher
+
+
+def _is_joint(state: step_mod.TrainState) -> bool:
+    return isinstance(state.model, torch.nn.ModuleDict)
+
+
+def load_eval_weights(evaluator, state: step_mod.TrainState) -> None:
     """Put the EMA weights (the parameters, without EMA) and the buffers of
-    `state` into a FusedMatching; its modules cast them to their dtypes."""
+    `state` into the validation program: a FusedMatching (the joint model)
+    or a Matching (the matcher); its modules cast them to their dtypes."""
+    if not _is_joint(state):
+        ema = state.ema_params if state.ema_params is not None else state.params
+        evaluator.model.load_state_dict({**dict(state.model.named_buffers()), **ema})
+        return
     ema = fstep_mod.ema_modules(state)
     matcher, car = fstep_mod.split_joint(state.model)
-    fused_eval.model.load_state_dict({**dict(matcher.named_buffers()), **ema["gmatcher"]})
-    fused_eval.car_model.load_state_dict({**dict(car.named_buffers()), **ema["carhynet"]})
+    evaluator.model.load_state_dict({**dict(matcher.named_buffers()), **ema["gmatcher"]})
+    evaluator.car_model.load_state_dict({**dict(car.named_buffers()), **ema["carhynet"]})
 
 
 def export_npz(state: step_mod.TrainState, path: str) -> None:
-    """The EMA weights (the parameters, without EMA) as the JAX layout's
-    joint export pair: `path` (the matcher) and `path` with ``_car`` before
-    ``.npz`` (the CNN)."""
+    """The EMA weights (the parameters, without EMA) in the JAX layout:
+    `path` (the matcher) and, for the joint model, `path` with ``_car``
+    before ``.npz`` (the CNN)."""
+    if not _is_joint(state):
+        ema = state.ema_params if state.ema_params is not None else state.params
+        ckpt_io.save_npz(path, module_variables(state.model, ema))
+        return
     ema = fstep_mod.ema_modules(state)
     matcher, car = fstep_mod.split_joint(state.model)
     ckpt_io.save_npz(path, module_variables(matcher, ema["gmatcher"]))
@@ -223,9 +332,7 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
     """Main loop. Returns the final TrainState."""
     if n_devices > 1 or multihost:
         raise NotImplementedError(MULTI_DEVICE)
-    if not fused_e2e:
-        raise NotImplementedError(HOST_SIFT)
-    if cfg.frontend.descriptor_source != "dense_gray":
+    if fused_e2e and cfg.frontend.descriptor_source != "dense_gray":
         raise ValueError("fused_e2e requires descriptor_source='dense_gray'")
     device = resolve_device(device)
     tcfg = cfg.train
@@ -243,23 +350,38 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
 
     m_vars = init_gmatcher_variables(cfg.matcher, seed=tcfg.init_seed,
                                      scheme=cfg.matcher.init_scheme)
-    car_vars = load_car_checkpoint(carhynet_weights) if carhynet_weights else None
+    car_vars = frontend = None
+    if fused_e2e:
+        car_vars = load_car_checkpoint(carhynet_weights) if carhynet_weights else None
+    else:
+        frontend = FeatureFrontend(cfg.frontend, weights_path=carhynet_weights, device=device)
 
     if train_dataset is None:
-        log_fn("[train] no COCO in the port; using synthetic pairs")
-        train_dataset = data_mod.SyntheticPairDataset(
-            cfg.dataset, length=limit if limit > 0 else 1000, seed=tcfg.init_seed)
+        coco_dir = os.path.join(cfg.dataset.dataset_path, "train2017")
+        if os.path.isdir(coco_dir):
+            train_dataset = data_mod.CocoPairDataset(cfg.dataset, "train", limit=limit,
+                                                     seed=tcfg.init_seed)
+        else:
+            log_fn(f"[train] no COCO at {coco_dir}; using synthetic pairs")
+            train_dataset = data_mod.SyntheticPairDataset(
+                cfg.dataset, length=limit if limit > 0 else 1000, seed=tcfg.init_seed)
     if val_dataset is None:
         val_dataset = data_mod.SyntheticPairDataset(
             cfg.dataset, length=tcfg.val_images_count, seed=999)
 
     bsz = tcfg.batch_size
-    if bsz != 1:
+    if fused_e2e and bsz != 1:
         raise ValueError("fused_e2e uses batch_size=1 per device")
     num_batches = max(len(train_dataset) // bsz, 1)
     start_epoch = tcfg.start_epoch
+
+    def build_model():
+        if fused_e2e:
+            return _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        return _matcher_from_variables(cfg, m_vars).to(device)
+
     if restore_path:
-        model = _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        model = build_model()
         state, tx, r_epoch, r_it = restore_train_state(cfg, restore_path, num_batches, model)
         # iter == -1 marks an end-of-epoch checkpoint (last/best); anything
         # else resumes the same epoch from its start
@@ -275,28 +397,36 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
                       "batch_stats": loaded.get("batch_stats", m_vars.get("batch_stats", {}))}
             car_path = (init_weights[:-4] if init_weights.endswith(".npz")
                         else init_weights) + "_car.npz"
-            if os.path.exists(car_path):
+            if fused_e2e and os.path.exists(car_path):
                 car_vars = load_car_checkpoint(car_path)
                 log_fn(f"[train] CNN warm start from {car_path}")
             log_fn(f"[train] warm start from {init_weights}")
-        model = _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        model = build_model()
         state, tx = step_mod.create_train_state(cfg, model, num_batches)
 
-    from gims_tpu_torch.fused import FusedMatching, octave_budgets
-
     image_shape = (cfg.dataset.image_height, cfg.dataset.image_width)
-    budgets = octave_budgets(*image_shape, tcfg.max_keypoints, cfg.frontend.upsample)
-    freeze_steps = tcfg.freeze_gmatcher_epochs * num_batches
-    if freeze_steps:
-        log_fn(f"[train] matcher frozen for first {freeze_steps} steps "
-               f"({tcfg.freeze_gmatcher_epochs} epochs)")
-    step_fn = fstep_mod.make_fused_e2e_train_step(cfg, tx, image_shape, budgets,
-                                                  freeze_steps=freeze_steps)
-    fused_eval = FusedMatching(eval_config(cfg), variables=m_vars, car_variables=car_vars,
-                               total_keypoints=tcfg.max_keypoints, device=device)
+    if fused_e2e:
+        from gims_tpu_torch.fused import FusedMatching, octave_budgets
 
-    def eval_matcher(data):
-        return fused_eval(data["image0"][0], data["image1"][0])
+        budgets = octave_budgets(*image_shape, tcfg.max_keypoints, cfg.frontend.upsample)
+        freeze_steps = tcfg.freeze_gmatcher_epochs * num_batches
+        if freeze_steps:
+            log_fn(f"[train] matcher frozen for first {freeze_steps} steps "
+                   f"({tcfg.freeze_gmatcher_epochs} epochs)")
+        step_fn = fstep_mod.make_fused_e2e_train_step(cfg, tx, image_shape, budgets,
+                                                      freeze_steps=freeze_steps)
+        evaluator = FusedMatching(eval_config(cfg), variables=m_vars, car_variables=car_vars,
+                                  total_keypoints=tcfg.max_keypoints, device=device)
+
+        def eval_matcher(data):
+            return evaluator(data["image0"][0], data["image1"][0])
+    else:
+        from gims_tpu_torch.api import Matching
+
+        step_fn = step_mod.make_train_step(cfg, tx, image_shape)
+        evaluator = eval_matcher = Matching(cfg, variables=m_vars, frontend=frontend,
+                                            device=device)
+    fused_sift = not fused_e2e and cfg.frontend.descriptor_source == "sift"
 
     best_val_score = 1e-10
     best_min_loss = 1e9
@@ -308,8 +438,9 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
                              "Dtime", "Ptime", "Mtime")
     # the prefetch worker prepares batch i+1 on the host while the device
     # runs step i; it alone touches the dataset and rng, so the data order
-    # stays deterministic
+    # stays deterministic. Inside a batch the side pool extracts the images.
     prefetch = ThreadPoolExecutor(max_workers=1)
+    side_pool = ThreadPoolExecutor(max_workers=max(2, 2 * bsz))
     batch_cache = {} if cache_features else None
     timed = device.type == "cuda"
 
@@ -320,7 +451,15 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
         t1 = time.time()
         pairs = [train_dataset[int(i)] for i in idxs]
         t2 = time.time()
-        batch = build_batch_e2e(pairs, device)
+        seeds = row_seeds(idxs, tcfg.init_seed)
+        if fused_e2e:
+            batch = build_batch_e2e(pairs, device)
+        elif fused_sift:
+            batch = build_batch_raw(cfg.frontend, pairs, tcfg.max_keypoints, rng,
+                                    pool=side_pool, seeds=seeds, device=device)
+        else:
+            batch = build_batch(frontend, pairs, tcfg.max_keypoints, rng, pool=side_pool,
+                                seeds=seeds)
         if batch_cache is not None:
             batch_cache[key] = batch
         return batch, t2 - t1, time.time() - t2
@@ -397,7 +536,7 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
                     break
 
             # per-epoch validation with the EMA (or raw) weights
-            load_eval_weights(fused_eval, state)
+            load_eval_weights(evaluator, state)
             results = test_model(eval_matcher, val_dataset, tcfg.val_images_count,
                                  agc={"radius": cfg.agc.radius,
                                       "percentile": cfg.agc.percentile,
@@ -417,6 +556,7 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
                 break
     finally:
         prefetch.shutdown(wait=True)
+        side_pool.shutdown(wait=True)
         results_file.close()
         metrics_file.close()
     return state

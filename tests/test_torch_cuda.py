@@ -742,3 +742,84 @@ def test_eval_gt_and_ransac_on_card_vs_cpu(cuda):
         ransac.find_homography(src, dst, device=d) for d in ("cuda", "cpu"))
     assert abs(corner_error(h_card) - corner_error(h_cpu)) <= 0.25
     assert (mask_card == mask_cpu).mean() >= 0.98
+
+
+def _sift_cols(kp, packed):
+    return kp.pt, kp.size, kp.angle, kp.response, packed
+
+
+def _share_within(a, b):
+    """Share of a's keypoints with a counterpart in b within the tolerances
+    of tests/test_torch_sift.py: 1e-3 px, the same octave and layer bytes,
+    size and response 1e-4 relative, angle 0.05 degrees."""
+    pa, sa, aa, ra, oa = a
+    pb, sb, ab, rb, ob = b
+    order = np.argsort(pb[:, 0], kind="stable")
+    lo = np.searchsorted(pb[order, 0], pa[:, 0] - 1e-3, "left")
+    hi = np.searchsorted(pb[order, 0], pa[:, 0] + 1e-3, "right")
+    ok = 0
+    for i in range(len(pa)):
+        for j in order[lo[i]:hi[i]]:
+            da = abs((float(aa[i]) - float(ab[j]) + 180.0) % 360.0 - 180.0)
+            if (abs(float(pa[i, 1]) - float(pb[j, 1])) <= 1e-3
+                    and (oa[i] & 0xFFFF) == (ob[j] & 0xFFFF) and da <= 0.05
+                    and abs(sb[j] / sa[i] - 1) <= 1e-4
+                    and abs(rb[j] - ra[i]) <= 1e-4 * max(abs(float(ra[i])), 1e-12)):
+                ok += 1
+                break
+    return ok / max(len(pa), 1)
+
+
+@pytest.mark.parametrize("seed,hw", [(3, (240, 320)), (4, (600, 800))])
+def test_host_sift_card_vs_cpu(cuda, seed, hw):
+    """OpenCV's SIFT as the port computes it (frontend/sift.py) on the card
+    against the CPU, under the tolerances that tests/test_torch_sift.py holds
+    the CPU to OpenCV with: 98% of each side's keypoints matched, 99% of the
+    descriptor bytes within one level, every descriptor at cosine >= 0.99.
+    The pyramids are the same to the bit (IEEE float64 sums); the
+    descriptors' histograms are summed with atomics on the card."""
+    from gims_tpu_torch.frontend import sift
+
+    img = synthetic_image_pair(seed, hw, colour=True)[0]
+    card, cpu = sift.SIFT(3, 0.001, 80, 1.6, device=cuda), sift.SIFT(3, 0.001, 80, 1.6,
+                                                                    device="cpu")
+    kg, pg, gauss = card.detect_raw(img)
+    kc, pc, gauss_cpu = cpu.detect_raw(img)
+    for a, b in zip(gauss, gauss_cpu):
+        assert torch.equal(a.cpu(), b)
+    assert _share_within(_sift_cols(kg, pg), _sift_cols(kc, pc)) >= 0.98
+    assert _share_within(_sift_cols(kc, pc), _sift_cols(kg, pg)) >= 0.98
+    top = sift.filter_top_responses(kc, 2048)
+    dg = card.compute(img, top).astype(np.int64)
+    dc = cpu.compute(img, top).astype(np.int64)
+    assert (np.abs(dg - dc) <= 1).mean() >= 0.99
+    cos = (dg * dc).sum(1) / np.maximum(np.linalg.norm(dg, axis=1) * np.linalg.norm(dc, axis=1),
+                                        1e-9)
+    assert cos.min() >= 0.99
+
+
+def test_matching_host_sift_on_card(cuda):
+    """Staged Matching at host/host (SIFT descriptors, the staged
+    checkpoint, 2048 keypoints, 20 iterations, threshold 0.02): 18 K1, 1 K2
+    and 1 label-rounds launch for a pair whose sides fill the bucket, and at
+    least half of the matches within 3 px of the known homography."""
+    from gims_tpu_torch.agc import labels
+    from gims_tpu_torch.api import Matching
+    from gims_tpu_torch.matcher.convert import load_gims_checkpoint
+    from gims_tpu_torch.synthetic import correct_share
+
+    weights = os.path.join(os.path.dirname(CAR_WEIGHTS), "gims_tpu_sift_last.npz")
+    m = Matching({"descriptor_source": "sift", "max_keypoints": 2048,
+                  "sinkhorn_iterations": 20, "match_threshold": 0.02},
+                 variables=load_gims_checkpoint(weights), device=cuda)
+    assert (m.frontend.cfg.detector, m.frontend.cfg.sift_descriptor) == ("host", "host")
+    img0, img1, H = synthetic_image_pair(12)
+    feats = m.prepare_features((img0, img1))
+    assert feats["0"]["n"] == feats["1"]["n"] == 2048
+    before = (cuda_attention.launches, cuda_sinkhorn.launches, labels.launches)
+    pred = m({"image0": img0, "image1": img1, "radius": 15, "percentile": 2, "min_size": 7,
+              "features": feats})
+    after = (cuda_attention.launches, cuda_sinkhorn.launches, labels.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (18, 1, 1)
+    assert (pred["matches0"] >= 0).sum() > 0
+    assert correct_share(pred, H) >= 0.5

@@ -533,7 +533,8 @@ def test_opencv_only_paths_raise(tmp_path):
     for case in cases:
         with pytest.raises(NotImplementedError, match="OpenCV"):
             case()
-    # the JAX defaults (host SIFT detector) raise on the first image request
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        eval_homography_cli.main(["--input_homography", txt, "--input_dir", images,
-                                  "--output_dir", str(tmp_path / "d"), "--device", "cpu"])
+    # the JAX defaults (OpenCV's SIFT detector, computed by the port) run
+    eval_homography_cli.main(["--input_homography", txt, "--input_dir", images,
+                              "--output_dir", str(tmp_path / "d"), "--device", "cpu",
+                              "--max_keypoints", "128", "--resize", "80", "60"])
+    assert (tmp_path / "d_gims" / "result" / "results.txt").exists()

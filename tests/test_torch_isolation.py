@@ -1,9 +1,10 @@
 """Guards of the GPU run that can be checked on the CPU.
 
 The machine with the card has torch and numpy but no JAX, flax, OpenCV,
-PIL, networkx or scikit-learn, and the port must not import the JAX
+PIL, PyYAML, networkx or scikit-learn, and the port must not import the JAX
 package at all. A fresh interpreter with those imports refused must import
-every module of ``gims_tpu_torch`` and ``chip_smoke``. ``chip_smoke.py``
+every module of ``gims_tpu_torch`` and ``chip_smoke``, and run the port's
+host SIFT (OpenCV's algorithm, without OpenCV). ``chip_smoke.py``
 without a card must exit non-zero and print no result (no CPU fallback).
 The kernels build with nvcc into a plain C library: no PyTorch extension
 headers or builder.
@@ -15,7 +16,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gims_tpu_torch")
-BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "networkx", "sklearn", "gims_tpu"]
+BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "networkx", "sklearn", "gims_tpu"]
 # modules the staged, fused, evaluation and training paths run, each imported with the
 # blocked packages refused
 REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_torch.agc.labels",
@@ -34,7 +35,10 @@ REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_tor
             # the training slice
             "gims_tpu_torch.core.checkpoint", "gims_tpu_torch.train.step",
             "gims_tpu_torch.train.fused_step", "gims_tpu_torch.train.loop",
-            "gims_tpu_torch.cli.train_cli"]
+            "gims_tpu_torch.cli.train_cli",
+            # host SIFT, the classic trainer and CAR-HyNet's trainer
+            "gims_tpu_torch.carhynet.model", "gims_tpu_torch.carhynet.loss",
+            "gims_tpu_torch.carhynet.train"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -58,6 +62,14 @@ for name in names:
 missing = set(%r) - set(names)
 assert not missing, missing
 import chip_smoke
+# OpenCV's SIFT as the port computes it runs with cv2 refused
+import numpy as np
+from gims_tpu_torch.config import FrontendConfig
+from gims_tpu_torch.frontend.sift import detect_and_describe
+img = (np.random.RandomState(0).rand(48, 64, 3) * 255).astype(np.uint8)
+kp, desc = detect_and_describe(img, FrontendConfig(), 64, train_topup=True,
+                               rng=np.random.RandomState(0), device="cpu")
+assert len(kp) == 64 and desc.shape == (64, 128), (len(kp), desc.shape)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names), "modules")

@@ -282,24 +282,45 @@ def test_delaunay_request_matches_jax(weights):
                                   {"descriptor_source": "sift", "sift_descriptor": "host"},
                                   {"train_topup": True}])
 def test_host_opencv_settings_raise(pair, knob):
+    """The host OpenCV settings no longer raise: the port computes OpenCV's
+    SIFT (``frontend/sift.py``). Each runs in the frontend, and its
+    keypoints equal the JAX package's (OpenCV) in the tolerance of
+    ``tests/test_torch_sift.py``: at least 98% of them, index for index,
+    within 1e-3 px; where the SIFT descriptors come from OpenCV's compute,
+    every row at cosine >= 0.99 with JAX's."""
     cfg = {**frontend_cfg("sift" if "sift_descriptor" in knob else "carhynet"), **knob}
     topup = cfg.pop("train_topup", False)
     fe = FeatureFrontend(FrontendConfig(**cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        fe.extract_padded(pair[0], train_topup=topup)
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        tsift.detect(pair[0], FrontendConfig())
+    got = fe.extract_padded(pair[0], max_keypoints=MAX_KP, bucket=MAX_KP, train_topup=topup,
+                            rng=np.random.RandomState(3))
+    if cfg["descriptor_source"] == "sift":
+        jfe = JFeatureFrontend(JFrontendConfig(**cfg))
+        want = jfe.extract_padded(pair[0], max_keypoints=MAX_KP, bucket=MAX_KP)
+        n = want["n"]
+        assert got["n"] == n > 0
+        np.testing.assert_allclose(got["kp"].pt, want["kp"].pt, atol=1e-3, rtol=0)
+        g, w = got["desc"][:n].numpy(), np.asarray(want["desc"])[:n]
+        assert ((g * w).sum(1) / 2).min() >= 0.99   # unit halves duplicated
+        return
+    from gims_tpu.frontend import sift as jsift
+
+    want = jsift.detect(pair[0], JFrontendConfig(**cfg), MAX_KP, topup,
+                        np.random.RandomState(3))
+    assert got["n"] == len(want) > 0
+    same = np.linalg.norm(got["kp"].pt - want.pt, axis=1) <= 1e-3
+    assert same.mean() >= 0.98
 
 
 def test_matching_defaults_follow_jax(pair):
     """The JAX package's defaults stay the defaults: CAR-HyNet patches
-    behind the host detector, so a bare image request raises; the config
-    keys replace the frontend's fields as in JAX."""
-    m = Matching({"sinkhorn_iterations": 3}, device="cpu")
+    behind the host detector (OpenCV's SIFT, as the port computes it), so a
+    bare image request runs; the config keys replace the frontend's fields
+    as in JAX."""
+    m = Matching({"sinkhorn_iterations": 3, "max_keypoints": MAX_KP}, device="cpu")
     assert m.frontend.cfg.descriptor_source == "carhynet"
     assert m.frontend.cfg.detector == "host"
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        m(request(pair))
+    got = m(request(pair))
+    assert 0 < got["keypoints0"].shape[1] <= MAX_KP
     m = Matching({"fast_frontend": True, "descriptor_source": "sift", "detector": "device",
                   "sift_descriptor": "device", "sift_samples": 12}, device="cpu")
     cfg = m.frontend.cfg

@@ -256,7 +256,7 @@ def test_train_loop_and_resume(tmp_path):
         fused_e2e=True, restore_path=str(weights / "last"), device="cpu", log_fn=logs.append)
     assert resumed.step == 3 and resumed.opt_state["count"] == 3 and resumed.ema_updates == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train(cfg, fused_e2e=False, device="cpu")
+        tloop.train(cfg, fused_e2e=False, multihost=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.train(cfg, fused_e2e=True, n_devices=2, device="cpu")
 

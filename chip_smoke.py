@@ -154,8 +154,37 @@ Phases, one line each with its seconds:
     memory. Then 5 steps of CAR-HyNet's trainer
     (carhynet.train.train_descriptor) on synthetic patch pairs at 256
     points: the losses finite.
+  19 data-parallel serving (run after phase 18): FusedMatching(devices=
+    [cuda:0, cuda:0]) at configuration B of phase 6 (full widths, 8 pairs,
+    the same weights): in f32 through the kernels (f32 trunk and CNN) the
+    kept keypoints and matches of every pair identical to devices=None;
+    then the card's defaults (bf16) timed in turns unsplit, split, split,
+    unsplit: pairs/s beside the unsplit run, 2 x (18 K1, 1 K2, 1 label
+    rounds) launches a split dispatch. devices=2 runs where the machine has
+    two cards; here it prints a line saying it did not run.
+  20 data-parallel training: two ranks, each a process started with the
+    spawn method (gims_tpu_torch/train/dp_check.py), share the card over
+    gloo and take one step each of the fused end-to-end trainer at
+    configs/e2e_fo0_800.yaml's widths from the joint e2e weights and of the
+    classic trainer at configs/synth_sift.yaml's with host SIFT batches, one
+    pair a rank (no warmup, no freezing). It fails unless both ranks end
+    with bit-equal parameters and metrics, the averaged loss is the mean of
+    the per-pair losses of undistributed steps within DP_LOSS_RTOL, a step
+    over a one-rank NCCL group is bit-equal to the undistributed step,
+    each rank launches the label rounds twice a step, and the step moved the
+    trained subtrees. Prints ms per step, and the all-reduce's ms and bytes
+    (the gradients: about 54 MB for the joint model).
+  21 ring attention: K1's partial mode (the output and each row's base-2
+    max and sum) against its plain version at bf16 (2, 6144) and f32 (2,
+    2048), D=64, and at their ring steps' shapes: the output bit-equal to
+    the default mode, the statistics within PARTIAL_M_TOL and
+    PARTIAL_L_RTOL; timed beside the default mode, the plain version and
+    SDPA. Then masked_attention_ring at P=2 over two gloo ranks on the card
+    (f32 within RING_F32_TOL of dense K1, bf16 within RING_BF16_REL_RMS of
+    dense K1 and of the direct version by relative RMS) and at P=1 over
+    NCCL (bit-equal to dense K1), 2 and 1 partial launches a rank.
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-18):
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -164,14 +193,17 @@ Phases, one line each with its seconds:
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
-    twelve paths' shapes; the script's total seconds.
+    thirteen paths' shapes, the label rounds of phase 20's steps and K1's
+    partial mode at the ring's step shapes; the script's total seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
-gims_tpu_torch/_build/ but phase 15's pairs and artifacts and phases 16's
-and 18's checkpoints, in temporary directories that it removes.
+gims_tpu_torch/_build/ but phase 15's pairs and artifacts, phases 16's
+and 18's checkpoints and the spec and results of phases 20's and 21's
+ranks, in temporary directories that it removes. Phases 20 and 21 start
+their ranks as processes and wait for them to end.
 """
 
 from __future__ import annotations
@@ -181,6 +213,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -196,10 +229,11 @@ import torch  # noqa: E402
 
 from gims_tpu_torch import _build, fused  # noqa: E402
 from gims_tpu_torch.agc import graph, labels  # noqa: E402
-from gims_tpu_torch.api import Matching  # noqa: E402
+from gims_tpu_torch.api import Matching, init_gmatcher_variables  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
 from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
 from gims_tpu_torch.config import FrontendConfig, MatcherConfig, load_config  # noqa: E402
+from gims_tpu_torch.core import checkpoint as ckpt_io  # noqa: E402
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
 from gims_tpu_torch.eval import homography  # noqa: E402
 from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
@@ -210,7 +244,8 @@ from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pip
 from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
 from gims_tpu_torch.matcher.gmatcher import GMatcher  # noqa: E402
 from gims_tpu_torch.synthetic import correct_share, synthetic_image_pair, synthetic_request  # noqa: E402
-from gims_tpu_torch.train import fused_step, gt  # noqa: E402
+from gims_tpu_torch.train import data as train_data  # noqa: E402
+from gims_tpu_torch.train import dp_check, fused_step, gt, multihost  # noqa: E402
 from gims_tpu_torch.train import loop as train_loop  # noqa: E402
 from gims_tpu_torch.train import step as train_step  # noqa: E402
 
@@ -257,9 +292,11 @@ DEVICE = "cuda"
 # the fused colour sources' (as devsift's)
 ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
               (16, 3072, 3072, 400), (8, 6144, 6144, 700), (2, 6144, 6144, 900),
-              (2, 3072, 3072, 300))
+              (2, 3072, 3072, 300),
+              # a split of the fused path's batch of 8 in two (phase 19): B=8, 3072
+              (8, 3072, 3072, 400))
 # the trainer's validation (one pair of 6144 keypoints compacted to 3072,
-# sides stacked) is the last of ATTN_CASES. A head of 256 columns (a 512-d
+# sides stacked) is ATTN_CASES[6]. A head of 256 columns (a 512-d
 # trunk of 2 heads) at the staged image path's bucket: the kernel's widest
 WIDE_ATTN_CASE = (2, 6144, 6144, 900)
 WIDE_HEAD_DIM = 256
@@ -276,7 +313,9 @@ SINKHORN_CASES = ((2048, [1800], [1750], SINKHORN_ITERS), (8192, [7000], [6900],
                   (6144, [6144], [6100], FUSED_ITERS),
                   (3072, [2900], [2950], FUSED_ITERS),
                   # staged Matching with host SIFT at 2048 keypoints (phases 15, 17)
-                  (2048, [1800], [1750], FUSED_ITERS))
+                  (2048, [1800], [1750], FUSED_ITERS),
+                  # a split of the fused path's batch of 8 in two (phase 19)
+                  (3072, [2900, 3072, 2500, 3000], [2950, 3000, 2600, 3072], FUSED_ITERS))
 # the fused image path as the JAX package's bench runs it (bench.py:223-275)
 FUSED_FRAME = (600, 800)
 FUSED_BATCH = 8
@@ -411,6 +450,27 @@ CLASSIC_WIDTHS = {"frame": [480, 640], "keypoints": 2048, "batch_size": 1, "laye
 DESCRIPTOR_STEPS = 5
 DESCRIPTOR_POINTS = 256
 # (seed, keypoints per view): two requests in bucket 2048, two in 8192
+# phases 19-21: two ranks (or chunks) sharing the one card
+DP_SPLIT = 2
+DP_SEED = 900
+# the averaged loss of the 2-rank step against the mean of the per-pair losses
+# of undistributed steps: f32 summation order only (the loss's segment sums
+# run on atomics)
+DP_LOSS_RTOL = 1e-5
+# K1's partial mode against attention_partials_tiled: the base-2 row max
+# (scores summed in another order: measured 4.3e-6 at 2048, f32) and the
+# row sum (relative, measured 3.4e-6)
+PARTIAL_M_TOL = 1e-4
+PARTIAL_L_RTOL = 1e-4
+# (B, N = M, dtype) of the ring; its steps at P=2 run N / 2 against M / 2
+RING_CASES = ((2, 6144, torch.bfloat16), (2, 2048, torch.float32))
+# the ring against dense K1: f32 element by element (K1's own f32 bound
+# against the direct version); bf16 by RMS error relative to the output's
+# RMS, against dense K1 and against the direct version in f32: two
+# roundings of the output (each step's partial, then the merged result),
+# 2 * 2**-8
+RING_F32_TOL = 1e-4
+RING_BF16_REL_RMS = 2.0 ** -7
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
 
@@ -828,6 +888,7 @@ class record_labels:
 
 def reset_counts():
     cuda_attention.launches = cuda_sinkhorn.launches = labels.launches = 0
+    cuda_attention.partial_launches = 0
 
 
 def counts():
@@ -835,13 +896,14 @@ def counts():
             "label_rounds": labels.launches}
 
 
-def timed_dispatches(m, batches, name, min_share=0.5):
+def timed_dispatches(m, batches, name, min_share=0.5, chunks=1):
     """Timed dispatches of `m` (one per batch after the first, a warm-up):
     launches per dispatch, matches and the share within 3 px, pairs/s and
     peak memory. Fails on a launch count other than 18 attention, 1
-    Sinkhorn and 1 label-rounds per dispatch, a pair without matches,
-    non-finite scores or a correct share under `min_share` (None: no
-    bound, for descriptors of untrained weights)."""
+    Sinkhorn and 1 label-rounds per dispatch and chunk (`chunks`: the
+    devices of a split), a pair without matches, non-finite scores or a
+    correct share under `min_share` (None: no bound, for descriptors of
+    untrained weights)."""
     imgs0, imgs1, _ = batches[0]
     m.collect_batch(m.dispatch_batch(imgs0, imgs1))  # warm-up
     torch.cuda.synchronize()
@@ -855,9 +917,10 @@ def timed_dispatches(m, batches, name, min_share=0.5):
         per_dispatch.append(tuple(v - before[k] for k, v in counts().items()))
     elapsed = time.perf_counter() - t
     launches = counts()
-    if any(d != (NUM_LAYERS, 1, 1) for d in per_dispatch):
+    want = (chunks * NUM_LAYERS, chunks, chunks)
+    if any(d != want for d in per_dispatch):
         raise AssertionError(f"{name}: launches per dispatch (attention, Sinkhorn, label "
-                             f"rounds) {per_dispatch}, expected ({NUM_LAYERS}, 1, 1)")
+                             f"rounds) {per_dispatch}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     n_good = n_all = 0
     shares = []
@@ -879,7 +942,8 @@ def timed_dispatches(m, batches, name, min_share=0.5):
             "max_memory_allocated_gb": peak / 1e9,
             "keypoints_per_image": int(preds[0][0][0]["keypoints0"].shape[1]),
             "matches_per_pair": n_all / pairs, "correct_share": share,
-            "correct_share_per_pair": shares, "launches": launches}
+            "correct_share_per_pair": shares, "launches": launches,
+            "launches_per_dispatch": per_dispatch[0]}
     print(f"  fused {json.dumps(info)}", flush=True)
     if min_share is not None and not share >= min_share:
         raise AssertionError(f"{name}: {share} of matches within 3 px < {min_share}")
@@ -2049,6 +2113,281 @@ def classic_train_phase():
     return launches
 
 
+def free_port():
+    """A free TCP port on 127.0.0.1 (for a one-rank NCCL rendezvous)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class nccl_world_one:
+    """A process group of this process alone, over NCCL, on the card."""
+
+    def __enter__(self):
+        multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl", device=DEVICE)
+        return torch.distributed.group.WORLD
+
+    def __exit__(self, *exc):
+        torch.distributed.destroy_process_group()
+
+
+def dp_serving_phase(variables, car_variables):
+    """FusedMatching split over [cuda:0, cuda:0] against the unsplit run:
+    f32 through the kernels, kept and matches identical; bf16 (the card's
+    defaults, configuration B) timed in turns unsplit, split, split,
+    unsplit, 2 x (18, 1, 1) launches a split dispatch; devices=2 where the
+    machine has two cards."""
+    t0 = time.perf_counter()
+    common = dict(variables=variables, car_variables=car_variables,
+                  total_keypoints=FUSED_KEYPOINTS, device=DEVICE)
+    split_devices = [torch.device(DEVICE, 0)] * DP_SPLIT
+    batches = [fused_pairs(FUSED_BATCH, DP_SEED + 100 * i) for i in range(FUSED_TIMED + 1)]
+    f32 = {**FUSED_CONFIG, "attention_dtype": "float32", "dense_dtype": "float32"}
+    imgs0, imgs1, _ = batches[1]
+    whole = fused.FusedMatching(f32, **common)
+    split = fused.FusedMatching(f32, devices=split_devices, **common)
+    reset_counts()
+    got = split.collect_batch(split.dispatch_batch(imgs0, imgs1))
+    split_launches = counts()
+    want = whole.collect_batch(whole.dispatch_batch(imgs0, imgs1))
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key in ("keypoints0", "keypoints1", "matches0", "matches1"):
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"split f32 pair {i}: {key} differs from the unsplit run")
+    if len(got) != FUSED_BATCH:
+        raise AssertionError(f"split f32: {len(got)} pairs back, {FUSED_BATCH} sent")
+    print(f"  dp serving f32 {json.dumps({'pairs': len(got), 'identical': True, 'launches': split_launches, 'matches_per_pair': float(np.mean([(g['matches0'] >= 0).sum() for g in got]))})}",
+          flush=True)
+    del whole, split
+    torch.cuda.empty_cache()
+    ms = {"unsplit": fused.FusedMatching(FUSED_CONFIG, **common),
+          "split": fused.FusedMatching(FUSED_CONFIG, devices=split_devices, **common)}
+    total = {"attention": 0, "sinkhorn": 0, "label_rounds": 0}
+    for name in ("unsplit", "split", "split", "unsplit"):
+        if name == "split":
+            with record_labels("dp_serving"):
+                launches = timed_dispatches(ms[name], batches, "split " + str(DP_SPLIT),
+                                            chunks=DP_SPLIT)
+            total = {k: total[k] + launches[k] for k in total}
+        else:
+            timed_dispatches(ms[name], batches, "unsplit")
+    del ms
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        m = fused.FusedMatching(FUSED_CONFIG, **{**common, "device": None}, devices=2)
+        timed_dispatches(m, batches, "devices=2", chunks=2)
+        del m
+    else:
+        print(f"  dp serving devices=2: not run, this machine has "
+              f"{torch.cuda.device_count()} card", flush=True)
+    phase(f"19 data-parallel serving (FusedMatching split over {DP_SPLIT} x cuda:0, "
+          f"{FUSED_BATCH} pairs)", t0, launches=json.dumps(total))
+    return total
+
+
+def dp_jobs():
+    """The two train-step jobs of phase 20, on two pairs each: the fused
+    end-to-end step at e2e_fo0_800's widths from the joint e2e weights, and
+    the classic step at synth_sift's with host SIFT batches, a random
+    matcher; no warmup and no freezing, so that one step moves the
+    parameters."""
+    ecfg = load_config(TRAIN_CONFIG)
+    ecfg = dataclasses.replace(ecfg, train=dataclasses.replace(ecfg.train,
+                                                               freeze_gmatcher_epochs=0))
+    loaded = ckpt_io.unflatten_npz(E2E_WEIGHTS)
+    ds = train_data.SyntheticPairDataset(ecfg.dataset, length=DP_SPLIT, seed=DP_SEED)
+    fjob = {"kind": "fused", "cfg": ecfg,
+            "variables": {"params": loaded["params"], "batch_stats": loaded["batch_stats"]},
+            "car_variables": load_car_checkpoint(E2E_CAR_WEIGHTS),
+            "batch": train_loop.build_batch_e2e([ds[i] for i in range(DP_SPLIT)], "cpu")}
+    ccfg = load_config(CLASSIC_CONFIG)
+    ccfg = dataclasses.replace(
+        ccfg, frontend=dataclasses.replace(ccfg.frontend, descriptor_source="sift"),
+        optimizer=dataclasses.replace(ccfg.optimizer, warmup_epochs=0))
+    ds = train_data.SyntheticPairDataset(ccfg.dataset, length=DP_SPLIT, seed=DP_SEED)
+    idxs = np.arange(DP_SPLIT)
+    batch = train_loop.build_batch_raw(ccfg.frontend, [ds[i] for i in idxs],
+                                       ccfg.train.max_keypoints, None,
+                                       seeds=train_loop.row_seeds(idxs, DP_SEED), device=DEVICE)
+    cjob = {"kind": "classic", "cfg": ccfg,
+            "variables": init_gmatcher_variables(ccfg.matcher, seed=ccfg.train.init_seed),
+            "batch": {k: v.cpu() for k, v in batch.items()}}
+    return {"fused": fjob, "classic": cjob}
+
+
+def pair_job(job, i):
+    return {**job, "batch": {k: v[i:i + 1] for k, v in job["batch"].items()}}
+
+
+def dp_train_phase():
+    """One data-parallel step of each trainer over two ranks that share the
+    card over gloo (one pair a rank): both ranks end with bit-equal
+    parameters, the averaged loss is the mean of the per-pair losses of
+    undistributed steps (JAX's criterion, tests/test_train.py:439-520), and a
+    step over a one-rank NCCL group is bit-equal to the undistributed step."""
+    t0 = time.perf_counter()
+    jobs = dp_jobs()
+    print(f"  dp train jobs built in {time.perf_counter() - t0:.3f}s (host SIFT batch on the "
+          f"card)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="gims_dp_") as tmp:
+        t = time.perf_counter()
+        ranks = dp_check.run(dp_check.step_rank, [DEVICE + ":0"] * DP_SPLIT, "gloo",
+                             {"jobs": [jobs["fused"], jobs["classic"]]}, tmp)
+        wall = time.perf_counter() - t
+    label_launches = {}
+    for j, name in enumerate(("fused", "classic")):
+        got = [r["jobs"][j] for r in ranks]
+        with record_labels("dp_train_" + name):
+            singles = [dp_check.train_step_job(pair_job(jobs[name], i), torch.device(DEVICE))
+                       for i in range(DP_SPLIT)]
+        with nccl_world_one() as group:
+            nccl = dp_check.train_step_job(pair_job(jobs[name], 0), torch.device(DEVICE), group)
+        loss = got[0]["metrics"]["total_loss"]
+        want = float(np.mean([s["metrics"]["total_loss"] for s in singles]))
+        info = {
+            "job": name, "ranks": DP_SPLIT, "backend": got[0]["backend"],
+            "rank_ms_per_step": [g["step_ms"] for g in got],
+            "single_ms_per_step": [s["step_ms"] for s in singles],
+            "all_reduce_bytes": got[0]["all_reduce_bytes"],
+            "all_reduce_ms_gloo_two_ranks": [g["all_reduce_ms"] for g in got],
+            "all_reduce_ms_nccl_one_rank": nccl["all_reduce_ms"],
+            "nccl_one_rank_ms_per_step": nccl["step_ms"],
+            "averaged_loss": loss, "mean_pair_loss": want,
+            "pair_losses": [s["metrics"]["total_loss"] for s in singles],
+            "label_launches": [g["label_launches"] for g in got],
+            "ranks_bit_equal": all(torch.equal(p, got[1]["params"][n])
+                                   for n, p in got[0]["params"].items()),
+            "nccl_bit_equal": all(torch.equal(p, singles[0]["params"][n])
+                                  for n, p in nccl["params"].items())
+            and all(torch.equal(b, singles[0]["buffers"][n]) for n, b in nccl["buffers"].items()),
+            "moved": sorted({n.split(".")[0] if name == "fused" else "gmatcher"
+                             for n, p in dp_check.build_model(jobs[name]).named_parameters()
+                             if not torch.equal(p.detach(), got[0]["params"][n])})}
+        print(f"  dp train {json.dumps(info)}", flush=True)
+        leaked = [m for r in ranks for m in r["modules"] if m in ("jax", "gims_tpu")]
+        if leaked:
+            raise AssertionError(f"a rank imported {leaked}")
+        if not info["ranks_bit_equal"] or got[0]["metrics"] != got[1]["metrics"]:
+            raise AssertionError(f"dp train {name}: the ranks' parameters or metrics differ")
+        if not abs(loss - want) <= DP_LOSS_RTOL * abs(want):
+            raise AssertionError(f"dp train {name}: averaged loss {loss} against the mean of "
+                                 f"the pair losses {want} (rtol {DP_LOSS_RTOL})")
+        if not info["nccl_bit_equal"]:
+            raise AssertionError(f"dp train {name}: the one-rank NCCL step differs from the "
+                                 f"undistributed step")
+        if info["label_launches"] != [2] * DP_SPLIT:
+            raise AssertionError(f"dp train {name}: label launches {info['label_launches']}")
+        if info["moved"] != (["carhynet", "gmatcher"] if name == "fused" else ["gmatcher"]):
+            raise AssertionError(f"dp train {name}: the step moved {info['moved']}")
+        label_launches[name] = sum(info["label_launches"])
+    del jobs
+    torch.cuda.empty_cache()
+    phase(f"20 data-parallel training ({DP_SPLIT} gloo ranks sharing the card, one fused "
+          "and one classic step)", t0, ranks_wall_s=f"{wall:.3f}")
+    return label_launches
+
+
+def partial_case(b, n, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = (torch.randn((b, n, 4, HEAD_DIM), generator=g, device=DEVICE).to(dtype)
+               for _ in range(3))
+    mask = torch.ones((b, n), dtype=torch.bool, device=DEVICE)
+    mask[:, n - n // 8:] = False
+    mask[1, : n // 7] = False  # masked keys at the head of one item too
+    return q, k, v, mask
+
+
+def partial_row(b, n, dtype, seed):
+    """K1's partial mode against its plain version: the output bit-equal to
+    the kernel's default mode (phase 2 holds that to the plain versions),
+    the row max within PARTIAL_M_TOL, the row sum within PARTIAL_L_RTOL;
+    timed beside the default mode, the plain version and SDPA."""
+    q, k, v, mask = partial_case(b, n, dtype, seed)
+    out, stats = cuda_attention.attention_partials_cuda(q, k, v, mask)
+    dense = cuda_attention.masked_attention_cuda(q, k, v, mask)
+    _, want = attention.attention_partials_tiled(q, k, v, mask, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    m_err = (stats[..., 0] - want[..., 0]).abs().max().item()
+    l_err = ((stats[..., 1] - want[..., 1]).abs() / want[..., 1]).max().item()
+    row = {"shape": f"B={b} N={n} M={n} H=4 D={HEAD_DIM}", "dtype": str(dtype)[6:],
+           "out_equals_default_mode": bool(torch.equal(out, dense)), "max_abs_err_m": m_err,
+           "max_rel_err_l": l_err, "max_abs_err": m_err}
+    if not (row["out_equals_default_mode"] and m_err <= PARTIAL_M_TOL
+            and l_err <= PARTIAL_L_RTOL):
+        raise AssertionError(f"K1 partial mode against its plain version: {row}")
+    esz = q.element_size()
+    h = 4
+    nbytes = 2 * b * n * h * HEAD_DIM * esz + 2 * b * n * h * HEAD_DIM * esz + b * n \
+        + 8 * b * n * h
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * h * n * n * HEAD_DIM, dtype)
+    row["ms"] = cuda_ms(lambda: cuda_attention.attention_partials_cuda(q, k, v, mask))
+    row["default_mode_ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
+    row["plain_ms"] = cuda_ms(lambda: attention.attention_partials_tiled(q, k, v, mask), 1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bias = torch.zeros((b, 1, 1, n), dtype=dtype, device=DEVICE)
+    bias.masked_fill_(~mask[:, None, None, :], attention.NEG_INF)
+    row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias))
+    print(f"  partial {json.dumps(row)}", flush=True)
+    return row
+
+
+def ring_phase():
+    """K1's partial mode against its plain version at the ring cases and at
+    their ring steps' shapes; the ring at P=2 over two gloo ranks on the
+    card and at P=1 over NCCL, each against dense K1."""
+    t0 = time.perf_counter()
+    rows = {}
+    for b, n, dtype in RING_CASES:
+        for nn in (n, n // DP_SPLIT):
+            rows[(b, nn, str(dtype)[6:])] = partial_row(b, nn, dtype, seed=nn + 7)
+    cases, dense = [], []
+    for b, n, dtype in RING_CASES:
+        q, k, v, mask = partial_case(b, n, dtype, seed=n + 11)
+        cases.append({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "mask": mask.cpu(),
+                      "dtype": dtype})
+        dense.append((cuda_attention.masked_attention_cuda(q, k, v, mask),
+                      attention.masked_attention_direct(q.float(), k.float(), v.float(), mask)))
+    with tempfile.TemporaryDirectory(prefix="gims_ring_") as tmp:
+        t = time.perf_counter()
+        ranks = dp_check.run(dp_check.ring_rank, [DEVICE + ":0"] * DP_SPLIT, "gloo",
+                             {"cases": cases, "reps": 3}, tmp)
+        wall = time.perf_counter() - t
+    launches = {}
+    with nccl_world_one() as group:
+        ones = [dp_check.ring_case(c, torch.device(DEVICE), group, reps=3) for c in cases]
+    for i, (b, n, dtype) in enumerate(RING_CASES):
+        want, direct = dense[i][0].float(), dense[i][1]
+        info = {"case": f"B={b} N={n} M={n} H=4 D={HEAD_DIM}", "dtype": str(dtype)[6:]}
+        for p, res in ((DP_SPLIT, [r["cases"][i] for r in ranks]), (1, [ones[i]])):
+            errs = []
+            for r in res:
+                got = r["out"].to(DEVICE).float()
+                errs.append({
+                    "max_abs_err_dense": (got - want).abs().max().item(),
+                    "rel_rms_err_dense": ((got - want).pow(2).mean().sqrt()
+                                          / want.pow(2).mean().sqrt()).item(),
+                    "rel_rms_err_direct": ((got - direct).pow(2).mean().sqrt()
+                                           / direct.pow(2).mean().sqrt()).item(),
+                    "bit_equal_dense": bool(torch.equal(r["out"].to(DEVICE), dense[i][0]))})
+            info[f"P={p}"] = {"backend": "gloo" if p > 1 else "nccl", "errors": errs,
+                              "launches": [r["launches"] for r in res],
+                              "ms": [r["ms"] for r in res]}
+            for e in errs:
+                ok = (e["max_abs_err_dense"] <= RING_F32_TOL if dtype == torch.float32 else
+                      e["rel_rms_err_dense"] <= RING_BF16_REL_RMS
+                      and e["rel_rms_err_direct"] <= RING_BF16_REL_RMS)
+                if not ok or (p == 1 and not e["bit_equal_dense"]):
+                    raise AssertionError(f"ring attention P={p}: {info}")
+            if [r["launches"] for r in res] != [p] * len(res):
+                raise AssertionError(f"ring attention P={p}: launches {info}")
+        launches[str(dtype)[6:]] = sum(info[f"P={DP_SPLIT}"]["launches"])
+        print(f"  ring {json.dumps(info)}", flush=True)
+    phase("21 ring attention (K1 partial mode; P=2 over gloo on the card, P=1 over NCCL)", t0,
+          ranks_wall_s=f"{wall:.3f}")
+    return rows, launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2149,10 +2488,28 @@ def label_phase():
     return rows
 
 
-def kernel_rows(attn, sk, lab, path_launches):
+def label_row(suffix, lab, launches):
+    return {"name": "label_rounds" + suffix, "route": "cuda",
+            "source": "gims_tpu_torch/csrc/labels.cu",
+            # not a Pallas kernel: the lax.while_loop of the label rounds
+            "replaces": "gims_tpu/agc/graph.py:167",
+            # the modelled bytes stay on phase 13's line
+            **{k: v for k, v in lab.items() if not k.startswith("model_")},
+            "launches": launches, "kernel_ms": lab["ms"],
+            # a launch is one AGC call: the cluster route's dense and band
+            # layouts run label_pack_kernel, then label_cluster_kernel
+            "kernels_per_launch": 2 if (lab["label_route"] == "cluster"
+                                        and lab["mode"] != "sparse") else 1,
+            "library": "none: no single PyTorch call labels connected components"}
+
+
+def kernel_rows(attn, sk, lab, path_launches, partial, dp_train, ring_launches):
     """The `kernels` line: K1, K2 and the label-rounds kernel at each path's
     shapes, with that path's main-run launch counts (the fused colour paths
-    share devsift's K1 and K2 shapes: 4 pairs compacted to 6144)."""
+    share devsift's K1 and K2 shapes: 4 pairs compacted to 6144); the label
+    rounds of the data-parallel train steps (phase 20, their launches on the
+    two ranks); K1's partial mode at the ring's step shapes (phase 21, its
+    launches on the two ranks of the P=2 ring)."""
     no_library = ("none: no single PyTorch call computes the Sinkhorn "
                   "iterations' potentials")
     rows = []
@@ -2177,7 +2534,9 @@ def kernel_rows(attn, sk, lab, path_launches):
             # iterations) in validation, whose pairs of 640x480 take bucket
             # 8192; the label rounds in the steps and in validation
             ("_classic_train_path", ATTN_CASES[1], SINKHORN_CASES[1], "classic_train_side0",
-             "float32")):
+             "float32"),
+            # FusedMatching split in two chunks of 4 pairs on the card (phase 19)
+            ("_dp_serving_path", ATTN_CASES[7], SINKHORN_CASES[8], "dp_serving")):
         b, n, m, _ = attn_case
         a = attn[(b, n, m, dtype[0] if dtype else "bfloat16")]
         s = sk[(sk_case[0], len(sk_case[1]), sk_case[3])]
@@ -2192,19 +2551,17 @@ def kernel_rows(attn, sk, lab, path_launches):
              "replaces": "gims_tpu/matcher/pallas_sinkhorn.py:40",
              **s, "launches": c["sinkhorn"], "kernel_ms": s["ms"],
              "library_ms": None, "library": no_library},
-            {"name": "label_rounds" + suffix, "route": "cuda",
-             "source": "gims_tpu_torch/csrc/labels.cu",
-             # not a Pallas kernel: the lax.while_loop of the label rounds
-             "replaces": "gims_tpu/agc/graph.py:167",
-             # the modelled bytes stay on phase 13's line
-             **{k: v for k, v in lab[label_path].items() if not k.startswith("model_")},
-             "launches": c["label_rounds"], "kernel_ms": lab[label_path]["ms"],
-             # a launch is one AGC call: the cluster route's dense and band
-             # layouts run label_pack_kernel, then label_cluster_kernel
-             "kernels_per_launch": 2 if (lab[label_path]["label_route"] == "cluster"
-                                         and lab[label_path]["mode"] != "sparse") else 1,
-             "library": "none: no single PyTorch call labels connected components"},
+            label_row(suffix, lab[label_path], c["label_rounds"]),
         ]
+    for name, n in dp_train.items():
+        rows.append(label_row(f"_dp_train_{name}_path", lab[f"dp_train_{name}"], n))
+    for b, n, dtype in RING_CASES:
+        dt = str(dtype)[6:]
+        rows.append({"name": f"masked_attention_partial_ring_path_{dt}", "route": "cuda",
+                     "source": "gims_tpu_torch/csrc/attention.cu",
+                     "replaces": "gims_tpu/matcher/pallas_attention.py:42",
+                     **partial[(b, n // DP_SPLIT, dt)], "launches": ring_launches[dt],
+                     "kernel_ms": partial[(b, n // DP_SPLIT, dt)]["ms"]})
     return rows
 
 
@@ -2241,6 +2598,11 @@ def main():
     torch.cuda.empty_cache()
     classic_launches = classic_train_phase()
     torch.cuda.empty_cache()
+    dp_serving_launches = dp_serving_phase(load_gims_checkpoint(E2E_WEIGHTS),
+                                           load_car_checkpoint(E2E_CAR_WEIGHTS))
+    dp_train_launches = dp_train_phase()
+    partial, ring_launches = ring_phase()
+    torch.cuda.empty_cache()
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -2254,7 +2616,9 @@ def main():
                                        "_train_path": train_launches,
                                        "_eval_staged_host_path": eval_launches["staged_host"],
                                        "_host_sift_staged_path": host_launches,
-                                       "_classic_train_path": classic_launches})
+                                       "_classic_train_path": classic_launches,
+                                       "_dp_serving_path": dp_serving_launches},
+                      partial, dp_train_launches, ring_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

@@ -8,9 +8,15 @@
 
 The second is the classic trainer: OpenCV's SIFT as the port computes it
 (``frontend/sift.py``), on the device, feeds the matcher. Runs on ``cuda``
-unless ``--device cpu``. What the port does not have yet raises
-NotImplementedError naming its ROADMAP.md item: ``--devices`` above 1 and
-``--coordinator`` (multi-device).
+unless ``--device cpu``.
+
+Data parallelism (``train/multihost.py``): ``--devices N`` starts N ranks on
+this host, rank r on ``cuda:r`` (``--device cpu``: all on the CPU, over
+gloo). With ``--coordinator host:port`` this process is one rank, number
+``--process_id`` of ``--num_processes`` (launch one per card, on every
+host), on ``cuda:{process_id % device_count}`` unless ``--device`` names a
+device; ``--fused_e2e`` then raises, as in the JAX package. The ranks
+talk over NCCL on CUDA and gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -68,9 +74,12 @@ def main(argv=None):
     parser.add_argument("--name", type=str, default="gims")
     parser.add_argument("--limit", type=int, default=-1)
     parser.add_argument("--devices", type=int, default=1,
-                        help="data-parallel device count (not ported: only 1)")
+                        help="data-parallel ranks on this host, one process each, "
+                             "rank r on cuda:r (all on the CPU with --device cpu)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host data parallelism (not ported)")
+                        help="multi-host data parallelism: process 0's 'host:port'; this "
+                             "process is rank --process_id of --num_processes, on "
+                             "cuda:{process_id %% device_count} unless --device names one")
     parser.add_argument("--num_processes", type=int, default=1)
     parser.add_argument("--process_id", type=int, default=0)
     parser.add_argument("--max_steps", type=int, default=-1)
@@ -101,10 +110,11 @@ def main(argv=None):
                         help="torch device (default: cuda; 'cpu' to run on the CPU)")
     args = parser.parse_args(argv)
 
-    if args.devices > 1 or args.coordinator is not None:
-        from gims_tpu_torch.train.loop import MULTI_DEVICE
+    multihost = args.coordinator is not None
+    if multihost and args.fused_e2e:
+        from gims_tpu_torch.train.loop import MULTIHOST_FUSED
 
-        raise NotImplementedError(MULTI_DEVICE)
+        raise NotImplementedError(MULTIHOST_FUSED)
     cfg = load_config(args.config_path if os.path.exists(args.config_path) else None)
     if args.descriptor_source != "carhynet":
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
@@ -127,12 +137,26 @@ def main(argv=None):
             data_mod.ImageFolderPairDataset(cfg.dataset, args.photo_dir,
                                             length=n - n // 2, seed=1),
         ])
-    return train(cfg, train_dataset=train_dataset, save_dir=save_dir, limit=args.limit,
-                 n_devices=args.devices, carhynet_weights=args.carhynet_weights,
-                 max_steps=args.max_steps, fast_frontend=args.fast,
-                 restore_path=args.restore_path, cache_features=args.cache_features,
-                 init_weights=args.init_weights, fused_e2e=args.fused_e2e,
-                 device=args.device)
+    device = args.device
+    if multihost:
+        import torch
+
+        from gims_tpu_torch.train import multihost as mh
+
+        if device is None:
+            device = f"cuda:{args.process_id % max(torch.cuda.device_count(), 1)}"
+        device = mh.initialize(args.coordinator, args.num_processes, args.process_id,
+                               device=device)
+    try:
+        return train(cfg, train_dataset=train_dataset, save_dir=save_dir, limit=args.limit,
+                     n_devices=args.devices, carhynet_weights=args.carhynet_weights,
+                     max_steps=args.max_steps, fast_frontend=args.fast,
+                     restore_path=args.restore_path, cache_features=args.cache_features,
+                     init_weights=args.init_weights, fused_e2e=args.fused_e2e,
+                     multihost=multihost, device=device)
+    finally:
+        if multihost:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,18 @@
 // divided by max(l, 1e-30). Keys at or past M get p = 0, so a row whose keys
 // are all masked gives the mean of its masked keys' V, as the direct version
 // does. Padded query rows are computed like any other and masked by the
-// caller. One C entry point, gims_attention_fwd; the dtype picks the kernel.
+// caller. Two C entry points: gims_attention_fwd, and gims_attention_fwd_partial,
+// which also writes each row's softmax statistics (below); the dtype picks the
+// kernel.
+//
+// Partial mode (ring attention's step, matcher/ring_attention.py): beside the
+// output, stats (B, N, H, 2) f32, contiguous, gets for every (b, n, h) the
+// row's running max m of the base-2 scores (s * scale * log2(e) + bias) and the
+// sum l of 2^(score - m) over the keys, as the online softmax ends them. The
+// output is the same as without stats, so out * l with m merges with the
+// partials of other key blocks: m' = max(m_a, m_b), w = l * 2^(m - m'),
+// out' = (out_a w_a + out_b w_b) / (w_a + w_b). Without stats (a null
+// pointer) the kernels do and store what they did before.
 //
 // Head widths: any D up to 256. Both kernels work on column blocks of 64:
 // one block for D <= 64, two for D <= 128, three for D <= 192, four for
@@ -94,7 +105,7 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
     float* __restrict__ out, int N, int M, int H, int D, Strides qs, Strides ks,
-    Strides vs, Strides os, long long mask_sb, float scale_log2) {
+    Strides vs, Strides os, long long mask_sb, float scale_log2, float* __restrict__ stats) {
   constexpr int kBK = 64 * 64 / kD;  // keys per shared-memory tile (32 KB of K and V)
   __shared__ __align__(16) float k_tile[kBK][kD];
   __shared__ __align__(16) float v_tile[kBK][kD];
@@ -188,6 +199,11 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
 #pragma unroll
     for (int d = 0; d < kD; ++d) {
       if (d < D) op[d * os.d] = acc[d] * inv;
+    }
+    if (stats != nullptr) {
+      float* st = stats + (((long long)b * N + row) * H + h) * 2;
+      st[0] = m_run;
+      st[1] = l_run;
     }
   }
 }
@@ -386,7 +402,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ key_mask,
     __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, long long osb, long long osn,
-    long long osh, long long mask_sb, float scale_log2) {
+    long long osh, long long mask_sb, float scale_log2, float* __restrict__ stats) {
   constexpr int kStages = Ring<NB>::kStages;
   constexpr int kKeys = Ring<NB>::kKeys;
   extern __shared__ uint8_t smem_raw[];
@@ -543,10 +559,24 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
       if (lane == 0) mbar_arrive(&sm.empty[s]);
     }
 
-    const float den_lo = fmaxf(quad_sum(l_lo), 1e-30f);
-    const float den_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+    const float sum_lo = quad_sum(l_lo);  // the row's l; m_lo is the row's already
+    const float sum_hi = quad_sum(l_hi);
+    const float den_lo = fmaxf(sum_lo, 1e-30f);
+    const float den_hi = fmaxf(sum_hi, 1e-30f);
     const int row_lo = q0 + wg * kWgRows + r_lo;
     const int row_hi = row_lo + 8;
+    if (stats != nullptr && cq == 0) {
+      if (row_lo < N) {
+        float* st = stats + (((long long)b * N + row_lo) * H + h) * 2;
+        st[0] = m_lo;
+        st[1] = sum_lo;
+      }
+      if (row_hi < N) {
+        float* st = stats + (((long long)b * N + row_hi) * H + h) * 2;
+        st[0] = m_hi;
+        st[1] = sum_hi;
+      }
+    }
     __nv_bfloat16* ob = out + b * osb + h * osh + 2 * cq;
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
@@ -612,7 +642,7 @@ template <int NB>
 int launch_bf16(const void* q, const void* k, const void* v, const void* key_mask, void* out,
                 int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
                 const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
-                cudaStream_t stream) {
+                float* stats, cudaStream_t stream) {
   if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1 || D % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -638,7 +668,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* key_mas
   const dim3 grid((N + kTcRows - 1) / kTcRows, B * H);
   attn_tc_kernel<NB><<<grid, kTcThreads, smem, stream>>>(
       q_map, k_map, v_map, static_cast<const uint8_t*>(key_mask),
-      static_cast<__nv_bfloat16*>(out), N, M, H, D, os.b, os.n, os.h, mask_sb, scale_log2);
+      static_cast<__nv_bfloat16*>(out), N, M, H, D, os.b, os.n, os.h, mask_sb, scale_log2,
+      stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -646,13 +677,39 @@ template <int kD>
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, void* out,
                int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
                const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
-               cudaStream_t stream) {
+               float* stats, cudaStream_t stream) {
   const dim3 grid((N + kBQ - 1) / kBQ, B * H);
   attn_f32_kernel<kD><<<grid, kBQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(key_mask), static_cast<float*>(out), N, M, H, D, qs, ks, vs,
-      os, mask_sb, scale_log2);
+      os, mask_sb, scale_log2, stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+int attention_fwd(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                  float* stats, int dtype, int B, int N, int M, int H, int D, const Strides& qs,
+                  const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
+                  float scale_log2, void* stream) {
+  if (D <= 0 || D > kMaxD || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = (D + kBlockD - 1) / kBlockD;  // column blocks of 64
+  if (dtype == 0) {
+    auto launch = blocks == 1 ? launch_f32<kBlockD> : blocks == 2 ? launch_f32<2 * kBlockD>
+                                                                  : launch_f32<kMaxD>;
+    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2,
+                  stats, st);
+  }
+  if (dtype == 1) {
+    auto launch = blocks == 1   ? launch_bf16<1>
+                  : blocks == 2 ? launch_bf16<2>
+                  : blocks == 3 ? launch_bf16<3>
+                                : launch_bf16<4>;
+    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2,
+                  stats, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -667,24 +724,24 @@ extern "C" int gims_attention_fwd(
     long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
-  if (D <= 0 || D > kMaxD || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Strides qs{qsb, qsn, qsh, qsd}, ks{ksb, ksn, ksh, ksd},
-      vs{vsb, vsn, vsh, vsd}, os{osb, osn, osh, osd};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (D + kBlockD - 1) / kBlockD;  // column blocks of 64
-  if (dtype == 0) {
-    auto launch = blocks == 1 ? launch_f32<kBlockD> : blocks == 2 ? launch_f32<2 * kBlockD>
-                                                                  : launch_f32<kMaxD>;
-    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
-  }
-  if (dtype == 1) {
-    auto launch = blocks == 1   ? launch_bf16<1>
-                  : blocks == 2 ? launch_bf16<2>
-                  : blocks == 3 ? launch_bf16<3>
-                                : launch_bf16<4>;
-    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return attention_fwd(q, k, v, key_mask, out, nullptr, dtype, B, N, M, H, D,
+                       Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
+                       Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
+                       scale_log2, stream);
+}
+
+// gims_attention_fwd, and each row's (max, sum) of the base-2 online softmax
+// into stats: (B, N, H, 2) f32, contiguous.
+extern "C" int gims_attention_fwd_partial(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    void* out, void* stats, int dtype, int B, int N, int M, int H, int D, long long qsb,
+    long long qsn, long long qsh, long long qsd, long long ksb, long long ksn,
+    long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
+    long long vsd, long long osb, long long osn, long long osh, long long osd,
+    long long mask_sb, float scale_log2, void* stream) {
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats), dtype, B, N, M, H,
+                       D, Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
+                       Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
+                       scale_log2, stream);
 }

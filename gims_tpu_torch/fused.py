@@ -29,6 +29,8 @@ set. The colour sources take (B, H, W, 3) BGR images and need the
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import time
 from typing import Optional, Tuple
@@ -69,7 +71,6 @@ from gims_tpu_torch.matcher.convert import load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-TODO = "is not ported yet; see ROADMAP.md"
 SOURCES = ("carhynet", "dense", "dense_gray", "devsift")
 COLOUR_SOURCES = ("carhynet", "dense")
 # patches per call of the patch CAR-HyNet: one activation of its first
@@ -386,23 +387,40 @@ class FusedMatching:
     `descriptor_source` is "carhynet" (the default, as in the JAX package),
     "dense", "dense_gray" or "devsift" (no CNN; `car_variables` unused); the
     colour sources, carhynet and dense, take (B, H, W, 3) BGR images and
-    need ``upsample=True``. ``devices=`` raises. Without `variables`, the
-    ``init_scheme`` key ("default" or "identity") picks the matcher's start
+    need ``upsample=True``. Without `variables`, the ``init_scheme`` key
+    ("default" or "identity") picks the matcher's start
     (``api.init_gmatcher_variables``).
     `variables` / `car_variables` are flax variables trees of numpy arrays
     (``matcher.convert.load_gims_checkpoint``,
     ``carhynet.convert.load_car_checkpoint``); without them the networks
     are randomly initialized from `seed`.
+
+    devices: the data-parallel split of the JAX package's ``devices=`` (a 1-D
+    ``data`` mesh): an int (the first N cards) or a list of torch devices of
+    one type, which may repeat a device. One replica of the matcher and of
+    the CNN is kept per distinct device; ``dispatch_batch`` cuts the pair
+    batch into one contiguous chunk per entry and queues each chunk on its
+    device with no host sync between them, and ``collect_batch`` returns the
+    pairs in input order. A batch that does not divide the count raises
+    ValueError. `device` defaults to the first entry.
     """
 
     def __init__(self, config=None, variables=None, car_variables=None,
                  seed: int = 0, total_keypoints: int = 12288, devices=None,
                  device: Optional[str] = None):
-        self.device = resolve_device(device)
+        if devices is not None:
+            if isinstance(devices, int):
+                devices = [torch.device("cuda", i) for i in range(devices)]
+            devices = [resolve_device(d) for d in devices]
+            if not devices or len({d.type for d in devices}) != 1:
+                raise ValueError(f"devices={devices}: one or more devices of one type")
+        self.device = resolve_device(device if device is not None or devices is None
+                                     else devices[0])
+        if devices is not None and self.device.type != devices[0].type:
+            raise ValueError(f"device {self.device} and devices {devices} differ in type")
+        self.devices = devices
         on_cuda = self.device.type == "cuda"
         config = dict(config or {})
-        if devices is not None:
-            raise NotImplementedError(f"FusedMatching(devices=...) {TODO}")
         source = config.get("descriptor_source", "carhynet")
         if source not in SOURCES:
             raise ValueError(f"descriptor_source={source!r}: one of {SOURCES}")
@@ -471,6 +489,13 @@ class FusedMatching:
             self.car_model = car_model.to(self.device, cdt).eval()
             if on_cuda:
                 self.car_model = self.car_model.to(memory_format=torch.channels_last)
+        self.replicas = {}
+        if devices is not None:
+            self.replicas = {d: (self.model if d == self.device else
+                                 copy.deepcopy(self.model).to(d),
+                                 self.car_model if d == self.device or self.car_model is None
+                                 else copy.deepcopy(self.car_model).to(d))
+                             for d in devices}
         self.compact_transport = bool(config.get("compact_transport", True))
         # trunk bucket after AGC kept-compaction (None = no compaction):
         # AGC keeps about half the detection budget at the eval knobs
@@ -497,7 +522,7 @@ class FusedMatching:
             "dense_model": self.fe.descriptor_source in ("dense", "dense_gray"),
         }
 
-    def _upload(self, imgs):
+    def _upload(self, imgs, device=None):
         """(B, H, W, 3) BGR uint8 for the colour sources; (B, H, W) gray or
         (B, H, W, 3) BGR for dense_gray and devsift."""
         if not torch.is_tensor(imgs):
@@ -511,7 +536,7 @@ class FusedMatching:
                     else "(B, H, W) gray or (B, H, W, 3) BGR")
             raise ValueError(f"FusedMatching({self.fe.descriptor_source}) takes {want} uint8 "
                              f"images, got {imgs.dtype} {tuple(imgs.shape)}")
-        return imgs.to(self.device)
+        return imgs.to(device or self.device)
 
     def dispatch(self, img0, img1):
         """Upload one pair and queue its work; returns device outputs."""
@@ -520,12 +545,33 @@ class FusedMatching:
     def dispatch_batch(self, imgs0, imgs1):
         """Upload B same-shape pairs (sequences of (H, W[, 3]) uint8 images,
         or (B, H, W[, 3]) stacks) and queue their work as one batch; returns the
-        device outputs (batch first)."""
-        imgs0, imgs1 = self._upload(imgs0), self._upload(imgs1)
+        device outputs (batch first); with ``devices``, a list of each
+        chunk's device outputs, in order."""
+        if self.devices is None:
+            imgs0, imgs1 = self._upload(imgs0), self._upload(imgs1)
+            return self._dispatch_on(self.model, self.car_model, imgs0, imgs1)
+        imgs0, imgs1 = self._upload(imgs0, "cpu"), self._upload(imgs1, "cpu")
+        n_dev = len(self.devices)
+        if imgs0.shape[0] % n_dev:
+            raise ValueError(f"batch {imgs0.shape[0]} not divisible by the "
+                             f"{n_dev}-device mesh")
+        per = imgs0.shape[0] // n_dev
+        # every chunk is uploaded before any is queued: an upload from
+        # pageable memory waits for its card's stream, so one made between
+        # two chunks would hold the host until the first chunk had run
+        chunks = [(dev, *(x[i * per:(i + 1) * per].to(dev) for x in (imgs0, imgs1)))
+                  for i, dev in enumerate(self.devices)]
+        outs = []
+        for dev, chunk0, chunk1 in chunks:
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(self._dispatch_on(*self.replicas[dev], chunk0, chunk1))
+        return outs
+
+    def _dispatch_on(self, model, car_model, imgs0, imgs1):
         h, w = int(imgs0.shape[1]), int(imgs0.shape[2])
         budgets = octave_budgets(h, w, self.total, self.fe.upsample)
         return fused_match_batch(
-            self.model, self.car_model, self.acfg, self.fe, budgets,
+            model, car_model, self.acfg, self.fe, budgets,
             imgs0, imgs1, h, w, self.compact_transport, self.compact_to)
 
     def __call__(self, img0, img1):
@@ -540,7 +586,11 @@ class FusedMatching:
 
     def collect_batch(self, out):
         """One readout; returns a list of B per-pair dicts, each compacted
-        to the reference contract (leading batch dim of 1)."""
+        to the reference contract (leading batch dim of 1). `out` is one
+        dispatch's outputs, or a list of them (``devices``: one per chunk),
+        whose pairs come back in order."""
+        if isinstance(out, list):
+            return [pred for chunk in out for pred in self.collect_batch(chunk)]
         keys = ["kept0", "kept1", "matches0", "matches1",
                 "matching_scores0", "matching_scores1",
                 "keypoints0", "keypoints1", "scores0", "scores1"]

@@ -74,22 +74,11 @@ def kernel_block_k(d: int, dtype) -> int:
     return KERNEL_WIDE_BLOCK_K if dtype == torch.bfloat16 and d > 128 else KERNEL_BLOCK_K
 
 
-def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
-    """The arithmetic of ``gims_tpu/matcher/pallas_attention.py::_attn_kernel``
-    and of the CUDA kernel, one key tile of ``block_k`` at a time.
-
-    Scores are products of the inputs summed in f32 (never rounded to the
-    input dtype), times scale*log2(e), plus a bias of 0 or NEG_INF per key;
-    a base-2 running max starts at NEG_INF; the running sum takes the f32 p,
-    and P is rounded to v's dtype before P V, which is summed in f32; the
-    output is acc / max(l, 1e-30). Keys past M are absent (p = 0). Returns
-    (B, N, H, D) in ``out_dtype`` (q's dtype by default): pass float32 to
-    get the result before its one rounding. ``block_k`` defaults to the
-    kernel's tile at this width and dtype (``kernel_block_k``).
-    """
+def _tiled_state(q, k, v, key_mask, block_k):
+    """The kernel's online softmax over key tiles: (acc, l, mx), (B, H, N, D)
+    and (B, H, N), f32, before the division."""
     b, n, h, d = q.shape
     m = k.shape[1]
-    block_k = block_k or kernel_block_k(d, v.dtype)
     c = LOG2E / math.sqrt(d)
     qt = q.permute(0, 2, 1, 3).float()                # (B, H, N, D)
     acc = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
@@ -107,8 +96,38 @@ def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
         pv = torch.einsum("bhnc,bhcd->bhnd", p.to(v.dtype).float(), vc.float())
         acc = acc * corr[..., None] + pv
         mx = mx_new
+    return acc, l, mx
+
+
+def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
+    """The arithmetic of ``gims_tpu/matcher/pallas_attention.py::_attn_kernel``
+    and of the CUDA kernel, one key tile of ``block_k`` at a time.
+
+    Scores are products of the inputs summed in f32 (never rounded to the
+    input dtype), times scale*log2(e), plus a bias of 0 or NEG_INF per key;
+    a base-2 running max starts at NEG_INF; the running sum takes the f32 p,
+    and P is rounded to v's dtype before P V, which is summed in f32; the
+    output is acc / max(l, 1e-30). Keys past M are absent (p = 0). Returns
+    (B, N, H, D) in ``out_dtype`` (q's dtype by default): pass float32 to
+    get the result before its one rounding. ``block_k`` defaults to the
+    kernel's tile at this width and dtype (``kernel_block_k``).
+    """
+    acc, l, _ = _tiled_state(q, k, v, key_mask, block_k or kernel_block_k(q.shape[-1], v.dtype))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype)
+
+
+def attention_partials_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
+    """The CUDA kernel's partial mode, tile by tile (its plain version): the
+    output of ``masked_attention_tiled`` and each row's softmax statistics,
+    stats (B, N, H, 2) f32: the base-2 running max m of the scaled, biased
+    scores and the sum l of 2^(score - m) over the keys. Partials of
+    disjoint key blocks merge into the attention over their union
+    (``ring_attention.merge_partials``)."""
+    acc, l, mx = _tiled_state(q, k, v, key_mask, block_k or kernel_block_k(q.shape[-1], v.dtype))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    stats = torch.stack([mx, l], dim=-1).permute(0, 2, 1, 3).contiguous()
+    return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype), stats
 
 
 def needs_grad(*tensors) -> bool:
@@ -128,12 +147,14 @@ def masked_attention(q, k, v, key_mask, impl: str = "auto"):
     does off the TPU. The kernel has no backward (nor has the TPU kernel):
     a call that needs a gradient (``needs_grad``) takes the plain versions
     under "auto" by that same off-TPU rule, on every device, and raises
-    under "pallas". "ring" (multi-device) is not ported yet.
+    under "pallas". "ring" runs ``ring_attention.masked_attention_ring``
+    over the group that ``ring_attention.set_ring_group`` named (ValueError
+    without one).
     """
     if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (multi-device ring attention) is not "
-            "ported yet; see ROADMAP.md")
+        from gims_tpu_torch.matcher.ring_attention import get_ring_group, masked_attention_ring
+
+        return masked_attention_ring(q, k, v, key_mask, get_ring_group())
     if impl == "pallas" or (impl == "auto" and q.is_cuda and not needs_grad(q, k, v)):
         from gims_tpu_torch.matcher.cuda_attention import masked_attention_cuda
 

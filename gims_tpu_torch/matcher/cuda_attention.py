@@ -34,6 +34,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # calls of masked_attention_cuda that launched the kernel
 launches = 0
+# calls of attention_partials_cuda that launched the kernel (partial mode)
+partial_launches = 0
 
 
 def check_layout(name: str, t: torch.Tensor):
@@ -55,12 +57,42 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, N, H, D); k, v (B, M, H, D); key_mask (B, M) bool.
     Returns (B, N, H, D) in q's dtype."""
     global launches
+    if q.device.type == "cpu":
+        _check_grad(q, k, v)
+        return attention.masked_attention_tiled(q, k, v, key_mask)
+    out = _launch(q, k, v, key_mask, None)
+    launches += 1
+    return out
+
+
+def attention_partials_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            key_mask: torch.Tensor):
+    """The kernel's partial mode (ring attention's step): the output of
+    ``masked_attention_cuda`` and stats (B, N, H, 2) f32, each row's base-2
+    softmax max and sum (``attention.attention_partials_tiled`` is its
+    plain version, and what a CPU tensor gets)."""
+    global partial_launches
+    if q.device.type == "cpu":
+        _check_grad(q, k, v)
+        return attention.attention_partials_tiled(q, k, v, key_mask)
+    stats = torch.empty((q.shape[0], q.shape[1], q.shape[2], 2), dtype=torch.float32,
+                        device=q.device)
+    out = _launch(q, k, v, key_mask, stats)
+    partial_launches += 1
+    return out, stats
+
+
+def _check_grad(q, k, v):
     if attention.needs_grad(q, k, v):
         raise RuntimeError("masked_attention_cuda has no backward: q, k or v requires grad "
                            "with grad enabled; use the plain versions (attention_impl "
                            "'auto', 'direct' or 'flash') to train")
-    if q.device.type == "cpu":
-        return attention.masked_attention_tiled(q, k, v, key_mask)
+
+
+def _launch(q, k, v, key_mask, stats):
+    """Check the inputs and launch the kernel (partial mode where `stats`
+    is given); returns the output."""
+    _check_grad(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"masked_attention_cuda: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -90,14 +122,16 @@ def masked_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_layout(name, t)
     out = torch.empty((b, n, h, d + pad), dtype=q.dtype, device=q.device)
     lib = _build.load()
+    args = (_DTYPES[q.dtype], b, n, m, h, d + pad,
+            *q.stride(), *k.stride(), *v.stride(), *out.stride(),
+            key_mask.stride(0), scale_log2)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.gims_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-            out.data_ptr(), _DTYPES[q.dtype], b, n, m, h, d + pad,
-            *q.stride(), *k.stride(), *v.stride(), *out.stride(),
-            key_mask.stride(0), scale_log2, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr())
+        if stats is None:
+            rc = lib.gims_attention_fwd(*ptrs, *args, stream)
+        else:
+            rc = lib.gims_attention_fwd_partial(*ptrs, stats.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"gims_attention_fwd failed: cudaError {rc}")
-    launches += 1
     return out[..., :d] if pad else out

@@ -113,7 +113,7 @@ def descriptor_info_nce(d0, d1, m0, m1, va0, va1, tau: float = 0.1):
 
 
 def make_fused_e2e_train_step(cfg: GIMSConfig, tx: step_mod.Optimizer, image_shape, budgets,
-                              freeze_steps: int = 0):
+                              freeze_steps: int = 0, group=None):
     """step(state, batch) -> (state, metrics); the state's model is the
     ``joint_variables`` module, updated in place.
 
@@ -125,6 +125,11 @@ def make_fused_e2e_train_step(cfg: GIMSConfig, tx: step_mod.Optimizer, image_sha
     included) zeroed, while the CNN learns; Adam's moments of the matcher
     still decay over those steps, as optax's do. cfg.train.desc_loss_weight
     > 0 adds the InfoNCE descriptor loss on the ground-truth matches.
+
+    group: a ``torch.distributed`` group (the JAX step's ``axis_name``; one
+    pair per rank): gradients, metrics and the matcher's batch statistics
+    are averaged over its ranks before the freeze gate and the optimizer, as
+    the JAX step pmeans them (``gims_tpu/train/fused_step.py:160-163``).
     """
     from gims_tpu_torch.fused import _extract_side
 
@@ -163,7 +168,8 @@ def make_fused_e2e_train_step(cfg: GIMSConfig, tx: step_mod.Optimizer, image_sha
                    "neg_loss": neg.detach(),
                    "vec": torch.stack([pos, neg, total]).detach()}
         with record_function("gims.train.optimizer"):
-            grads = step_mod._grads(params)
+            grads, metrics, updates = step_mod.mean_across(
+                group, step_mod._grads(params), metrics, updates)
             frozen = state.step < freeze_steps
             if frozen:
                 grads = {n: torch.zeros_like(g) if n.startswith("gmatcher.") else g

@@ -35,8 +35,18 @@ Where the port departs from the JAX package:
   the JAX layout: ``<name>.npz`` (the matcher, as
   ``scripts/export_checkpoint.py`` writes it) and, for the fused trainer,
   ``<name>_car.npz`` (the CNN), which both packages load.
-- Not ported yet, and raising NotImplementedError: more than one device or
-  process (ROADMAP.md section 1 item 2).
+- Data parallelism: one process per rank (``train/multihost.py``).
+  ``n_devices=N`` starts N ranks through ``torch.multiprocessing`` (spawn),
+  rank r on ``cuda:r`` (or on the CPU with ``device="cpu"``), joined by a
+  file rendezvous; ``multihost=True`` runs this process as one rank of a
+  group already joined (``multihost.initialize``). The global batch is
+  ``batch_size`` x the world size; each rank builds only its
+  ``process_batch_slice`` rows and the step averages gradients, metrics
+  and batch statistics over the ranks. Logging, results.txt,
+  metrics.jsonl, checkpoints, the npz export and validation run on rank 0;
+  the validation score is broadcast and a barrier closes the run. The
+  fused trainer runs one pair per rank; under ``multihost`` it raises, as
+  the JAX loop does. ``train`` returns rank 0's state.
 - The loop runs on ``cuda`` unless ``device`` says otherwise. On CUDA each
   step's device time is taken with a pair of CUDA events and written to
   metrics.jsonl as ``step_ms`` (the JAX loop's ``model_time`` is the
@@ -48,6 +58,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -73,10 +85,12 @@ from gims_tpu_torch.matcher.gmatcher import GMatcher
 from gims_tpu_torch.train import data as data_mod
 from gims_tpu_torch.train import fused_step as fstep_mod
 from gims_tpu_torch.train import gt as gt_mod
+from gims_tpu_torch.train import multihost as mh
 from gims_tpu_torch.train import step as step_mod
 
-MULTI_DEVICE = ("data-parallel and multi-host training are not ported yet "
-                "(ROADMAP.md section 1 item 2)")
+MULTIHOST_FUSED = ("multihost fused_e2e is not wired, as in the JAX package "
+                   "(gims_tpu/train/loop.py:220-221); run the fused trainer over the "
+                   "local devices with n_devices")
 
 
 def extract_batch(frontend, images, max_keypoints, seeds, pool=None):
@@ -329,21 +343,121 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
           restore_path: Optional[str] = None, cache_features: bool = False,
           init_weights: Optional[str] = None, fused_e2e: bool = False,
           multihost: bool = False, log_fn=print, device=None):
-    """Main loop. Returns the final TrainState."""
-    if n_devices > 1 or multihost:
-        raise NotImplementedError(MULTI_DEVICE)
+    """Main loop. Returns the final TrainState (rank 0's).
+
+    n_devices > 1: N local ranks, each a process started with the spawn
+    method, rank r on ``cuda:r`` over NCCL (``device="cpu"``: every rank on
+    the CPU, over gloo). The arguments are pickled to the ranks (`log_fn`
+    too: a rank's log lines go to its copy). multihost=True: this process
+    is one rank of the group that ``multihost.initialize`` joined, on
+    `device`; n_devices is ignored."""
+    if multihost:
+        if fused_e2e:
+            raise NotImplementedError(MULTIHOST_FUSED)
+        if not torch.distributed.is_initialized():
+            raise ValueError("multihost=True needs a process group: call "
+                             "train.multihost.initialize first")
+        return _train(cfg, train_dataset, val_dataset, save_dir, limit, carhynet_weights,
+                      max_steps, fast_frontend, restore_path, cache_features, init_weights,
+                      fused_e2e, log_fn, device, group=torch.distributed.group.WORLD)
+    if n_devices > 1:
+        return _train_local_ranks(n_devices, device, dict(
+            cfg=cfg, train_dataset=train_dataset, val_dataset=val_dataset,
+            save_dir=save_dir, limit=limit, carhynet_weights=carhynet_weights,
+            max_steps=max_steps, fast_frontend=fast_frontend, restore_path=restore_path,
+            cache_features=cache_features, init_weights=init_weights, fused_e2e=fused_e2e,
+            log_fn=log_fn))
+    return _train(cfg, train_dataset, val_dataset, save_dir, limit, carhynet_weights,
+                  max_steps, fast_frontend, restore_path, cache_features, init_weights,
+                  fused_e2e, log_fn, device)
+
+
+def _state_to(state: step_mod.TrainState, device) -> step_mod.TrainState:
+    def move(x):
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return x.to(device) if torch.is_tensor(x) else x
+
+    state.model.to(device)
+    state.opt_state = move(state.opt_state)
+    state.ema_params = move(state.ema_params) if state.ema_params is not None else None
+    return state
+
+
+def _local_rank(rank: int, world: int, init_method: str, device_type: str, threads: int,
+                kwargs: dict, out_dir: str):
+    """One local rank of ``train(n_devices=world)``: joins the group, trains,
+    and writes its final state (rank 0) or parameters (the others) to
+    `out_dir` for the launching process."""
+    dev = torch.device("cpu") if device_type == "cpu" else torch.device("cuda", rank)
+    if dev.type == "cpu":
+        torch.set_num_threads(threads)
+    mh.initialize(init_method, world, rank, device=dev)
+    try:
+        state = _train(**kwargs, device=dev, group=torch.distributed.group.WORLD)
+        if rank == 0:
+            torch.save(_state_to(state, "cpu"), os.path.join(out_dir, "state.pt"))
+        else:
+            torch.save({n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                       os.path.join(out_dir, f"params{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train_local_ranks(n: int, device, kwargs: dict):
+    """Run `_train` over n local ranks and return rank 0's state on its
+    device (``cuda:0`` or the CPU). Fails if a rank fails, or if a rank ends
+    with parameters that are not bit-equal to rank 0's."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise ValueError(f"n_devices={n} ranks need {n} CUDA devices, "
+                         f"{torch.cuda.device_count()} visible")
+    out_dir = tempfile.mkdtemp(prefix="gims_ranks_")
+    try:
+        # the CPU ranks share this process's threads
+        threads = max(1, torch.get_num_threads() // n)
+        mh.spawn(_local_rank, n, (n, mh.local_init_method(out_dir), dev.type, threads, kwargs,
+                                  out_dir))
+        # written by this program's own ranks just above
+        state = torch.load(os.path.join(out_dir, "state.pt"), weights_only=False)
+        params = dict(state.model.named_parameters())
+        for r in range(1, n):
+            other = torch.load(os.path.join(out_dir, f"params{r}.pt"), weights_only=True)
+            diverged = [k for k, p in params.items() if not torch.equal(p.detach(), other[k])]
+            if diverged:
+                raise RuntimeError(f"rank {r} ended with parameters that differ from rank "
+                                   f"0's: {diverged[:5]}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return _state_to(state, torch.device("cuda", 0) if dev.type == "cuda" else dev)
+
+
+def _train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
+           save_dir: Optional[str] = None, limit: int = -1,
+           carhynet_weights: Optional[str] = None,
+           max_steps: int = -1, fast_frontend: bool = False,
+           restore_path: Optional[str] = None, cache_features: bool = False,
+           init_weights: Optional[str] = None, fused_e2e: bool = False,
+           log_fn=print, device=None, group=None):
+    """The loop of one rank (of `group`, or the only one where None)."""
     if fused_e2e and cfg.frontend.descriptor_source != "dense_gray":
         raise ValueError("fused_e2e requires descriptor_source='dense_gray'")
     device = resolve_device(device)
+    n_ranks = mh.world_size(group) if group is not None else 1
+    is_main = group is None or mh.rank(group) == 0
+    if not is_main:
+        log_fn = lambda *a, **k: None  # noqa: E731 (rank-0 logging)
     tcfg = cfg.train
     if fast_frontend:
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
             cfg.frontend, interpolation="linear", warp_size=32))
     save_dir = Path(save_dir or os.path.join(tcfg.output_dir, tcfg.experiment_name))
     weight_dir = save_dir / "weights"
-    weight_dir.mkdir(parents=True, exist_ok=True)
-    results_file = open(save_dir / "results.txt", "a")
-    metrics_file = open(save_dir / "metrics.jsonl", "a")
+    if is_main:
+        weight_dir.mkdir(parents=True, exist_ok=True)
+    # the other ranks write to the bit bucket (rank-0 logging parity)
+    results_file = open(save_dir / "results.txt" if is_main else os.devnull, "a")
+    metrics_file = open(save_dir / "metrics.jsonl" if is_main else os.devnull, "a")
 
     np.random.seed(tcfg.init_seed)
     rng = np.random.RandomState(tcfg.init_seed)
@@ -369,16 +483,19 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
         val_dataset = data_mod.SyntheticPairDataset(
             cfg.dataset, length=tcfg.val_images_count, seed=999)
 
-    bsz = tcfg.batch_size
-    if fused_e2e and bsz != 1:
+    if fused_e2e and tcfg.batch_size != 1:
         raise ValueError("fused_e2e uses batch_size=1 per device")
+    bsz = tcfg.batch_size * n_ranks  # the global batch
     num_batches = max(len(train_dataset) // bsz, 1)
     start_epoch = tcfg.start_epoch
 
     def build_model():
         if fused_e2e:
-            return _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
-        return _matcher_from_variables(cfg, m_vars).to(device)
+            model = _joint_from_variables(cfg, m_vars, car_vars, tcfg.init_seed).to(device)
+        else:
+            model = _matcher_from_variables(cfg, m_vars).to(device)
+        # every rank starts from rank 0's replica (DDP's broadcast)
+        return mh.replicate(model, group) if group is not None else model
 
     if restore_path:
         model = build_model()
@@ -405,6 +522,7 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
         state, tx = step_mod.create_train_state(cfg, model, num_batches)
 
     image_shape = (cfg.dataset.image_height, cfg.dataset.image_width)
+    evaluator = eval_matcher = None
     if fused_e2e:
         from gims_tpu_torch.fused import FusedMatching, octave_budgets
 
@@ -414,18 +532,21 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
             log_fn(f"[train] matcher frozen for first {freeze_steps} steps "
                    f"({tcfg.freeze_gmatcher_epochs} epochs)")
         step_fn = fstep_mod.make_fused_e2e_train_step(cfg, tx, image_shape, budgets,
-                                                      freeze_steps=freeze_steps)
-        evaluator = FusedMatching(eval_config(cfg), variables=m_vars, car_variables=car_vars,
-                                  total_keypoints=tcfg.max_keypoints, device=device)
+                                                      freeze_steps=freeze_steps, group=group)
+        if is_main:
+            evaluator = FusedMatching(eval_config(cfg), variables=m_vars,
+                                      car_variables=car_vars,
+                                      total_keypoints=tcfg.max_keypoints, device=device)
 
-        def eval_matcher(data):
-            return evaluator(data["image0"][0], data["image1"][0])
+            def eval_matcher(data):
+                return evaluator(data["image0"][0], data["image1"][0])
     else:
         from gims_tpu_torch.api import Matching
 
-        step_fn = step_mod.make_train_step(cfg, tx, image_shape)
-        evaluator = eval_matcher = Matching(cfg, variables=m_vars, frontend=frontend,
-                                            device=device)
+        step_fn = step_mod.make_train_step(cfg, tx, image_shape, group=group)
+        if is_main:
+            evaluator = eval_matcher = Matching(cfg, variables=m_vars, frontend=frontend,
+                                                device=device)
     fused_sift = not fused_e2e and cfg.frontend.descriptor_source == "sift"
 
     best_val_score = 1e-10
@@ -433,18 +554,23 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
     order = np.arange(len(train_dataset))
     global_step = state.step
     log_fn(f"Started training for {tcfg.num_epochs} epochs, {num_batches} batches/epoch, "
-           f"1 device ({device})")
+           + (f"{n_ranks} ranks ({torch.distributed.get_backend(group)}), rank 0 on {device}"
+              if group is not None else f"1 device ({device})"))
     header = ("%10s" * 8) % ("Epoch", "Iter", "PosLoss", "NegLoss", "TotLoss",
                              "Dtime", "Ptime", "Mtime")
     # the prefetch worker prepares batch i+1 on the host while the device
     # runs step i; it alone touches the dataset and rng, so the data order
     # stays deterministic. Inside a batch the side pool extracts the images.
     prefetch = ThreadPoolExecutor(max_workers=1)
-    side_pool = ThreadPoolExecutor(max_workers=max(2, 2 * bsz))
+    side_pool = ThreadPoolExecutor(max_workers=max(2, 2 * tcfg.batch_size))
     batch_cache = {} if cache_features else None
     timed = device.type == "cuda"
 
     def make_batch(idxs):
+        if group is not None:
+            # every rank sees the same global order (same seed) and
+            # materializes only its own contiguous rows
+            idxs = idxs[mh.process_batch_slice(len(idxs))]
         key = tuple(int(i) for i in idxs) if cache_features else None
         if batch_cache is not None and key in batch_cache:
             return batch_cache[key], 0.0, 0.0
@@ -463,6 +589,10 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
         if batch_cache is not None:
             batch_cache[key] = batch
         return batch, t2 - t1, time.time() - t2
+
+    def save(payload, name):
+        if is_main:
+            torch.save(payload, weight_dir / name)
 
     try:
         for epoch in range(start_epoch, tcfg.num_epochs):
@@ -524,34 +654,40 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
                     ckpt_state = None
                     if (it + 1) % tcfg.lastiter_every < flush_every:
                         ckpt_state = _ckpt_payload(state, epoch, it)
-                        torch.save(ckpt_state, weight_dir / "lastiter.pt")
+                        save(ckpt_state, "lastiter.pt")
                     if ((it + 1) % tcfg.minloss_every < flush_every
                             and mloss[2] < best_min_loss):
                         best_min_loss = float(mloss[2])
                         log_fn(f"save minloss {epoch} with loss {best_min_loss}")
-                        torch.save(ckpt_state or _ckpt_payload(state, epoch, it),
-                                   weight_dir / "minloss.pt")
+                        save(ckpt_state or _ckpt_payload(state, epoch, it), "minloss.pt")
                 global_step += 1
                 if 0 < max_steps <= global_step:
                     break
 
-            # per-epoch validation with the EMA (or raw) weights
-            load_eval_weights(evaluator, state)
-            results = test_model(eval_matcher, val_dataset, tcfg.val_images_count,
-                                 agc={"radius": cfg.agc.radius,
-                                      "percentile": cfg.agc.percentile,
-                                      "min_size": cfg.agc.min_size},
-                                 device=device)
-            log_fn(f"Validation: {results}")
-            score = float(results["weight_score"])
+            # per-epoch validation with the EMA (or raw) weights, on rank 0;
+            # its score goes to every rank
+            score = 0.0
+            if is_main:
+                load_eval_weights(evaluator, state)
+                results = test_model(eval_matcher, val_dataset, tcfg.val_images_count,
+                                     agc={"radius": cfg.agc.radius,
+                                          "percentile": cfg.agc.percentile,
+                                          "min_size": cfg.agc.min_size},
+                                     device=device)
+                log_fn(f"Validation: {results}")
+                score = float(results["weight_score"])
+            if group is not None:
+                score = mh.broadcast_float(score, 0, group, device)
             ckpt_state = _ckpt_payload(state, epoch, -1)
-            torch.save(ckpt_state, weight_dir / "last.pt")
-            export_npz(state, str(weight_dir / "last.npz"))
+            save(ckpt_state, "last.pt")
+            if is_main:
+                export_npz(state, str(weight_dir / "last.npz"))
             if score > best_val_score:
                 best_val_score = score
                 log_fn(f"Saving best model at epoch {epoch} with score {best_val_score}")
-                torch.save(ckpt_state, weight_dir / "best.pt")
-                export_npz(state, str(weight_dir / "best.npz"))
+                save(ckpt_state, "best.pt")
+                if is_main:
+                    export_npz(state, str(weight_dir / "best.npz"))
             if 0 < max_steps <= global_step:
                 break
     finally:
@@ -559,4 +695,7 @@ def train(cfg: GIMSConfig, train_dataset=None, val_dataset=None,
         side_pool.shutdown(wait=True)
         results_file.close()
         metrics_file.close()
+    if group is not None:
+        # keep the ranks together through rank 0's closing work
+        torch.distributed.barrier(group)
     return state

@@ -18,8 +18,13 @@ LR schedule parity with train.py:87,101-105 + change_lr (train.py:21-26):
 linear warmup over warmup_epochs*num_batches steps, then per-epoch
 exponential decay after step_epoch.
 
-The data-parallel step (``make_distributed_train_step``) is not ported yet
-(see ROADMAP.md).
+Data parallelism (``make_distributed_train_step``, or ``group=`` on
+``make_train_step``): each rank runs the step on its own rows of the global
+batch, and the gradients, the metrics and the batch-statistics updates are
+averaged over the ranks (``multihost.all_mean``, one all-reduce a step)
+before the optimizer and before the statistics are written, where the JAX
+step pmeans them (``gims_tpu/train/step.py:181-184``). So every rank applies
+the same update to the same replica.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 from gims_tpu_torch.config import GIMSConfig
 from gims_tpu_torch.matcher import pipeline
 from gims_tpu_torch.train import gt as gt_mod
+from gims_tpu_torch.train import multihost
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -199,7 +205,25 @@ def _grads(params: Tensors) -> Tensors:
             for n, p in params.items()}
 
 
-def make_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape):
+def mean_across(group, grads: Tensors, metrics: Tensors, updates):
+    """(grads, metrics, updates) averaged over `group`'s ranks in one
+    all-reduce (the JAX steps' three pmeans); as given where `group` is
+    None. `metrics["vec"]` is rebuilt from the averaged losses."""
+    if group is None:
+        return grads, metrics, updates
+    stats = updates.get("batch_stats", {})
+    scalars = {k: v for k, v in metrics.items() if k != "vec"}
+    merged = multihost.all_mean({**{"g." + n: g for n, g in grads.items()},
+                                 **{"m." + n: m for n, m in scalars.items()},
+                                 **{"s." + n: s for n, s in stats.items()}}, group)
+    grads = {n: merged["g." + n] for n in grads}
+    metrics = {n: merged["m." + n] for n in scalars}
+    metrics["vec"] = torch.stack([metrics["pos_loss"], metrics["neg_loss"],
+                                  metrics["total_loss"]])
+    return grads, metrics, {**updates, "batch_stats": {n: merged["s." + n] for n in stats}}
+
+
+def make_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape, group=None):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: kpts0/desc0/valid0/kpts1/desc1/valid1 (B leading) and per-item
@@ -209,6 +233,10 @@ def make_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape):
     descriptors are normalized and duplicated and the ground truth matched
     in the step, as the JAX package's fused raw form. The state's model is
     updated in place.
+
+    group: a ``torch.distributed`` group (the JAX step's ``axis_name``): the
+    gradients, metrics and batch-statistics updates are averaged over its
+    ranks before the optimizer runs (``mean_across``).
     """
     acfg = cfg.agc
 
@@ -253,7 +281,8 @@ def make_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape):
         metrics = {"total_loss": total.detach(), "pos_loss": pos.detach(),
                    "neg_loss": neg.detach(),
                    "vec": torch.stack([pos, neg, total]).detach()}
-        upd, state.opt_state = tx.update(_grads(params), state.opt_state, params)
+        grads, metrics, updates = mean_across(group, _grads(params), metrics, updates)
+        upd, state.opt_state = tx.update(grads, state.opt_state, params)
         apply_updates(params, upd)
         if state.ema_params is not None:
             state.ema_params, state.ema_updates = ema_update(
@@ -263,3 +292,11 @@ def make_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape):
         return state, metrics
 
     return step
+
+
+def make_distributed_train_step(cfg: GIMSConfig, tx: Optimizer, image_shape, group):
+    """The data-parallel step (JAX: the step under ``shard_map`` over the
+    data axis). Each rank calls it with its own rows of the global batch
+    (``multihost.process_batch_slice``) and its replica of the state; the
+    gradients, metrics and batch statistics are averaged over `group`."""
+    return make_train_step(cfg, tx, image_shape, group=group)

@@ -55,7 +55,7 @@ def test_plain_versions_match_jax(impl, reference):
 def test_dispatch_on_cpu():
     """On the CPU "auto" and "pallas" give the plain versions (the kernel's
     wrapper takes its plain version for CPU tensors and launches nothing);
-    "ring" is not ported."""
+    "ring" without a group set raises ValueError, as JAX's without a mesh."""
     q, k, v, mask = torch_args(*inputs(1, n=70, m=130))
     want = attention.masked_attention_direct(q, k, v, mask)
     before = cuda_attention.launches
@@ -63,7 +63,7 @@ def test_dispatch_on_cpu():
         got = attention.masked_attention(q, k, v, mask, impl=impl)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
     assert cuda_attention.launches == before
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="set_ring_group"):
         attention.masked_attention(q, k, v, mask, impl="ring")
 
 

@@ -16,6 +16,8 @@ direct version (P kept in f32): RMS error <= 2**-8 of the output's RMS (the
 output's rounding alone gives ~2**-8/sqrt(3)). Sinkhorn Z 2e-4 on the valid
 block (f32 sums in another order over the iterations), for both of its
 kernels: the fused one (rows up to 14340 columns) and the streaming one.
+The attention kernel's partial mode: its output bit-equal to the default
+mode's, its row statistics 1e-4 from the plain version's.
 The patch warp on the card against the same warp on the CPU: 1e-3 on the
 0..255 scale with TF32 off (the same f32 arithmetic; a sample coordinate may
 round differently by an ulp).
@@ -73,6 +75,25 @@ def test_attention_kernel_vs_plain(cuda, dtype, rtol, n, m):
     if dtype == torch.bfloat16:
         err = out.float() - direct
         assert err.pow(2).mean().sqrt() <= 2.0 ** -8 * direct.pow(2).mean().sqrt()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 36])
+def test_attention_partial_mode_vs_plain(cuda, dtype, d):
+    """The kernel's partial mode (ring attention's step): the output
+    bit-equal to the default mode's, each row's base-2 max within 1e-4 and
+    sum within 1e-4 relative of attention_partials_tiled's (scores summed in
+    another order)."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, x, 4, d), generator=g, device=cuda).to(dtype)
+               for x in (100, 260, 260))
+    mask = torch.rand((2, 260), generator=g, device=cuda) < 0.7
+    out, stats = cuda_attention.attention_partials_cuda(q, k, v, mask)
+    assert torch.equal(out, cuda_attention.masked_attention_cuda(q, k, v, mask))
+    _, want = attention.attention_partials_tiled(q, k, v, mask)
+    assert stats.shape == (2, 100, 4, 2) and stats.dtype == torch.float32
+    assert (stats[..., 0] - want[..., 0]).abs().max().item() <= 1e-4
+    assert ((stats[..., 1] - want[..., 1]).abs() / want[..., 1]).max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

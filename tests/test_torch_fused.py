@@ -239,10 +239,16 @@ def test_fused_matching_contract_on_cpu(slice_inputs):
 
 @pytest.mark.parametrize("knob", [{}, {"descriptor_source": "devsift"}])
 def test_unported_knobs_raise(knob):
-    """The multi-device split is not ported (init_scheme="identity", refused
-    here before, is: see test_identity_init_scheme_builds)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfused.FusedMatching(knob, device="cpu", devices=2)
+    """The multi-device split, refused here before, builds on a repeated
+    CPU device: the config of the unsplit instance, one replica per distinct
+    device. devices=N names N cards, and without CUDA raises (no fallback
+    to the CPU)."""
+    split = tfused.FusedMatching(knob, device="cpu", devices=["cpu", "cpu"])
+    assert split.resolved_config() == tfused.FusedMatching(knob, device="cpu").resolved_config()
+    assert split.devices == [torch.device("cpu")] * 2 and len(split.replicas) == 1
+    assert split.replicas[torch.device("cpu")][0] is split.model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfused.FusedMatching(knob, devices=2)
 
 
 @pytest.mark.parametrize("knob", [
@@ -309,8 +315,17 @@ def test_accelerator_knobs_on_cpu_match_jax(slice_inputs):
 
 
 def test_devices_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """devices=N on a machine without CUDA raises, as does a split of an odd
+    batch over two devices (JAX's ValueError) or devices of two types."""
+    with pytest.raises(RuntimeError, match="CUDA"):
         tfused.FusedMatching(device="cpu", devices=2)
+    split = tfused.FusedMatching({"descriptor_source": "devsift", "upsample": False},
+                                 total_keypoints=256, devices=["cpu", "cpu"])
+    imgs = np.zeros((3, 96, 128), np.uint8)
+    with pytest.raises(ValueError, match="not divisible by the 2-device mesh"):
+        split.dispatch_batch(imgs, imgs)
+    with pytest.raises(ValueError, match="differ in type"):
+        tfused.FusedMatching(device="meta", devices=["cpu"])
 
 
 def test_synthetic_pair_follows_its_homography():

@@ -38,7 +38,10 @@ REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_tor
             "gims_tpu_torch.cli.train_cli",
             # host SIFT, the classic trainer and CAR-HyNet's trainer
             "gims_tpu_torch.carhynet.model", "gims_tpu_torch.carhynet.loss",
-            "gims_tpu_torch.carhynet.train"]
+            "gims_tpu_torch.carhynet.train",
+            # data parallelism and ring attention
+            "gims_tpu_torch.train.multihost", "gims_tpu_torch.train.dp_check",
+            "gims_tpu_torch.matcher.ring_attention"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -82,6 +85,43 @@ def test_port_and_chip_smoke_import_without_blocked_packages():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("imported ")[1].split()[0])
     assert n >= 55  # package, subpackages and every module under them
+
+
+SPAWNED = r"""
+import importlib.abc, sys, tempfile
+BLOCKED = set(%r)
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.split(".")[0] in BLOCKED:
+            raise ImportError("blocked on the GPU machine: " + fullname)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import torch
+from gims_tpu_torch.train import dp_check
+case = {"q": torch.randn(1, 8, 2, 4), "k": torch.randn(1, 8, 2, 4),
+        "v": torch.randn(1, 8, 2, 4), "mask": torch.ones(1, 8, dtype=torch.bool)}
+with tempfile.TemporaryDirectory() as d:
+    ranks = dp_check.run(dp_check.ring_rank, ["cpu", "cpu"], "gloo", {"cases": [case]}, d)
+for r in ranks:
+    leaked = sorted(BLOCKED & set(r["modules"]))
+    assert not leaked, leaked
+print("ranks", len(ranks))
+""" % (BLOCKED,)
+
+
+def test_spawned_ranks_import_no_blocked_packages():
+    """The ranks of the port's data-parallel runs are fresh interpreters
+    (spawn), where the parent's refusals do not reach: they report their
+    modules, and none may be blocked."""
+    proc = subprocess.run([sys.executable, "-c", SPAWNED], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "ranks 2" in proc.stdout
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():

@@ -13,8 +13,8 @@
   descriptors: two epochs of one batch with ``cache_features`` (the second
   epoch takes the cached batch: no data or preprocessing time), finite
   losses, last/minloss checkpoints and the EMA npz; a resume continues the
-  step count; the CLI without ``--fused_e2e`` runs; more than one device
-  raises.
+  step count; the CLI without ``--fused_e2e`` runs; two CPU ranks run
+  (``tests/test_torch_distributed.py`` holds them to one rank).
 - ``CocoPairDataset`` on a PNG ``train2017/`` folder (with and without the
   annotations json): H equal, images within the tolerance of the other
   datasets (two levels on at most 2% of the pixels); a JPEG raises.
@@ -139,8 +139,9 @@ def test_classic_train_resume_cache_and_cli(tmp_path):
                           limit=1, restore_path=str(weights / "last"), device="cpu",
                           log_fn=logs.append)
     assert resumed.step == 3 and resumed.opt_state["count"] == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train(cfg, n_devices=2, device="cpu")
+    dp = tloop.train(_small_cfg(tmp_path, epochs=1), save_dir=str(tmp_path / "dp"), limit=2,
+                     n_devices=2, device="cpu")  # one step of a pair a rank
+    assert dp.step == 1 and (tmp_path / "dp" / "weights" / "last.npz").exists()
     yaml = tmp_path / "small.yaml"
     yaml.write_text(f"""train_params:
   output_dir: {tmp_path}

@@ -19,8 +19,9 @@ on the CPU, and its loop and CLI.
   product at Precision.HIGH, bf16x3, which on the CPU is f32; the port
   computes in f32).
 - ``train()`` on the CPU with ``max_steps=2``, then its resume from
-  ``last``, which continues the optimizer's step count; and one CLI run with
-  ``--device cpu``.
+  ``last``, which continues the optimizer's step count, then one step over
+  two CPU ranks (a pair each); under ``multihost`` it raises, as the JAX
+  loop does; and one CLI run with ``--device cpu``.
 """
 
 import dataclasses
@@ -255,10 +256,12 @@ def test_train_loop_and_resume(tmp_path):
         cfg.train, num_epochs=3)), save_dir=str(tmp_path / "run"), limit=2, max_steps=3,
         fused_e2e=True, restore_path=str(weights / "last"), device="cpu", log_fn=logs.append)
     assert resumed.step == 3 and resumed.opt_state["count"] == 3 and resumed.ema_updates == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train(cfg, fused_e2e=False, multihost=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train(cfg, fused_e2e=True, n_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="multihost fused_e2e"):
+        tloop.train(cfg, fused_e2e=True, multihost=True, device="cpu")
+    dp = tloop.train(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=1, freeze_gmatcher_epochs=0)), save_dir=str(tmp_path / "dp"),
+        limit=2, fused_e2e=True, init_weights=E2E, n_devices=2, device="cpu")
+    assert dp.step == 1 and (tmp_path / "dp" / "weights" / "last_car.npz").exists()
 
 
 def test_train_cli_runs_on_cpu(tmp_path):
@@ -295,5 +298,6 @@ frontend_params:
                             "--descriptor_source", "dense_gray"])
     assert state.step == 1
     assert (tmp_path / "run" / "weights" / "last.npz").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--config_path", str(cfg_path), "--devices", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="multihost fused_e2e"):
+        train_cli.main(["--config_path", str(cfg_path), "--fused_e2e", "--device", "cpu",
+                        "--coordinator", "127.0.0.1:1", "--num_processes", "2"])

@@ -14,7 +14,8 @@ Phases, one line each with its seconds:
     width of 256 (a 512-d trunk of 2 heads; the kernel's widest), timed.
   3 the Sinkhorn kernels against their plain PyTorch version on the card:
     the fused kernel at Z of 2049, 8193, (8, 3073), (4, 6145), 6145 and
-    3073 square, the streaming kernel at 24577 (the widest bucket).
+    3073 square, the streaming kernel at 24577 (the widest bucket) and at
+    16385 x 100 iterations (phase 22's unsharded reference).
   4 the slice: gims_tpu_torch.api.Matching with the staged checkpoint
     (weights/gims_tpu_sift_last.npz, 18 GNN layers, 256-d) serves four
     synthetic keypoint requests in an 800x600 frame (buckets 2048 and
@@ -183,8 +184,25 @@ Phases, one line each with its seconds:
     (f32 within RING_F32_TOL of dense K1, bf16 within RING_BF16_REL_RMS of
     dense K1 and of the direct version by relative RMS) and at P=1 over
     NCCL (bit-equal to dense K1), 2 and 1 partial launches a rank.
+  22 keypoint-axis sharding (run after phase 21, before 13):
+    forward_match with every O(N^2) tensor split over ranks
+    (gims_tpu_torch/matcher/sharded.py; workers in train/shard_check.py),
+    sift_last.npz at its widths on one synthetic pair, AGC 15/2/7 (dense,
+    exact threshold and reconnect). At bucket 4096 (3700 keypoints a side)
+    in f32 and at 16384 (15000, the reference's limit) in bf16: first the
+    unsharded port (K1, K2, the label kernel; 18/1/1 launches), then
+    make_forward_match_sharded over two gloo ranks sharing the card, and at
+    16384 over a one-rank NCCL group. It fails unless the ranks end
+    bit-equal, kept equals the unsharded run's, matches0 agree on
+    SHARD_AGREE of the rows (f32 scores within SHARD_SCORE_TOL), each rank
+    launches K1's partial mode 18 x P times a call (and nothing else on
+    the path), and at 16384 each P=2 rank's peak memory in the call (above
+    what it held before) is at most SHARD_MEMORY_SHARE of the unsharded
+    run's. Prints ms per call of each run, peaks and their shares; then
+    K1's partial mode at the ring steps' shapes (P=2: f32 (2, 2048), bf16
+    (2, 8192); P=1: bf16 (2, 16384)).
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20):
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20, 22):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -193,16 +211,18 @@ Phases, one line each with its seconds:
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
-    thirteen paths' shapes, the label rounds of phase 20's steps and K1's
-    partial mode at the ring's step shapes; the script's total seconds.
+    fourteen paths' shapes (phase 22's unsharded reference at 16384 among
+    them), the label rounds of phase 20's steps and K1's partial mode at
+    the step shapes of phase 21's and phase 22's rings; the script's total
+    seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
 Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
 gims_tpu_torch/_build/ but phase 15's pairs and artifacts, phases 16's
-and 18's checkpoints and the spec and results of phases 20's and 21's
-ranks, in temporary directories that it removes. Phases 20 and 21 start
+and 18's checkpoints and the spec and results of phases 20's, 21's and
+22's ranks, in temporary directories that it removes. Phases 20-22 start
 their ranks as processes and wait for them to end.
 """
 
@@ -232,7 +252,8 @@ from gims_tpu_torch.agc import graph, labels  # noqa: E402
 from gims_tpu_torch.api import Matching, init_gmatcher_variables  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
 from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
-from gims_tpu_torch.config import FrontendConfig, MatcherConfig, load_config  # noqa: E402
+from gims_tpu_torch.config import (AGCConfig, FrontendConfig, MatcherConfig,  # noqa: E402
+                                   load_config)
 from gims_tpu_torch.core import checkpoint as ckpt_io  # noqa: E402
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
 from gims_tpu_torch.eval import homography  # noqa: E402
@@ -241,11 +262,13 @@ from gims_tpu_torch.carhynet import train as car_train  # noqa: E402
 from gims_tpu_torch.frontend import sift  # noqa: E402
 from gims_tpu_torch.frontend.feature import FeatureFrontend  # noqa: E402
 from gims_tpu_torch.matcher import attention, cuda_attention, cuda_sinkhorn, pipeline, sinkhorn  # noqa: E402
-from gims_tpu_torch.matcher.convert import load_gims_checkpoint  # noqa: E402
+from gims_tpu_torch.matcher.convert import load_gims_checkpoint, load_variables  # noqa: E402
+from gims_tpu_torch.matcher.sharded import make_forward_match_sharded  # noqa: E402
 from gims_tpu_torch.matcher.gmatcher import GMatcher  # noqa: E402
 from gims_tpu_torch.synthetic import correct_share, synthetic_image_pair, synthetic_request  # noqa: E402
 from gims_tpu_torch.train import data as train_data  # noqa: E402
-from gims_tpu_torch.train import dp_check, fused_step, gt, multihost  # noqa: E402
+from gims_tpu_torch.train import (dp_check, fused_step, gt, multihost,  # noqa: E402
+                                  shard_check)
 from gims_tpu_torch.train import loop as train_loop  # noqa: E402
 from gims_tpu_torch.train import step as train_step  # noqa: E402
 
@@ -294,7 +317,9 @@ ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
               (16, 3072, 3072, 400), (8, 6144, 6144, 700), (2, 6144, 6144, 900),
               (2, 3072, 3072, 300),
               # a split of the fused path's batch of 8 in two (phase 19): B=8, 3072
-              (8, 3072, 3072, 400))
+              (8, 3072, 3072, 400),
+              # the unsharded reference of phase 22: one pair at bucket 16384
+              (2, 16384, 16384, 1400))
 # the trainer's validation (one pair of 6144 keypoints compacted to 3072,
 # sides stacked) is ATTN_CASES[6]. A head of 256 columns (a 512-d
 # trunk of 2 heads) at the staged image path's bucket: the kernel's widest
@@ -315,7 +340,10 @@ SINKHORN_CASES = ((2048, [1800], [1750], SINKHORN_ITERS), (8192, [7000], [6900],
                   # staged Matching with host SIFT at 2048 keypoints (phases 15, 17)
                   (2048, [1800], [1750], FUSED_ITERS),
                   # a split of the fused path's batch of 8 in two (phase 19)
-                  (3072, [2900, 3072, 2500, 3000], [2950, 3000, 2600, 3072], FUSED_ITERS))
+                  (3072, [2900, 3072, 2500, 3000], [2950, 3000, 2600, 3072], FUSED_ITERS),
+                  # the unsharded reference of phase 22 at bucket 16384 (the
+                  # streaming kernel)
+                  (16384, [15000], [15000], SINKHORN_ITERS))
 # the fused image path as the JAX package's bench runs it (bench.py:223-275)
 FUSED_FRAME = (600, 800)
 FUSED_BATCH = 8
@@ -471,6 +499,21 @@ RING_CASES = ((2, 6144, torch.bfloat16), (2, 2048, torch.float32))
 # 2 * 2**-8
 RING_F32_TOL = 1e-4
 RING_BF16_REL_RMS = 2.0 ** -7
+# phase 22: keypoint-axis sharding. (bucket, valid keypoints a side, trunk
+# dtype): an f32 check at 4096 and the reference's limit (~15k keypoints)
+# at 16384 in bf16, sift_last.npz at its widths, one synthetic pair each
+SHARD_CASES = ((4096, 3700, "float32"), (16384, 15000, "bfloat16"))
+SHARD_SEED = 1400
+# the sharded run against the unsharded port: kept equal; matches0
+# agreement (the f32 bar is JAX's own, tests/test_sharded.py; bf16 runs K1
+# against the ring's merged partials, two roundings of each output); f32
+# matching scores within JAX's 2e-3
+SHARD_AGREE = {"float32": 0.995, "bfloat16": 0.99}
+SHARD_SCORE_TOL = 2e-3
+# each P=2 rank's peak device memory in a call against the unsharded run's,
+# both above what their process held before the call (the same model and
+# inputs; this process also holds the label inputs recorded for phase 13)
+SHARD_MEMORY_SHARE = 0.6
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
 
@@ -2388,6 +2431,155 @@ def ring_phase():
     return rows, launches
 
 
+def shard_inputs(nb, nv, seed):
+    """A synthetic keypoint pair (``synthetic_request``, 800x600) padded to
+    bucket nb: (1, nb, .) keypoints at 1e6 past nv, descriptors, valid."""
+    req, _ = synthetic_request(seed, nv)
+    out = []
+    for side in "01":
+        kp = np.full((1, nb, 2), 1e6, np.float32)
+        kp[0, :nv] = req["keypoints" + side]
+        de = np.zeros((1, nb, 256), np.float32)
+        de[0, :nv] = req["descriptors" + side]
+        va = np.zeros((1, nb), bool)
+        va[0, :nv] = True
+        out += [torch.from_numpy(kp), torch.from_numpy(de), torch.from_numpy(va)]
+    return out
+
+
+def shard_matcher(variables, dtype):
+    cfg = MatcherConfig(attention_dtype=dtype, use_pallas_sinkhorn=True)
+    model = GMatcher(cfg)
+    load_variables(model, variables)
+    return model.to(DEVICE).eval()
+
+
+def timed_call(fn):
+    """(result, ms) of one call, host clock around a synced call."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def shard_agreement(got, want, dtype, name):
+    """kept equal, matches0 agreement and (f32) matching scores against the
+    unsharded run; raises past the bars."""
+    info = {"kept_equal": all(torch.equal(got[k].cpu(), want[k].cpu()) for k in ("kept0", "kept1")),
+            "matches0_agreement": (got["matches0"].cpu() == want["matches0"].cpu())
+            .float().mean().item(),
+            "max_score_diff": (got["matching_scores0"].cpu() - want["matching_scores0"].cpu())
+            .abs().max().item(),
+            "matches": int((got["matches0"] >= 0).sum())}
+    ok = (info["kept_equal"] and info["matches0_agreement"] >= SHARD_AGREE[dtype]
+          and info["matches"] > 0 and bool(torch.isfinite(got["matching_scores0"]).all())
+          and (dtype != "float32" or info["max_score_diff"] <= SHARD_SCORE_TOL))
+    if not ok:
+        raise AssertionError(f"sharded {name} against the unsharded port: {info}")
+    return info
+
+
+def shard_phase(variables):
+    """forward_match with its keypoint axis split over ranks, against the
+    unsharded port: at each case the unsharded port (K1, K2, the label
+    kernel), then make_forward_match_sharded over two gloo ranks sharing the
+    card; at 16384 also over a one-rank NCCL group. Then K1's partial mode
+    at the ring steps' shapes."""
+    t0 = time.perf_counter()
+    acfg = AGCConfig(**STAGED_KNOBS)
+    inputs = {nb: shard_inputs(nb, nv, SHARD_SEED + nb) for nb, nv, _ in SHARD_CASES}
+    want, info = {}, {}
+    for nb, nv, dt in SHARD_CASES:
+        model = shard_matcher(variables, dt)
+        args = [x.to(DEVICE) for x in inputs[nb]]
+        # the ranks of make_forward_match_sharded's default, passed to both
+        k0, k1 = (pipeline.percentile_rank(v.sum(dim=1), acfg.percentile) for v in args[2::3])
+
+        def unsharded():
+            return pipeline.forward_match(model, acfg, *args, FUSED_FRAME, k0=k0, k1=k1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        with record_labels(f"sharded_reference_{nb}"):
+            out, first_ms = timed_call(unsharded)
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        if launches != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+            raise AssertionError(f"unsharded {nb}: launches {launches}")
+        want[nb] = {k: v.cpu() for k, v in out.items()}
+        info[nb] = {"case": f"bucket {nb}, {nv} valid a side, {dt}",
+                    "unsharded": {"ms_first_call": first_ms, "ms": timed_call(unsharded)[1],
+                                  "peak_bytes": peak, "temp_bytes": peak - base,
+                                  "launches": launches,
+                                  "matches": int((out["matches0"] >= 0).sum())}}
+        del model, out, args
+    torch.cuda.empty_cache()
+
+    jobs = [{"kind": "match", "mcfg": MatcherConfig(attention_dtype=dt, use_pallas_sinkhorn=True),
+             "variables": variables, "acfg": acfg, "inputs": inputs[nb],
+             "image_shape": FUSED_FRAME, "reps": 1} for nb, _, dt in SHARD_CASES]
+    with tempfile.TemporaryDirectory(prefix="gims_shard_") as tmp:
+        t = time.perf_counter()
+        ranks = dp_check.run(shard_check.shard_rank, [DEVICE + ":0"] * DP_SPLIT, "gloo",
+                             {"jobs": jobs}, tmp)
+        wall = time.perf_counter() - t
+    leaked = [m for r in ranks for m in r["modules"] if m in ("jax", "gims_tpu")]
+    if leaked:
+        raise AssertionError(f"a rank imported {leaked}")
+    launches = {}
+    for j, (nb, nv, dt) in enumerate(SHARD_CASES):
+        got = [r["jobs"][j] for r in ranks]
+        for g in got[1:]:
+            for key, value in got[0]["out"].items():
+                if not torch.equal(g["out"][key], value):
+                    raise AssertionError(f"sharded {nb}: the ranks' {key} differ")
+        row = {"backend": "gloo", "ranks_bit_equal": True,
+               "ms_first_call": [g["ms"] for g in got], "ms": [g["ms_per_call"] for g in got],
+               "peak_bytes": [g["peak_bytes"] for g in got],
+               "temp_bytes": [g["temp_bytes"] for g in got],
+               "temp_share": [g["temp_bytes"] / info[nb]["unsharded"]["temp_bytes"] for g in got],
+               "partial_launches": [g["partial_launches"] for g in got],
+               **shard_agreement(got[0]["out"], want[nb], dt, f"P={DP_SPLIT} {nb}")}
+        if row["partial_launches"] != [NUM_LAYERS * DP_SPLIT] * DP_SPLIT:
+            raise AssertionError(f"sharded {nb}: K1 partial launches {row}")
+        if nb == SHARD_CASES[-1][0] and max(row["temp_share"]) > SHARD_MEMORY_SHARE:
+            raise AssertionError(f"sharded {nb}: a rank's peak memory {row}")
+        info[nb][f"P={DP_SPLIT}"] = row
+        launches[dt] = sum(row["partial_launches"])
+
+    nb, nv, dt = SHARD_CASES[-1]
+    model = shard_matcher(variables, dt)
+    args = [x.to(DEVICE) for x in inputs[nb]]
+    with nccl_world_one() as group:
+        call = make_forward_match_sharded(model, acfg, group, FUSED_FRAME)
+        reset_counts()
+        out, first_ms = timed_call(lambda: call(*args))
+        nccl_launches = cuda_attention.partial_launches
+        row = {"backend": "nccl", "ms_first_call": first_ms,
+               "ms": timed_call(lambda: call(*args))[1], "partial_launches": nccl_launches,
+               **shard_agreement(out, want[nb], dt, f"P=1 {nb}")}
+    if nccl_launches != NUM_LAYERS or counts()["attention"] or counts()["sinkhorn"]:
+        raise AssertionError(f"sharded P=1 {nb}: launches {counts()}, partial {nccl_launches}")
+    info[nb]["P=1"] = row
+    launches["nccl"] = nccl_launches
+    del model, out, args
+    torch.cuda.empty_cache()
+    for nb, *_ in SHARD_CASES:
+        print(f"  shard {json.dumps(info[nb])}", flush=True)
+
+    # K1's partial mode at the ring steps' shapes: P=2 (N/2 against M/2) and
+    # the one-rank ring (N against M)
+    partial = {"float32": partial_row(2, SHARD_CASES[0][0] // DP_SPLIT, torch.float32, 2207),
+               "bfloat16": partial_row(2, SHARD_CASES[1][0] // DP_SPLIT, torch.bfloat16, 2208),
+               "nccl": partial_row(2, SHARD_CASES[1][0], torch.bfloat16, 2209)}
+    torch.cuda.empty_cache()
+    phase("22 keypoint-axis sharding (forward_match over 2 gloo ranks sharing the card and a "
+          "one-rank NCCL group, against the unsharded port)", t0, ranks_wall_s=f"{wall:.3f}")
+    return partial, launches, info[SHARD_CASES[-1][0]]["unsharded"]["launches"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2503,7 +2695,7 @@ def label_row(suffix, lab, launches):
             "library": "none: no single PyTorch call labels connected components"}
 
 
-def kernel_rows(attn, sk, lab, path_launches, partial, dp_train, ring_launches):
+def kernel_rows(attn, sk, lab, path_launches, partial, dp_train, ring_launches, shard):
     """The `kernels` line: K1, K2 and the label-rounds kernel at each path's
     shapes, with that path's main-run launch counts (the fused colour paths
     share devsift's K1 and K2 shapes: 4 pairs compacted to 6144); the label
@@ -2536,7 +2728,10 @@ def kernel_rows(attn, sk, lab, path_launches, partial, dp_train, ring_launches):
             ("_classic_train_path", ATTN_CASES[1], SINKHORN_CASES[1], "classic_train_side0",
              "float32"),
             # FusedMatching split in two chunks of 4 pairs on the card (phase 19)
-            ("_dp_serving_path", ATTN_CASES[7], SINKHORN_CASES[8], "dp_serving")):
+            ("_dp_serving_path", ATTN_CASES[7], SINKHORN_CASES[8], "dp_serving"),
+            # the unsharded reference of phase 22 at bucket 16384
+            ("_sharded_reference_path", ATTN_CASES[8], SINKHORN_CASES[9],
+             "sharded_reference_16384")):
         b, n, m, _ = attn_case
         a = attn[(b, n, m, dtype[0] if dtype else "bfloat16")]
         s = sk[(sk_case[0], len(sk_case[1]), sk_case[3])]
@@ -2562,6 +2757,14 @@ def kernel_rows(attn, sk, lab, path_launches, partial, dp_train, ring_launches):
                      "replaces": "gims_tpu/matcher/pallas_attention.py:42",
                      **partial[(b, n // DP_SPLIT, dt)], "launches": ring_launches[dt],
                      "kernel_ms": partial[(b, n // DP_SPLIT, dt)]["ms"]})
+    # phase 22: the ring steps of the sharded forward_match, on the two
+    # ranks of P=2 (f32 at 4096, bf16 at 16384) and on the one NCCL rank
+    shard_partial, shard_launches = shard
+    for key, row in shard_partial.items():
+        rows.append({"name": f"masked_attention_partial_sharded_path_{key}", "route": "cuda",
+                     "source": "gims_tpu_torch/csrc/attention.cu",
+                     "replaces": "gims_tpu/matcher/pallas_attention.py:42",
+                     **row, "launches": shard_launches[key], "kernel_ms": row["ms"]})
     return rows
 
 
@@ -2603,6 +2806,7 @@ def main():
     dp_train_launches = dp_train_phase()
     partial, ring_launches = ring_phase()
     torch.cuda.empty_cache()
+    shard = shard_phase(load_gims_checkpoint(WEIGHTS))
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -2617,8 +2821,9 @@ def main():
                                        "_eval_staged_host_path": eval_launches["staged_host"],
                                        "_host_sift_staged_path": host_launches,
                                        "_classic_train_path": classic_launches,
-                                       "_dp_serving_path": dp_serving_launches},
-                      partial, dp_train_launches, ring_launches)
+                                       "_dp_serving_path": dp_serving_launches,
+                                       "_sharded_reference_path": shard[2]},
+                      partial, dp_train_launches, ring_launches, shard[:2])
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

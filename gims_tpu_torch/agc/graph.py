@@ -206,9 +206,25 @@ def _prune_small(labels: torch.Tensor, valid: torch.Tensor, min_size: int) -> to
     return valid & (torch.gather(sizes, 1, safe_labels) >= int(min_size))
 
 
-def _component_links_head(kpts, labels, kept, C):
+def _nearest_component(cent, comp_ok, l0: int = 0, l1: Optional[int] = None):
+    """nnc[b, l] for components l in [l0, l1) (all by default): the nearest
+    other surviving component by centroid, the first among ties; sentinel
+    C+1."""
+    c1 = cent.shape[1]
+    l1 = c1 if l1 is None else l1
+    dx = cent[:, l0:l1, None, 0] - cent[:, None, :, 0]
+    dy = cent[:, l0:l1, None, 1] - cent[:, None, :, 1]
+    cd2 = dx * dx + dy * dy                              # (B, l1-l0, C+1)
+    comp_ids = torch.arange(c1, device=cent.device)
+    comp_pair_ok = (comp_ok[:, l0:l1, None] & comp_ok[:, None, :]
+                    & (comp_ids[l0:l1, None] != comp_ids[None, :]))
+    return _first_min_index(cd2, comp_pair_ok, dim=2)[1]
+
+
+def _component_links_head(kpts, labels, kept, C, nearest=_nearest_component):
     """Rank-compacted component ids, centroids, each component's nearest
-    component, and the link skip rule (reference: agc.py:518-565)."""
+    component (``nearest(cent, comp_ok)``), and the link skip rule
+    (reference: agc.py:518-565)."""
     b, n = kept.shape
     dev = kpts.device
     idx = torch.arange(n, device=dev)
@@ -227,12 +243,8 @@ def _component_links_head(kpts, labels, kept, C):
     sy = _segment_sum(torch.where(kept, kpts[..., 1], 0.0), lab, C + 1)
     cent = torch.stack([sx, sy], dim=-1) / torch.clamp(cnt, min=1.0)[..., None]
 
-    cd = cent[:, :, None, :] - cent[:, None, :, :]
-    cd2 = torch.sum(cd * cd, dim=-1)                     # (B, C+1, C+1)
     comp_ids = torch.arange(C + 1, device=dev)
-    comp_pair_ok = (comp_ok[:, :, None] & comp_ok[:, None, :]
-                    & (comp_ids[:, None] != comp_ids[None, :]))
-    _, nnc = _first_min_index(cd2, comp_pair_ok, dim=2)  # sentinel C+1
+    nnc = nearest(cent, comp_ok)                         # sentinel C+1
     nnc_safe = torch.clamp(nnc, max=C)
     # pair (l, nnc[l]) is dropped iff nnc[l] < l and it already linked back
     back = torch.gather(nnc_safe, 1, nnc_safe)

@@ -20,6 +20,7 @@ from torch.profiler import record_function
 from gims_tpu_torch.config import MatcherConfig
 from gims_tpu_torch.matcher import sinkhorn
 from gims_tpu_torch.matcher.layers import AttentionalGNN, GraphSAGE, KeypointEncoder
+from gims_tpu_torch.train import multihost
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -81,8 +82,17 @@ class GMatcher(nn.Module):
         self.bin_score = nn.Parameter(torch.tensor(1.0))
 
     def forward(self, kpts0n, desc0, adj0, kept0, kpts1n, desc1, adj1, kept1,
-                train: bool = False):
+                train: bool = False, group=None):
+        """With a ``torch.distributed`` `group` (keypoint sharding,
+        ``matcher/sharded.py``; inference, ``attention_impl="ring"``), adj0
+        and adj1 are this rank's rows (B, N/P, N) and (B, M/P, M); the
+        activations stay whole, and Z and scores are this rank's rows of
+        side 0, Z with the dustbin row after them
+        (``sinkhorn.log_optimal_transport_rows``)."""
         cfg = self.config
+        if group is not None and (train or cfg.attention_impl != "ring"):
+            raise ValueError("a sharded forward is inference with attention_impl='ring' "
+                             f"(got train={train}, {cfg.attention_impl!r})")
         attn_dtype = self.attn_dtype
         stack = (cfg.stack_sides and not train and desc0.shape == desc1.shape
                  and kpts0n.shape == kpts1n.shape)
@@ -106,7 +116,7 @@ class GMatcher(nn.Module):
                 desc = torch.cat([desc0, desc1], dim=0)
                 if project:
                     desc = self.input_proj(desc)
-                d = (self.gnn_encoder(desc, torch.cat([adj0, adj1], dim=0))
+                d = (self.gnn_encoder(desc, torch.cat([adj0, adj1], dim=0), group=group)
                      + self.kenc(torch.cat([kpts0n, kpts1n], dim=0),
                                  torch.cat([kept0, kept1], dim=0)))
             with record_function("gims.trunk"):
@@ -118,8 +128,8 @@ class GMatcher(nn.Module):
             with record_function("gims.encoder"):
                 if project:
                     desc0, desc1 = self.input_proj(desc0), self.input_proj(desc1)
-                h0 = self.gnn_encoder(desc0, adj0)
-                h1 = self.gnn_encoder(desc1, adj1)
+                h0 = self.gnn_encoder(desc0, adj0, group=group)
+                h1 = self.gnn_encoder(desc1, adj1, group=group)
                 # side 0's batch statistics update before side 1's, as in flax
                 d0 = h0 + self.kenc(kpts0n, kept0, train)
                 d1 = h1 + self.kenc(kpts1n, kept1, train)
@@ -128,10 +138,15 @@ class GMatcher(nn.Module):
             mdesc0 = self.final_proj(d0.float())
             mdesc1 = self.final_proj(d1.float())
 
-        scores = torch.einsum("bnc,bmc->bnm", mdesc0, mdesc1) / (
+        r0 = multihost.rank(group) * adj0.shape[1] if group is not None else 0
+        rows0 = mdesc0[:, r0:r0 + adj0.shape[1]]  # this rank's rows of side 0 (all unsharded)
+        scores = torch.einsum("bnc,bmc->bnm", rows0, mdesc1) / (
             float(cfg.descriptor_dim) ** 0.5)
         with record_function("gims.sinkhorn"):
-            if cfg.use_pallas_sinkhorn:
+            if group is not None:
+                Z = sinkhorn.log_optimal_transport_rows(
+                    scores, self.bin_score, cfg.sinkhorn_iterations, kept0, kept1, r0, group)
+            elif cfg.use_pallas_sinkhorn:
                 from gims_tpu_torch.matcher.cuda_sinkhorn import log_optimal_transport_cuda
 
                 Z = log_optimal_transport_cuda(

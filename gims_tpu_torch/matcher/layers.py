@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gims_tpu_torch.matcher.attention import masked_attention
+from gims_tpu_torch.train import multihost
 
 # the record of this thread's open batch_stat_updates() block (like torch's
 # grad mode, per thread)
@@ -283,11 +284,19 @@ class SAGEConv(nn.Module):
         self.fc_neigh = nn.Linear(in_feats, out_feats, bias=False)
         self.bias = nn.Parameter(torch.zeros(out_feats))
 
-    def forward(self, h, adj, mask=None):
+    def forward(self, h, adj, mask=None, group=None):
+        """h (B, N, C) whole. With a ``torch.distributed`` `group` of P ranks
+        (keypoint sharding, ``matcher/sharded.py``), adj is this rank's rows
+        (B, N/P, N): the rank aggregates its rows, and the rows of every
+        rank are all-gathered, so each rank returns the whole (B, N, out)."""
         a = adj.to(h.dtype)
         deg = a.sum(dim=-1, keepdim=True)
         neigh = torch.matmul(a, h) / torch.clamp(deg, min=1.0)
-        return self.fc_self(h) + self.fc_neigh(neigh) + self.bias
+        if group is None:
+            return self.fc_self(h) + self.fc_neigh(neigh) + self.bias
+        r0 = multihost.rank(group) * adj.shape[1]
+        mine = self.fc_self(h[:, r0:r0 + adj.shape[1]]) + self.fc_neigh(neigh) + self.bias
+        return multihost.all_gather_cat(mine, 1, group)
 
 
 class GraphSAGE(nn.Module):
@@ -304,9 +313,9 @@ class GraphSAGE(nn.Module):
             self.add_module(f"layer_{i}", SAGEConv(prev, d))
             prev = d
 
-    def forward(self, h, adj, mask=None):
+    def forward(self, h, adj, mask=None, group=None):
         for i in range(self.num_layers):
-            h = getattr(self, f"layer_{i}")(h, adj, mask)
+            h = getattr(self, f"layer_{i}")(h, adj, mask, group)
             if i != self.num_layers - 1:
                 h = torch.relu(h)
         return h

@@ -5,8 +5,8 @@ Port of ``gims_tpu/matcher/pipeline.py`` (reference: models/gmatcher.py:
 fused path (``compact_to``), the band build's deferred un-permutation and
 precomputed adjacency (D-GIMS: a side given its adjacency skips AGC and
 keeps every valid keypoint); and the training loss (``training_forward``,
-``remap_gt_to_dustbin``). The keypoint-axis sharding option is not ported
-yet and raises.
+``remap_gt_to_dustbin``). With ``shard_axis`` the keypoint axis is split
+over a group of ranks (``matcher/sharded.py``).
 """
 
 from __future__ import annotations
@@ -149,10 +149,26 @@ def forward_match(
     (``_compact_side``), and the outputs are scattered back. A side given
     its adjacency `adj0`/`adj1` (B, N, N) bool skips AGC; its kept mask is
     its valid mask.
+
+    `shard_axis`: a ``torch.distributed`` group over which this process and
+    its peers split the keypoint axis (``matcher/sharded.py``; every rank
+    passes the same inputs and gets the same whole dict), or a name (JAX's
+    axis name, "kp"), which takes the group of
+    ``ring_attention.set_ring_group`` (ValueError if none is set). The trunk
+    then runs as JAX's ``_shard_cfg`` has it: ring attention and the plain
+    Sinkhorn. With `compact_to` it raises: no JAX caller passes both.
     """
     if shard_axis is not None:
-        raise NotImplementedError("shard_axis (keypoint-axis sharding) is not "
-                                  "ported yet; see ROADMAP.md")
+        if compact_to is not None:
+            raise NotImplementedError("compact_to with shard_axis (trunk compaction under "
+                                      "keypoint sharding) is not ported; see ROADMAP.md")
+        from gims_tpu_torch.matcher import ring_attention
+        from gims_tpu_torch.matcher.sharded import forward_match_sharded
+
+        group = ring_attention.get_ring_group() if isinstance(shard_axis, str) else shard_axis
+        return forward_match_sharded(model, acfg, kpts0, desc0, valid0, kpts1, desc1, valid1,
+                                     image_shape, group, k0=k0, k1=k1, adj0=adj0, adj1=adj1,
+                                     radius=radius, min_size=min_size)
     mcfg = model.config
     nb0, nb1 = kpts0.shape[1], kpts1.shape[1]
     compact = compact_to is not None and compact_to < max(nb0, nb1)

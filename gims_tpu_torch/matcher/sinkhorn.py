@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from gims_tpu_torch.train import multihost
+
 # Finite stand-in for -inf: avoids (-inf)-(-inf) NaNs inside logsumexp
 # while still flushing exp() to exactly 0 in f32.
 NEG_INF = -1e9
@@ -125,17 +127,20 @@ def extract_matches(Z: torch.Tensor, row_mask: torch.Tensor,
     m, n = Z.shape[1] - 1, Z.shape[2] - 1
     pair_ok = row_mask[:, :, None] & col_mask[:, None, :]
     block = torch.where(pair_ok, Z[:, :m, :n], NEG_INF)
+    return _mutual_matches(torch.amax(block, dim=2), torch.argmax(block, dim=2),
+                           torch.argmax(block, dim=1), row_mask, col_mask, match_threshold)
 
-    max0 = torch.amax(block, dim=2)
-    indices0 = torch.argmax(block, dim=2)
-    indices1 = torch.argmax(block, dim=1)
 
-    ar0 = torch.arange(m, device=Z.device)[None, :]
-    ar1 = torch.arange(n, device=Z.device)[None, :]
+def _mutual_matches(max0, indices0, indices1, row_mask, col_mask, match_threshold):
+    """The mutual test and the thresholds of ``extract_matches`` on each
+    row's max and argmax and each column's argmax."""
+    m, n = row_mask.shape[1], col_mask.shape[1]
+    ar0 = torch.arange(m, device=max0.device)[None, :]
+    ar1 = torch.arange(n, device=max0.device)[None, :]
     mutual0 = (ar0 == torch.gather(indices1, 1, indices0)) & row_mask
     mutual1 = (ar1 == torch.gather(indices0, 1, indices1)) & col_mask
 
-    zero = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    zero = torch.zeros((), dtype=max0.dtype, device=max0.device)
     mscores0 = torch.where(mutual0, torch.exp(max0), zero)
     mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), zero)
     valid0 = mutual0 & (mscores0 > match_threshold)
@@ -146,3 +151,75 @@ def extract_matches(Z: torch.Tensor, row_mask: torch.Tensor,
         "matching_scores0": mscores0.float(),
         "matching_scores1": mscores1.float(),
     }
+
+
+# ------------------------------------------------ keypoint-sharded forms
+# The (B, N, M) scores and the (B, N+1, M+1) coupling split by rows over a
+# torch.distributed group of P ranks (matcher/sharded.py): rank r holds rows
+# [r0, r0 + N/P) and the dustbin row, the same on every rank. Row updates are
+# local; each column update and each column argmax is an all-reduce over
+# (B, M+1) through train/multihost.py.
+
+def _column_logsumexp(x: torch.Tensor, group) -> torch.Tensor:
+    """``masked_logsumexp(x, dim=1)`` of the whole coupling from each rank's
+    rows x (B, R+1, M+1), whose last row (the dustbin row) every rank holds:
+    the column max and then the sum of exponentials, each reduced across
+    ranks, the dustbin row counted once."""
+    body, dust = x[:, :-1], x[:, -1]
+    m = multihost.all_reduce(torch.maximum(torch.amax(body, dim=1), dust), "max", group)
+    m_safe = torch.clamp(m, min=NEG_INF)
+    s = multihost.all_reduce(torch.sum(torch.exp(body - m_safe[:, None, :]), dim=1), "sum",
+                             group) + torch.exp(dust - m_safe)
+    return torch.clamp(m_safe + torch.log(torch.clamp(s, min=1e-38)), min=NEG_INF)
+
+
+def log_optimal_transport_rows(scores: torch.Tensor, alpha, iters: int,
+                               row_mask: torch.Tensor, col_mask: torch.Tensor,
+                               r0: int, group) -> torch.Tensor:
+    """``log_optimal_transport`` with the rows split over `group`.
+
+    scores (B, R, M): this rank's rows [r0, r0 + R) of the scores; row_mask
+    (B, N) and col_mask (B, M) whole. Returns (B, R+1, M+1): this rank's
+    rows of the log-coupling, then the dustbin row."""
+    b, rows, _ = scores.shape
+    dt = scores.dtype
+    alpha = torch.as_tensor(alpha, dtype=dt, device=scores.device)
+    ms = row_mask.sum(dim=1).to(dt)
+    ns = col_mask.sum(dim=1).to(dt)
+    rmask = row_mask[:, r0:r0 + rows]
+    scores = torch.where(rmask[:, :, None] & col_mask[:, None, :], scores, NEG_INF)
+    bins0 = torch.where(rmask, alpha, NEG_INF)[:, :, None]
+    bins1 = torch.where(col_mask, alpha, NEG_INF)[:, None, :]
+    corner = alpha.reshape(1, 1, 1).expand(b, 1, 1)
+    Z = torch.cat([torch.cat([scores, bins0], dim=2), torch.cat([bins1, corner], dim=2)], dim=1)
+    norm = -torch.log(ms + ns)
+    log_mu = torch.cat([torch.where(rmask, norm[:, None], NEG_INF),
+                        (torch.log(torch.clamp(ns, min=1e-38)) + norm)[:, None]], dim=1)
+    log_nu = torch.cat([torch.where(col_mask, norm[:, None], NEG_INF),
+                        (torch.log(torch.clamp(ms, min=1e-38)) + norm)[:, None]], dim=1)
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - masked_logsumexp(Z + v[:, None, :], dim=2)
+        v = log_nu - _column_logsumexp(Z + u[:, :, None], group)
+    return Z + u[:, :, None] + v[:, None, :] - norm[:, None, None]
+
+
+def extract_matches_rows(Z: torch.Tensor, row_mask: torch.Tensor, col_mask: torch.Tensor,
+                         match_threshold: float, r0: int, group) -> dict:
+    """``extract_matches`` on this rank's rows Z (B, R+1, M+1) of
+    ``log_optimal_transport_rows``: each row's max and argmax are
+    all-gathered; each column's max, and its first argmax across ranks (the
+    lowest global row that holds the max), are all-reduced. Returns the
+    whole dict, the same on every rank."""
+    rows, m = Z.shape[1] - 1, Z.shape[2] - 1
+    n = row_mask.shape[1]
+    rmask = row_mask[:, r0:r0 + rows]
+    block = torch.where(rmask[:, :, None] & col_mask[:, None, :], Z[:, :rows, :m], NEG_INF)
+    max0 = multihost.all_gather_cat(torch.amax(block, dim=2), 1, group)
+    indices0 = multihost.all_gather_cat(torch.argmax(block, dim=2), 1, group)
+    col_max = torch.amax(block, dim=1)
+    top = multihost.all_reduce(col_max, "max", group)
+    indices1 = multihost.all_reduce(
+        torch.where(col_max == top, torch.argmax(block, dim=1) + r0, n), "min", group)
+    return _mutual_matches(max0, indices0, indices1, row_mask, col_mask, match_threshold)

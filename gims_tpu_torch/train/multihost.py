@@ -15,6 +15,8 @@ explicit device per rank, and ``torch.distributed`` for the collectives.
   replicate()             <- a broadcast of the module's parameters and
                              buffers from rank 0 (DDP's initial broadcast)
   all_mean()              <- lax.pmean over the data axis
+  all_reduce()            <- lax.psum / pmin / pmax (the keypoint-sharded
+                             matcher's collectives, matcher/sharded.py)
   spawn()                 <- the local devices of one JAX process: N ranks
                              started through torch.multiprocessing (spawn)
 
@@ -136,6 +138,23 @@ def all_mean(tensors: Tensors, group=None):
             out[i] = buf[offset:offset + numel].view(flat[i].shape)
             offset += numel
     return dict(zip(keys, out)) if keys is not None else out
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+
+@torch.no_grad()
+def all_reduce(tensor: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """The elementwise sum, min or max of `tensor` over the group's ranks
+    (``lax.psum``, ``pmin``, ``pmax``), as a new tensor on its device; every
+    rank receives the same bits. Bool travels as bytes (min and max are
+    all and any)."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"all_reduce op {op!r}: one of {sorted(_REDUCE_OPS)}")
+    buf = tensor.detach().to(torch.uint8 if tensor.dtype == torch.bool else tensor.dtype,
+                             copy=True).contiguous()
+    _collective(lambda x: dist.all_reduce(x, op=_REDUCE_OPS[op], group=group), buf, group)
+    return buf.bool() if tensor.dtype == torch.bool else buf
 
 
 @torch.no_grad()

@@ -144,18 +144,26 @@ def test_kth_smallest_exact():
 
 @pytest.mark.parametrize("case", ["shard_axis", "unknown_build"])
 def test_unported_agc_impls_raise(case):
-    """What is still unported around AGC raises and names ROADMAP.md:
-    keypoint-axis sharding. A build name the JAX package does not have
-    raises too."""
+    """A build name the JAX package does not have raises. Keypoint-axis
+    sharding is ported (tests/test_torch_sharded.py): the axis name "kp"
+    without a group set by ``ring_attention.set_ring_group`` raises
+    ValueError, and ``compact_to`` with it, which no JAX caller passes,
+    raises and names ROADMAP.md."""
     kpts, descs, valid = (torch.from_numpy(x)[None] for x in make_set(0, 128, 100))
     if case == "unknown_build":
         with pytest.raises(ValueError, match="agc_impl"):
             tpipeline.run_agc(kpts, descs, valid, AGCConfig(agc_impl="tiled"))
         return
+    from gims_tpu_torch.matcher import ring_attention
+
     model = GMatcher(MatcherConfig(num_gnn_layers=2)).eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ring_attention.set_ring_group(None)
+    with pytest.raises(ValueError, match="set_ring_group"):
         tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
                                 image_shape=(600, 800), shard_axis="kp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
+                                image_shape=(600, 800), shard_axis="kp", compact_to=64)
 
 
 @pytest.mark.parametrize("given", ["both", "side0"])

@@ -41,7 +41,10 @@ REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_tor
             "gims_tpu_torch.carhynet.train",
             # data parallelism and ring attention
             "gims_tpu_torch.train.multihost", "gims_tpu_torch.train.dp_check",
-            "gims_tpu_torch.matcher.ring_attention"]
+            "gims_tpu_torch.matcher.ring_attention",
+            # keypoint-axis sharding
+            "gims_tpu_torch.agc.sharded", "gims_tpu_torch.matcher.sharded",
+            "gims_tpu_torch.train.shard_check"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -102,11 +105,17 @@ class Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Refuse())
 import torch
-from gims_tpu_torch.train import dp_check
+from gims_tpu_torch.train import dp_check, shard_check
 case = {"q": torch.randn(1, 8, 2, 4), "k": torch.randn(1, 8, 2, 4),
         "v": torch.randn(1, 8, 2, 4), "mask": torch.ones(1, 8, dtype=torch.bool)}
 with tempfile.TemporaryDirectory() as d:
     ranks = dp_check.run(dp_check.ring_rank, ["cpu", "cpu"], "gloo", {"cases": [case]}, d)
+# the keypoint-sharded workers: a sharded AGC build
+job = {"kind": "agc", "inputs": [torch.rand(1, 16, 2) * 50, torch.rand(1, 16, 8),
+                                 torch.ones(1, 16, dtype=torch.bool)],
+       "kwargs": {"radius": 20.0, "percentile": 5.0, "min_size": 2}}
+with tempfile.TemporaryDirectory() as d:
+    ranks += dp_check.run(shard_check.shard_rank, ["cpu", "cpu"], "gloo", {"jobs": [job]}, d)
 for r in ranks:
     leaked = sorted(BLOCKED & set(r["modules"]))
     assert not leaked, leaked
@@ -115,13 +124,13 @@ print("ranks", len(ranks))
 
 
 def test_spawned_ranks_import_no_blocked_packages():
-    """The ranks of the port's data-parallel runs are fresh interpreters
+    """The ranks of the port's data-parallel and keypoint-sharded runs are fresh interpreters
     (spawn), where the parent's refusals do not reach: they report their
     modules, and none may be blocked."""
     proc = subprocess.run([sys.executable, "-c", SPAWNED], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "ranks 2" in proc.stdout
+    assert "ranks 4" in proc.stdout
 
 
 def test_chip_smoke_without_cuda_exits_nonzero():

@@ -201,8 +201,35 @@ Phases, one line each with its seconds:
     run's. Prints ms per call of each run, peaks and their shares; then
     K1's partial mode at the ring steps' shapes (P=2: f32 (2, 2048), bf16
     (2, 8192); P=1: bf16 (2, 16384)).
+  23 the entry points (run after phase 22, before 13), on JPEG files of a
+    synthetic 800x600 colour pair with a known homography: (a) the port's
+    encode_jpeg writes them and decode_jpeg reads them on the card and on
+    the CPU, bit-equal (ms to encode and decode one image); (b)
+    cli.match_pair_cli.main in-process with --npz and --out, staged
+    (--descriptor_source sift, the staged checkpoint) and --fused --fast
+    dense_gray (the joint e2e matcher, the CNN seeded as the JAX CLI leaves
+    it): keypoints equal to a direct Matching / FusedMatching call of the
+    same configuration on the decoded images and matches on ENTRY_AGREE of
+    the rows (float sums made with atomics on the card can flip a match
+    near a tie from one run to the next), the launches
+    equal to that call's, a staged correct share >= 0.5, the PNG written
+    equal to draw_matches of the prediction; (c) the staged checkpoint
+    rewritten as the reference's torch state_dict, saved as {"ema": sd},
+    {"model": sd} with "module." prefixes and bare, each through
+    --weights_path x.pt: keypoints equal and matches (at least one) as
+    staged above to Matching on convert_gmatcher_torch(sd); (d) cli.serve_cli.make_server
+    on a free port in a thread, staged then --fused: three POSTs (the pair,
+    a 640x480 pair resized to 800x600, and that pair with
+    resize_enabled=0) answered 200 with a PNG whose X-Match-Details
+    (keypoint counts equal, the match count within ENTRY_COUNT_SLACK) and
+    drawing (byte-equal where the counts are) agree with find_matches
+    in-process on the same bytes, a wrong path 404 and a garbage upload 500
+    before them; ms per request beside the card's name and power limit, and
+    where an in-process request's time goes. Launches of each path are
+    counted.
   13 the label-rounds kernel against its plain version on the graphs the
-    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20, 22):
+    paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20, 22,
+    23):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -211,8 +238,8 @@ Phases, one line each with its seconds:
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
   14 one JSON line with every kernel's launches, error and times, on the
-    fourteen paths' shapes (phase 22's unsharded reference at 16384 among
-    them), the label rounds of phase 20's steps and K1's partial mode at
+    eighteen paths' shapes (phase 22's unsharded reference at 16384 and
+    phase 23's four entry-point paths among them), the label rounds of phase 20's steps and K1's partial mode at
     the step shapes of phase 21's and phase 22's rings; the script's total
     seconds.
   Then the last line: {"ok": true, "device": {...}}.
@@ -221,9 +248,11 @@ Any mismatch raises and the process exits non-zero. Without CUDA it
 exits non-zero at once: there is no CPU fallback. It imports torch, numpy,
 the standard library and gims_tpu_torch only, and writes nothing outside
 gims_tpu_torch/_build/ but phase 15's pairs and artifacts, phases 16's
-and 18's checkpoints and the spec and results of phases 20's, 21's and
-22's ranks, in temporary directories that it removes. Phases 20-22 start
-their ranks as processes and wait for them to end.
+and 18's checkpoints, the spec and results of phases 20's, 21's and 22's
+ranks and phase 23's images, checkpoints and outputs, in temporary
+directories that it removes. Phases 20-22 start their ranks as processes
+and wait for them to end; phase 23's server listens on 127.0.0.1 only and
+is shut down before the phase ends.
 """
 
 from __future__ import annotations
@@ -237,6 +266,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -514,6 +544,32 @@ SHARD_SCORE_TOL = 2e-3
 # both above what their process held before the call (the same model and
 # inputs; this process also holds the label inputs recorded for phase 13)
 SHARD_MEMORY_SHARE = 0.6
+# phase 23: the entry points on JPEG files of synthetic 800x600 colour pairs
+# (and a 640x480 pair that the server resizes), match_pair_cli's flags per
+# configuration and the configuration of the direct call they are held to
+ENTRY_FRAME = (600, 800)
+ENTRY_SMALL = (480, 640)
+ENTRY_SEED = 2300
+ENTRY_SHARE = 0.5
+# matches0 of two runs of a path on the card: float sums made with atomics
+# (the staged SIFT descriptors' histograms, index_add_; the centroid
+# reconnect's coordinate sums, scatter_add_) may round differently from one
+# run to the next, so a descriptor byte or a centroid can move by an ulp and
+# flip a match near a tie. Two runs agree on ENTRY_AGREE of the rows, and a
+# served request's match count lies within ENTRY_COUNT_SLACK of the
+# in-process call's (its drawing is then compared only where the counts are
+# equal). Keypoints must be equal.
+ENTRY_AGREE = {"staged": 0.99, "fused": 0.999}
+ENTRY_COUNT_SLACK = 0.01
+ENTRY_CLI = {"staged": ["--descriptor_source", "sift", "--weights_path", WEIGHTS],
+             "fused": ["--fused", "--fast", "--descriptor_source", "dense_gray",
+                       "--weights_path", E2E_WEIGHTS]}
+ENTRY_STAGED_CONFIG = {"sinkhorn_iterations": 20, "match_threshold": 0.02, "max_keypoints": -1,
+                       "descriptor_source": "sift"}
+ENTRY_FUSED_CONFIG = {"sinkhorn_iterations": 20, "match_threshold": 0.02,
+                      "descriptor_source": "dense_gray", "radius": 15, "percentile": 2,
+                      "min_size": 7, "attention_dtype": "bfloat16",
+                      "use_pallas_sinkhorn": True, "fast_frontend": True}
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
 
@@ -645,7 +701,8 @@ def attention_case(b, n, m, masked_tail, dtype, seed, h=4, d=HEAD_DIM):
                for x in (n, m, m))
     mask = torch.ones((b, m), dtype=torch.bool, device=DEVICE)
     mask[:, m - masked_tail:] = False
-    mask[1, : m // 7] = False  # masked keys at the head of one item too
+    if b > 1:
+        mask[1, : m // 7] = False  # masked keys at the head of one item too
     out = cuda_attention.masked_attention_cuda(q, k, v, mask).float()
     direct = attention.masked_attention_direct(q.float(), k.float(), v.float(), mask)
     want = direct if dtype == torch.float32 else attention.masked_attention_tiled(
@@ -679,35 +736,41 @@ def attention_case(b, n, m, masked_tail, dtype, seed, h=4, d=HEAD_DIM):
     return q, k, v, mask, info
 
 
+def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
+    """K1 against its plain versions at one shape; timed beside its bound,
+    the plain version and SDPA where the keys fill whole 64-key tiles."""
+    q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m + d, h=h, d=d)
+    row = {"shape": f"B={b} N={n} M={m} H={h} D={d}", "dtype": str(dtype)[6:], **info}
+    if m % 64 == 0:  # the trunk's shapes: time them
+        esz = q.element_size()
+        nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
+        flops = 4 * b * h * n * m * d
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+        # one exp2 per score on the MUFU units, beside the matrix products
+        row["exp_bound_ms"] = 1e3 * b * h * n * m / EXP_PER_S
+        row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["plain_ms"] = cuda_ms(
+            lambda: attention.masked_attention_tiled(q, k, v, mask))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        bias = torch.zeros((b, 1, 1, m), dtype=dtype, device=DEVICE)
+        bias.masked_fill_(~mask[:, None, None, :], attention.NEG_INF)
+        row["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias))
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+    print(f"  attention {json.dumps(row)}", flush=True)
+    return row
+
+
 def attention_phase():
     t0 = time.perf_counter()
     rows = {}
     cases = [(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM)]
     for (b, n, m, tail), h, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m + d, h=h, d=d)
-            row = {"shape": f"B={b} N={n} M={m} H={h} D={d}", "dtype": str(dtype)[6:], **info}
-            if m % 64 == 0:  # the trunk's shapes: time them
-                esz = q.element_size()
-                nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
-                flops = 4 * b * h * n * m * d
-                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
-                # one exp2 per score on the MUFU units, beside the matrix products
-                row["exp_bound_ms"] = 1e3 * b * h * n * m / EXP_PER_S
-                row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
-                row["tflops"] = flops / row["ms"] / 1e9
-                row["plain_ms"] = cuda_ms(
-                    lambda: attention.masked_attention_tiled(q, k, v, mask))
-                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-                bias = torch.zeros((b, 1, 1, m), dtype=dtype, device=DEVICE)
-                bias.masked_fill_(~mask[:, None, None, :], attention.NEG_INF)
-                row["library_ms"] = cuda_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=bias))
-                row["ratio_to_library"] = row["ms"] / row["library_ms"]
+            row = attention_row(b, n, m, tail, dtype, h, d)
             rows[(b, n, m, row["dtype"]) if d == HEAD_DIM else (b, n, m, row["dtype"], d)] = row
-            print(f"  attention {json.dumps(row)}", flush=True)
-            del q, k, v, mask
     torch.cuda.empty_cache()
     wide = rows[WIDE_ATTN_CASE[:3] + ("bfloat16", WIDE_HEAD_DIM)]
     phase("2 attention kernel vs plain", t0,
@@ -717,61 +780,67 @@ def attention_phase():
     return rows
 
 
-def sinkhorn_case(nb, n0, n1, iters, seed):
+def sinkhorn_case(nb, n0, n1, iters, seed, nb1=None):
+    """K2 against its plain version on random scores (B, nb, nb1) (nb1
+    defaults to nb), valid rows n0 and columns n1 per item."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     b = len(n0)
-    scores = 2.0 * torch.randn((b, nb, nb), generator=g, device=DEVICE)
-    ar = torch.arange(nb, device=DEVICE)[None]
-    row_mask = ar < torch.tensor(n0, device=DEVICE)[:, None]
-    col_mask = ar < torch.tensor(n1, device=DEVICE)[:, None]
+    nb1 = nb if nb1 is None else nb1
+    scores = 2.0 * torch.randn((b, nb, nb1), generator=g, device=DEVICE)
+    row_mask = torch.arange(nb, device=DEVICE)[None] < torch.tensor(n0, device=DEVICE)[:, None]
+    col_mask = torch.arange(nb1, device=DEVICE)[None] < torch.tensor(n1, device=DEVICE)[:, None]
     alpha = torch.tensor(1.0, device=DEVICE)
     # the couplings as the Matching path builds them for the kernel: rows of
-    # nb + 1 floats in a pitch of a multiple of 4
+    # nb1 + 1 floats in a pitch of a multiple of 4
     couplings, log_mu, log_nu, _ = sinkhorn.dustbin_couplings(
-        scores, alpha, row_mask, col_mask, row_pitch=nb + 1 + -(nb + 1) % 4)
+        scores, alpha, row_mask, col_mask, row_pitch=nb1 + 1 + -(nb1 + 1) % 4)
     got = cuda_sinkhorn.log_optimal_transport_cuda(scores, alpha, iters, row_mask, col_mask)
     want = sinkhorn.log_optimal_transport(scores, alpha, iters, row_mask, col_mask)
     torch.cuda.synchronize()
     err = 0.0
     for i in range(b):
         rows = torch.cat([torch.nonzero(row_mask[i])[:, 0], torch.tensor([nb], device=DEVICE)])
-        cols = torch.cat([torch.nonzero(col_mask[i])[:, 0], torch.tensor([nb], device=DEVICE)])
+        cols = torch.cat([torch.nonzero(col_mask[i])[:, 0], torch.tensor([nb1], device=DEVICE)])
         err = max(err, (got[i][rows][:, cols] - want[i][rows][:, cols]).abs().max().item())
     if not math.isfinite(err) or err > SINKHORN_TOL:
-        raise AssertionError(f"Sinkhorn kernel Z ({nb + 1}x{nb + 1}): max abs err "
+        raise AssertionError(f"Sinkhorn kernel Z ({nb + 1}x{nb1 + 1}): max abs err "
                              f"{err} > {SINKHORN_TOL}")
     return couplings, log_mu.contiguous(), log_nu.contiguous(), err
+
+
+def sinkhorn_row(nb, n0, n1, iters, nb1=None):
+    """K2 against its plain version on one batch of Z; timed beside its bound."""
+    z, mu, nu, err = sinkhorn_case(nb, n0, n1, iters, seed=nb, nb1=nb1)
+    b, m1, n1p = z.shape
+    # each input read once, each output written once (Z, marginals, u, v)
+    nbytes = 4 * b * (m1 * n1p + 2 * (m1 + n1p))
+    # per iteration and element: add potential, max, exp, accumulate, twice
+    flops = 2 * iters * b * m1 * n1p * 4
+    b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
+    z_read_ms = 1e3 * 4 * b * m1 * n1p / HBM_BPS
+    row = {"shape": f"Z=({b},{m1},{n1p}) iters={iters}", "dtype": "float32",
+           "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           # bound_ms reads Z once, as if it stayed on the chip. Where Z
+           # outgrows the 50 MB L2 (268 MB at bucket 8192), any design
+           # reads it from HBM once per iteration, as the fused kernel
+           # does; a row pass and a column pass read it twice
+           "z_reads_per_iter": cuda_sinkhorn.z_reads_per_iter(b, m1, n1p),
+           "one_pass_bound_ms": iters * z_read_ms,
+           "two_pass_bound_ms": 2 * iters * z_read_ms,
+           "ms": cuda_ms(lambda: cuda_sinkhorn.sinkhorn_uv_cuda(z, mu, nu, iters), 3),
+           "plain_ms": cuda_ms(lambda: sinkhorn.log_sinkhorn_uv(z, mu, nu, iters), 1),
+           "library_ms": None}
+    # the kernel's reads of Z over its time
+    row["gbps"] = row["z_reads_per_iter"] * iters * 4 * b * m1 * n1p / row["ms"] / 1e6
+    print(f"  sinkhorn {json.dumps(row)}", flush=True)
+    return row
 
 
 def sinkhorn_phase():
     t0 = time.perf_counter()
     rows = {}
     for nb, n0, n1, iters in SINKHORN_CASES:
-        z, mu, nu, err = sinkhorn_case(nb, n0, n1, iters, seed=nb)
-        b, m1, n1p = z.shape
-        # each input read once, each output written once (Z, marginals, u, v)
-        nbytes = 4 * b * (m1 * n1p + 2 * (m1 + n1p))
-        # per iteration and element: add potential, max, exp, accumulate, twice
-        flops = 2 * iters * b * m1 * n1p * 4
-        b_ms, b_by = bound_ms(nbytes, flops, torch.float32)
-        z_read_ms = 1e3 * 4 * b * m1 * n1p / HBM_BPS
-        row = {"shape": f"Z=({b},{m1},{n1p}) iters={iters}", "dtype": "float32",
-               "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-               # bound_ms reads Z once, as if it stayed on the chip. Where Z
-               # outgrows the 50 MB L2 (268 MB at bucket 8192), any design
-               # reads it from HBM once per iteration, as the fused kernel
-               # does; a row pass and a column pass read it twice
-               "z_reads_per_iter": cuda_sinkhorn.z_reads_per_iter(b, m1, n1p),
-               "one_pass_bound_ms": iters * z_read_ms,
-               "two_pass_bound_ms": 2 * iters * z_read_ms,
-               "ms": cuda_ms(lambda: cuda_sinkhorn.sinkhorn_uv_cuda(z, mu, nu, iters), 3),
-               "plain_ms": cuda_ms(lambda: sinkhorn.log_sinkhorn_uv(z, mu, nu, iters), 1),
-               "library_ms": None}
-        # the kernel's reads of Z over its time
-        row["gbps"] = row["z_reads_per_iter"] * iters * 4 * b * m1 * n1p / row["ms"] / 1e6
-        rows[(nb, b, iters)] = row
-        print(f"  sinkhorn {json.dumps(row)}", flush=True)
-        del z, mu, nu
+        rows[(nb, len(n0), iters)] = sinkhorn_row(nb, n0, n1, iters)
     torch.cuda.empty_cache()
     phase("3 sinkhorn kernel vs plain", t0,
           max_err=max(r["max_abs_err"] for r in rows.values()))
@@ -2580,6 +2649,330 @@ def shard_phase(variables):
     return partial, launches, info[SHARD_CASES[-1][0]]["unsharded"]["launches"]
 
 
+# ---------------------------------------------------------------- entry points
+
+class record_kernel_shapes:
+    """Within the block, the shapes the K1 and K2 wrappers are called with:
+    K1 (B, N, M, masked keys of item 0, dtype, H, D), K2 (rows, cols of the
+    scores, valid rows and columns per item, iterations)."""
+
+    def __enter__(self):
+        self.attention, self.sinkhorn = [], []
+        self.real = (cuda_attention.masked_attention_cuda,
+                     cuda_sinkhorn.log_optimal_transport_cuda)
+        real_attn, real_sk = self.real
+
+        def attn(q, k, v, key_mask):
+            b, n, h, d = q.shape
+            shape = (b, n, k.shape[1], int((~key_mask[0]).sum()), str(q.dtype)[6:], h, d)
+            if shape not in self.attention:
+                self.attention.append(shape)
+            return real_attn(q, k, v, key_mask)
+
+        def sk(scores, alpha, iters, row_mask, col_mask):
+            shape = (scores.shape[1], scores.shape[2], tuple(row_mask.sum(1).tolist()),
+                     tuple(col_mask.sum(1).tolist()), int(iters))
+            if shape not in self.sinkhorn:
+                self.sinkhorn.append(shape)
+            return real_sk(scores, alpha, iters, row_mask, col_mask)
+
+        cuda_attention.masked_attention_cuda = attn
+        cuda_sinkhorn.log_optimal_transport_cuda = sk
+        return self
+
+    def __exit__(self, *exc):
+        cuda_attention.masked_attention_cuda, cuda_sinkhorn.log_optimal_transport_cuda = self.real
+
+
+def reference_gmatcher_state_dict(variables, layers=NUM_LAYERS):
+    """A GMatcher's variables (the JAX layout) rewritten as the reference's
+    torch state_dict (models/gmatcher.py:165-217: Conv1d kernels (O, I, 1),
+    BatchNorm1d with running stats, DGL's SAGEConv with its bias on the conv
+    module), the inverse of convert_gmatcher_torch."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+
+    def dense(tp, node, conv=True):
+        w = np.asarray(node["kernel"]).T
+        sd[f"{tp}.weight"] = tensor(w[:, :, None] if conv else w)
+        if "bias" in node:
+            sd[f"{tp}.bias"] = tensor(node["bias"])
+
+    def mlp(tp, node, st, n):
+        for i in range(n):
+            dense(f"{tp}.{3 * i}", node[f"dense_{i}"])
+            if i < n - 1:
+                norm, run = node[f"norm_{i}"], st[f"norm_{i}"]
+                sd[f"{tp}.{3 * i + 1}.weight"] = tensor(norm["scale"])
+                sd[f"{tp}.{3 * i + 1}.bias"] = tensor(norm["bias"])
+                sd[f"{tp}.{3 * i + 1}.running_mean"] = tensor(run["mean"])
+                sd[f"{tp}.{3 * i + 1}.running_var"] = tensor(run["var"])
+                sd[f"{tp}.{3 * i + 1}.num_batches_tracked"] = torch.tensor(1)
+
+    mlp("kenc.encoder", params["kenc"]["encoder"], stats["kenc"]["encoder"], 5)
+    for n in range(layers):
+        node = params["gnn"][f"layer_{n}"]
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            dense(f"gnn.layers.{n}.attn.proj.{j}", node["attn"][name])
+        dense(f"gnn.layers.{n}.attn.merge", node["attn"]["merge"])
+        mlp(f"gnn.layers.{n}.mlp", node["mlp"], stats["gnn"][f"layer_{n}"]["mlp"], 2)
+    for i in range(3):
+        node = params["gnn_encoder"][f"layer_{i}"]
+        dense(f"gnn_encoder.layers.{i}.fc_self", node["fc_self"], conv=False)
+        dense(f"gnn_encoder.layers.{i}.fc_neigh", node["fc_neigh"], conv=False)
+        sd[f"gnn_encoder.layers.{i}.bias"] = tensor(node["bias"])
+    dense("final_proj", params["final_proj"])
+    sd["bin_score"] = tensor(params["bin_score"]).reshape(())
+    return sd
+
+
+def post(port, fields, path="/find_matches"):
+    """One multipart POST to the local server: (status, headers, body)."""
+    import http.client
+
+    from gims_tpu_torch.cli.serve_cli import encode_multipart
+
+    body, ctype = encode_multipart(fields)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def same_prediction(a, b, name, agree=1.0):
+    """Keypoints equal; matches0 equal on at least `agree` of the rows.
+    Returns that share."""
+    for key in ("keypoints0", "keypoints1"):
+        if not np.array_equal(np.asarray(a[key]), np.asarray(b[key])):
+            raise AssertionError(f"{name}: {key} differs from the direct call's")
+    share = float(np.mean(np.asarray(a["matches0"]) == np.asarray(b["matches0"])))
+    if not share >= agree:
+        raise AssertionError(f"{name}: matches0 equal on {share} of the rows, "
+                             f"the direct call's, < {agree}")
+    return share
+
+
+def entry_phase(smi):
+    """Phase 23: the entry points a user calls, on JPEG files made here."""
+    from gims_tpu_torch.cli import match_pair_cli, serve_cli
+    from gims_tpu_torch.core import image_io
+    from gims_tpu_torch.eval.viz import draw_matches
+    from gims_tpu_torch.matcher.convert import convert_gmatcher_torch
+
+    t0 = time.perf_counter()
+    card = smi  # nvidia-smi's name and power limit
+    launches, shapes = {}, {}
+    with tempfile.TemporaryDirectory(prefix="gims_entry_") as tmp:
+        # (a) JPEG on the card
+        img0, img1, H = synthetic_image_pair(ENTRY_SEED, ENTRY_FRAME, colour=True)
+        t = time.perf_counter()
+        jpeg0 = image_io.encode_jpeg(img0)
+        encode_ms = 1e3 * (time.perf_counter() - t)
+        jpeg1 = image_io.encode_jpeg(img1)
+        paths = [os.path.join(tmp, f"{i}.jpg") for i in range(2)]
+        for path, data in zip(paths, (jpeg0, jpeg1)):
+            with open(path, "wb") as f:
+                f.write(data)
+        image_io.decode_jpeg(jpeg0, device=DEVICE)  # warm-up
+        t = time.perf_counter()
+        dec_card = image_io.decode_jpeg(jpeg0, device=DEVICE)
+        decode_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        dec_cpu = image_io.decode_jpeg(jpeg0, device="cpu")
+        decode_cpu_ms = 1e3 * (time.perf_counter() - t)
+        gray_same = np.array_equal(image_io.decode_jpeg(jpeg1, image_io.IMREAD_GRAYSCALE, DEVICE),
+                                   image_io.decode_jpeg(jpeg1, image_io.IMREAD_GRAYSCALE, "cpu"))
+        if not (np.array_equal(dec_card, dec_cpu) and gray_same):
+            raise AssertionError("JPEG decoded on the card differs from the CPU's decode")
+        print(f"  entry jpeg {json.dumps({'frame': ENTRY_FRAME, 'bytes': len(jpeg0), 'encode_ms': encode_ms, 'decode_card_ms': decode_ms, 'decode_cpu_ms': decode_cpu_ms, 'max_abs_err_to_source': int(np.abs(dec_cpu.astype(int) - img0).max()), 'card': card})}",
+              flush=True)
+        decoded = [image_io.imread(p, device=DEVICE) for p in paths]
+
+        # (b) match_pair_cli in-process, against a direct call
+        for name, flags in ENTRY_CLI.items():
+            npz, out = os.path.join(tmp, f"{name}.npz"), os.path.join(tmp, f"{name}.png")
+            argv = [*paths, *flags, "--npz", npz, "--out", out, "--device", DEVICE]
+            args = match_pair_cli.build_parser().parse_args(argv)
+            key = "_match_pair_path" if name == "staged" else "_match_pair_fused_path"
+            reset_counts()
+            t = time.perf_counter()
+            with record_labels(key[1:-5]), record_kernel_shapes() as rec:
+                match_pair_cli.main(argv)
+            cli_s = time.perf_counter() - t
+            cli_counts = counts()
+            direct = entry_matcher(name, args)
+            reset_counts()
+            pred = match_pair_cli.run(direct, *decoded, args)
+            direct_counts = counts()
+            saved = np.load(npz)
+            agree = same_prediction(
+                {"keypoints0": saved["keypoints0"], "keypoints1": saved["keypoints1"],
+                 "matches0": saved["matches"]},
+                {k: pred[k][0] for k in ("keypoints0", "keypoints1", "matches0")},
+                f"match_pair {name}", ENTRY_AGREE[name])
+            if cli_counts != direct_counts or min(cli_counts.values()) < 1:
+                raise AssertionError(f"match_pair {name}: launches {cli_counts}, the direct "
+                                     f"call's {direct_counts}")
+            valid = pred["matches0"][0] > -1
+            cli_valid = saved["matches"] > -1  # the drawing of the CLI's own prediction
+            want = draw_matches(*decoded, saved["keypoints0"][cli_valid],
+                                saved["keypoints1"][saved["matches"][cli_valid]])
+            with open(out, "rb") as f:
+                if not np.array_equal(image_io.decode_png(f.read()), want):
+                    raise AssertionError(f"match_pair {name}: --out is not draw_matches")
+            share = correct_share(pred, H)
+            if name == "staged" and not share >= ENTRY_SHARE:
+                raise AssertionError(f"match_pair staged: {share} of matches within 3 px")
+            launches[key], shapes[key] = cli_counts, rec
+            print(f"  entry match_pair {json.dumps({'config': name, 'seconds': cli_s, 'keypoints': [int(len(pred['keypoints0'][0])), int(len(pred['keypoints1'][0]))], 'matches': int(valid.sum()), 'matches_equal_share': agree, 'correct_share': share, 'launches': cli_counts, 'card': card})}",
+                  flush=True)
+            del direct
+
+        # (c) .pt checkpoints in the reference's layout: the staged checkpoint
+        # rewritten so (a seeded random matcher matches nothing at 0.02)
+        sd = reference_gmatcher_state_dict(load_gims_checkpoint(WEIGHTS))
+        forms = {"ema": {"ema": sd}, "model": {"model": {"module." + k: v for k, v in sd.items()}},
+                 "bare": sd}
+        direct = Matching({**ENTRY_STAGED_CONFIG}, variables=convert_gmatcher_torch(sd),
+                          device=DEVICE)
+        args = match_pair_cli.build_parser().parse_args([*paths, *ENTRY_CLI["staged"]])
+        want = match_pair_cli.run(direct, *decoded, args)
+        del direct
+        agree = {}
+        for form, obj in forms.items():
+            pt = os.path.join(tmp, f"{form}.pt")
+            torch.save(obj, pt)
+            npz = os.path.join(tmp, f"{form}.npz")
+            match_pair_cli.main([*paths, "--descriptor_source", "sift", "--weights_path", pt,
+                                 "--npz", npz, "--out", os.path.join(tmp, f"{form}.png"),
+                                 "--device", DEVICE])
+            saved = np.load(npz)
+            agree[form] = same_prediction(
+                {"keypoints0": saved["keypoints0"], "keypoints1": saved["keypoints1"],
+                 "matches0": saved["matches"]},
+                {k: want[k][0] for k in ("keypoints0", "keypoints1", "matches0")},
+                f".pt {form}", ENTRY_AGREE["staged"])
+        n_match = int((want["matches0"][0] > -1).sum())
+        if n_match < 1:
+            raise AssertionError(".pt checkpoints: the direct call matched nothing")
+        print(f"  entry checkpoints {json.dumps({'forms': list(forms), 'matches': n_match, 'matches_equal_share': agree})}",
+              flush=True)
+
+        # (d) the HTTP server, staged then fused
+        small0, small1, _ = synthetic_image_pair(ENTRY_SEED + 1, ENTRY_SMALL, colour=True)
+        small = (image_io.encode_jpeg(small0), image_io.encode_jpeg(small1))
+        requests = [({"image0": jpeg0, "image1": jpeg1}, True),
+                    ({"image0": small[0], "image1": small[1]}, True),
+                    ({"image0": small[0], "image1": small[1], "resize_enabled": b"0"}, False)]
+        for name, fused_flag, weights in (("staged", False, WEIGHTS),
+                                          ("fused", True, E2E_WEIGHTS)):
+            server = serve_cli.make_server(0, weights, fused=fused_flag, device=DEVICE)
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                status, _, _ = post(port, requests[0][0])  # warm-up
+                if status != 200:
+                    raise AssertionError(f"serve {name}: warm-up answered {status}")
+                bad_path, _, _ = post(port, requests[0][0], "/elsewhere")
+                bad_upload, _, _ = post(port, {"image0": b"not an image", "image1": jpeg1})
+                if (bad_path, bad_upload) != (404, 500):
+                    raise AssertionError(f"serve {name}: wrong path {bad_path}, garbage "
+                                         f"upload {bad_upload}; expected 404 and 500")
+                key = "_serve_path" if name == "staged" else "_serve_fused_path"
+                reset_counts()
+                answers, ms = [], []
+                with record_labels(key[1:-5]), record_kernel_shapes() as rec:
+                    for fields, _ in requests:
+                        t = time.perf_counter()
+                        answers.append(post(port, fields))
+                        ms.append(1e3 * (time.perf_counter() - t))
+                served = counts()
+                split = []  # where a request's time goes, from the in-process calls
+                for (fields, resize), (status, headers, body) in zip(requests, answers):
+                    if status != 200 or headers.get("Content-Type") != "image/png":
+                        raise AssertionError(f"serve {name}: answered {status}")
+                    details = json.loads(headers["X-Match-Details"])
+                    t = time.perf_counter()
+                    ims = [image_io.imdecode(fields[k], device=DEVICE)
+                           for k in ("image0", "image1")]
+                    t_decode = time.perf_counter()
+                    viz, want = serve_cli.find_matches(server.matcher, *ims, resize)
+                    t_find = time.perf_counter()
+                    png = image_io.encode_png(viz)
+                    t_png = time.perf_counter()
+                    split.append({"decode_ms": 1e3 * (t_decode - t),
+                                  "matcher_ms": 1e3 * want["seconds"],
+                                  "resize_and_draw_ms": 1e3 * (t_find - t_decode - want["seconds"]),
+                                  "png_ms": 1e3 * (t_png - t_find)})
+                    if (any(details[k] != want[k] for k in ("keypoints0", "keypoints1"))
+                            or abs(details["matches"] - want["matches"])
+                            > ENTRY_COUNT_SLACK * want["matches"]):
+                        raise AssertionError(f"serve {name}: {details} against in-process {want}")
+                    served_png = image_io.decode_png(body)
+                    if served_png.shape != viz.shape or (
+                            details["matches"] == want["matches"] and png != body):
+                        raise AssertionError(f"serve {name}: the PNG is not find_matches' drawing")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join()
+            if min(served.values()) < 1:
+                raise AssertionError(f"serve {name}: launches {served}")
+            launches[key], shapes[key] = served, rec
+            print(f"  entry serve {json.dumps({'config': name, 'ms_per_request': ms, 'matches': [json.loads(a[1]['X-Match-Details'])['matches'] for a in answers], 'launches': served, 'in_process_split': split, 'card': card})}",
+                  flush=True)
+            del server
+            torch.cuda.empty_cache()
+    phase("23 entry points", t0, encode_ms=f"{encode_ms:.1f}", decode_card_ms=f"{decode_ms:.1f}")
+    return launches, shapes
+
+
+def entry_matcher(name, args):
+    """The direct call of `match_pair_cli`'s configuration `name`."""
+    if name == "staged":
+        return Matching(ENTRY_STAGED_CONFIG, variables=load_gims_checkpoint(WEIGHTS),
+                        device=DEVICE)
+    return fused.FusedMatching(ENTRY_FUSED_CONFIG, variables=load_gims_checkpoint(E2E_WEIGHTS),
+                               total_keypoints=args.total_keypoints, device=DEVICE)
+
+
+def entry_rows(attn, sk, lab, launches, shapes):
+    """The `kernels` rows of the entry points: each kernel at the largest
+    shape its path gave it (measured here where phases 2 and 3 did not),
+    with the path's launches."""
+    rows = []
+    for key, c in launches.items():
+        rec = shapes[key]
+        b, n, m, tail, dtype, h, d = max(rec.attention, key=lambda s: s[0] * s[1] * s[2])
+        a = attn.get((b, n, m, dtype)) if d == HEAD_DIM else None
+        if a is None or a.get("ms") is None:
+            a = attention_row(b, n, m, tail, getattr(torch, dtype), h, d)
+        rows.append({"name": "masked_attention" + key, "route": "cuda",
+                     "source": "gims_tpu_torch/csrc/attention.cu",
+                     "replaces": "gims_tpu/matcher/pallas_attention.py:42", **a,
+                     "path_shapes": [f"B={s[0]} N={s[1]} M={s[2]} {s[4]}" for s in rec.attention],
+                     "launches": c["attention"], "kernel_ms": a["ms"]})
+        nb, nb1, n0, n1, iters = max(rec.sinkhorn, key=lambda s: s[0] * s[1])
+        s = sk.get((nb, len(n0), iters)) if nb == nb1 else None
+        if s is None:
+            s = sinkhorn_row(nb, list(n0), list(n1), iters, nb1=nb1)
+        rows.append({"name": "sinkhorn_uv" + key, "route": "cuda",
+                     "source": "gims_tpu_torch/csrc/sinkhorn.cu",
+                     "replaces": "gims_tpu/matcher/pallas_sinkhorn.py:40", **s,
+                     "launches": c["sinkhorn"], "kernel_ms": s["ms"], "library_ms": None,
+                     "library": "none: no single PyTorch call computes the Sinkhorn "
+                                "iterations' potentials"})
+        rows.append(label_row(key, lab[key[1:-5]], c["label_rounds"]))
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2807,6 +3200,9 @@ def main():
     partial, ring_launches = ring_phase()
     torch.cuda.empty_cache()
     shard = shard_phase(load_gims_checkpoint(WEIGHTS))
+    torch.cuda.empty_cache()
+    entry_launches, entry_shapes = entry_phase(smi)
+    torch.cuda.empty_cache()
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -2824,6 +3220,7 @@ def main():
                                        "_dp_serving_path": dp_serving_launches,
                                        "_sharded_reference_path": shard[2]},
                       partial, dp_train_launches, ring_launches, shard[:2])
+    rows += entry_rows(attn, sk, lab, entry_launches, entry_shapes)
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

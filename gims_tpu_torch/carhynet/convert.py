@@ -15,6 +15,12 @@ renamed:
 * everything else (``bias``, FRN's ``weight``, TLU's ``tau``) as it is.
 
 ``module_variables`` is the inverse, for ``core.checkpoint.save_npz``.
+``convert_carhynet_torch`` maps the reference's torch state_dict
+(carhynet/models.py:311-399, shipped as ``car_hynet.pth``) onto the same
+flax tree, as the JAX package's converter does
+(``gims_tpu/carhynet/convert.py:84-134``): OIHW kernels to HWIO (the same
+permutation takes a depthwise (C, 1, kh, kw) to (kh, kw, 1, C)), and FRN's
+and TLU's (1, C, 1, 1) tensors flattened to (C,).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from gims_tpu_torch.carhynet.model import BatchNorm
 from gims_tpu_torch.core.checkpoint import unflatten_npz
+from gims_tpu_torch.matcher.convert import TorchTree, nest_flat
 
 _RENAME = {"kernel": "weight", "scale": "weight",
            "mean": "running_mean", "var": "running_var"}
@@ -95,3 +102,74 @@ def module_variables(model: torch.nn.Module, params=None):
             key = {"running_mean": "mean", "running_var": "var"}[leaf]
             put(out["batch_stats"], path + [key], buf.detach().float().cpu().numpy())
     return out
+
+
+class _CarTree(TorchTree):
+    def frn(self, tp, fp):
+        self.params[fp] = {"weight": self.get(f"{tp}.weight").reshape(-1),
+                           "bias": self.get(f"{tp}.bias").reshape(-1)}
+        self.used.add(f"{tp}.eps")  # a fixed buffer (1e-6), not a parameter
+
+    def tlu(self, tp, fp):
+        self.params[fp] = {"tau": self.get(f"{tp}.tau").reshape(-1)}
+
+    def conv(self, tp, fp, bias=True):
+        p = {"kernel": self.get(f"{tp}.weight").transpose(2, 3, 1, 0)}  # OIHW -> HWIO
+        if bias:
+            p["bias"] = self.get(f"{tp}.bias")
+        self.params[fp] = p
+
+    def bn(self, tp, fp, affine=True):
+        if affine:
+            self.params[fp] = {"scale": self.get(f"{tp}.weight"),
+                               "bias": self.get(f"{tp}.bias")}
+        self.stats[fp] = {"mean": self.get(f"{tp}.running_mean"),
+                          "var": self.get(f"{tp}.running_var")}
+        self.used.add(f"{tp}.num_batches_tracked")
+
+    def coord(self, tp, fp):
+        self.conv(f"{tp}.conv1", f"{fp}/conv1")
+        self.bn(f"{tp}.bn1", f"{fp}/bn1")
+        self.conv(f"{tp}.conv_h", f"{fp}/conv_h")
+        self.conv(f"{tp}.conv_w", f"{fp}/conv_w")
+
+    def sandglass(self, tp, fp):
+        # the reference's Sequential (carhynet/models.py:201-222, inp == oup,
+        # stride 1, expand 6): 0 ConvBNReLU dw3x3, 1 CoordAtt, 2 conv1x1
+        # reduce, 3 BN, 4 ConvBNReLU 1x1 expand, 5 conv dw3x3, 6 BN
+        self.conv(f"{tp}.conv.0.0", f"{fp}/dw1/conv", bias=False)
+        self.bn(f"{tp}.conv.0.1", f"{fp}/dw1/bn")
+        self.coord(f"{tp}.conv.1", f"{fp}/coord")
+        self.conv(f"{tp}.conv.2", f"{fp}/pw_reduce", bias=False)
+        self.bn(f"{tp}.conv.3", f"{fp}/pw_reduce_bn")
+        self.conv(f"{tp}.conv.4.0", f"{fp}/pw_expand/conv", bias=False)
+        self.bn(f"{tp}.conv.4.1", f"{fp}/pw_expand/bn")
+        self.conv(f"{tp}.conv.5", f"{fp}/dw2", bias=False)
+        self.bn(f"{tp}.conv.6", f"{fp}/dw2_bn")
+
+
+def convert_carhynet_torch(state_dict):
+    """A reference CAR-HyNet state_dict -> the JAX layout's variables tree
+    ({'params': ..., 'batch_stats': ...}); a key left over raises."""
+    b = _CarTree(state_dict)
+    b.frn("layer1.0", "l1_frn_in")
+    b.tlu("layer1.1", "l1_tlu_in")
+    b.conv("layer1.2", "l1_conv")
+    b.frn("layer1.3", "l1_frn")
+    b.coord("layer1.4", "l1_coord")
+    b.tlu("layer1.5", "l1_tlu")
+    b.conv("layer2.0", "l2_conv")
+    b.frn("layer2.1", "l2_frn")
+    b.coord("layer2.2", "l2_coord")
+    b.tlu("layer2.3", "l2_tlu")
+    b.sandglass("layer2_5", "l2_sg")
+    for n in (3, 4, 5, 6):
+        b.conv(f"layer{n}.0", f"l{n}_conv")
+        b.frn(f"layer{n}.1", f"l{n}_frn")
+        b.tlu(f"layer{n}.2", f"l{n}_tlu")
+        if n == 4:
+            b.sandglass("layer4_5", "l4_sg")
+    b.conv("layer7.1", "l7_conv", bias=False)
+    b.bn("layer7.2", "l7_bn", affine=False)
+    b.check_consumed()
+    return {"params": nest_flat(b.params), "batch_stats": nest_flat(b.stats)}

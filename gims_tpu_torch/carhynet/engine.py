@@ -74,12 +74,14 @@ class DescriptorEngine:
 
 
 def load_variables(weights_path: str, dim_desc: int = 128):
-    """CAR-HyNet variables from a ``.npz`` of the JAX package (flax tree of
-    numpy arrays). The reference's torch ``.pth`` import is not ported."""
+    """CAR-HyNet variables (a flax tree of numpy arrays) from the reference's
+    torch state_dict (``.pth``/``.pt``, through ``convert_carhynet_torch``)
+    or a ``.npz`` of the JAX package."""
     if weights_path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "loading a reference .pth into CAR-HyNet is not ported yet (ROADMAP.md); "
-            "convert it with the JAX package to .npz")
+        from gims_tpu_torch.carhynet.convert import convert_carhynet_torch
+
+        sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+        return convert_carhynet_torch(sd)
     if weights_path.endswith(".npz"):
         return unflatten_npz(weights_path)
     raise ValueError(f"unsupported weights format: {weights_path}")

@@ -5,7 +5,9 @@ plus ``--detector`` and ``--sift_descriptor`` (the choices of
 (``--detector host``, ``--sift_descriptor host``) run OpenCV's SIFT as the
 port computes it, on the device (``frontend/sift.py``); ``device`` takes
 the DoG detector and the sampled-grid SIFT descriptor. ``--save_viz``
-raises (OpenCV drawing). Runs on ``cuda`` unless ``--device cpu``.
+writes each pair's matches and homography boxes to
+``result/matches/{stem}_bordered.jpg`` (``eval/viz.py``). Runs on ``cuda``
+unless ``--device cpu``.
 
     python -m gims_tpu_torch.cli.eval_homography_cli --generate 8 --fast \\
         --weights_path weights/gims_tpu_sift_last.npz --descriptor_source sift \\
@@ -39,11 +41,11 @@ def build_parser():
     parser.add_argument("--agc_p", type=float, default=2)
     parser.add_argument("--agc_m", type=int, default=7)
     parser.add_argument("--save_viz", action="store_true",
-                        help="not ported (OpenCV drawing): raises")
+                        help="write each pair's matches and boxes to {stem}_bordered.jpg")
     parser.add_argument("--generate", type=int, default=0,
                         help="synthesize N benchmark pairs if assets missing")
     parser.add_argument("--source_dir", type=str, default=None,
-                        help="--generate source images (PNG); procedural "
+                        help="--generate source images (PNG or JPEG); procedural "
                              "textures when omitted")
     parser.add_argument("--gen_out", type=str,
                         default="./assets/generated_benchmark",

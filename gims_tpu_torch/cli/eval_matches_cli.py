@@ -3,8 +3,8 @@
 plus ``--descriptor_source``, ``--detector``, ``--sift_descriptor`` and
 ``--device`` as in ``eval_homography_cli``: the JAX defaults run OpenCV's
 SIFT as the port computes it (``frontend/sift.py``). Inliers are counted by the port's
-RANSAC in place of OpenCV's USAC. ``--save_match`` raises (OpenCV
-drawing). Images are PNG.
+RANSAC in place of OpenCV's USAC. ``--save_match`` draws those inliers
+into ``{name}.jpg`` (``eval/viz.py``). Images are PNG or JPEG.
 
     python -m gims_tpu_torch.cli.eval_matches_cli --image0 a.png --image1 'dir/*.png' \\
         --weights_path weights/gims_tpu_sift_last.npz --descriptor_source sift
@@ -24,7 +24,7 @@ def build_parser():
     parser.add_argument("--weights_path", type=str, default=None)
     parser.add_argument("--dgims", action="store_true")
     parser.add_argument("--save_match", action="store_true",
-                        help="not ported (OpenCV drawing): raises")
+                        help="draw each pair's RANSAC inliers into {name}.jpg")
     parser.add_argument("--descriptor_source", type=str, default="carhynet",
                         choices=["carhynet", "sift", "dense", "dense_gray"])
     parser.add_argument("--detector", default="host", choices=["host", "device"])

@@ -1,17 +1,27 @@
-"""PNG reading and writing with the standard library's zlib and numpy, and
-uncompressed BMP reading.
+"""Image reading and writing without OpenCV: PNG with the standard
+library's zlib and numpy, baseline JPEG (``core/jpeg.py``), uncompressed BMP.
 
-The port's counterpart of ``cv2.imread`` / ``cv2.imwrite`` for the files
-the evaluation reads and writes: 8-bit, non-interlaced PNG of colour type
-0 (gray), 2 (RGB) or 6 (RGBA), every row filter. ``IMREAD_COLOR`` gives
-(H, W, 3) BGR uint8 (alpha dropped, gray replicated), ``IMREAD_GRAYSCALE``
-(H, W) uint8, converted as libpng converts for OpenCV. ``imread`` also
-reads uncompressed BMP of 8 bits (a palette) or 24 bits, as OpenCV's BMP
-decoder does (the UBC patch montages): rows bottom-up or top-down, a gray
-conversion in OpenCV's 14-bit fixed point. Other files (JPEG, 16-bit,
-palette PNG, interlaced, compressed BMP) raise ``NotImplementedError``:
-they need OpenCV's decoders (``ROADMAP.md`` §1, JPEG decoding). ``imwrite``
-writes PNG, filter 0 (none) at zlib level 1, OpenCV's default compression.
+The port's counterpart of ``cv2.imread`` / ``cv2.imdecode`` /
+``cv2.imwrite`` / ``cv2.imencode`` for the files the evaluation, the
+datasets and the entry points read and write. A file is decoded by its
+signature:
+
+- PNG: 8-bit, non-interlaced, colour type 0 (gray), 2 (RGB) or 6 (RGBA),
+  every row filter. ``IMREAD_COLOR`` gives (H, W, 3) BGR uint8 (alpha
+  dropped, gray replicated), ``IMREAD_GRAYSCALE`` (H, W) uint8, converted
+  as libpng converts for OpenCV.
+- JPEG: baseline and extended sequential Huffman frames of 8-bit samples,
+  bit-equal to ``cv2.imread`` (``core/jpeg.py``), on the device the caller
+  names.
+- BMP: uncompressed, 8 bits (a palette) or 24, as OpenCV's BMP decoder
+  reads them (the UBC patch montages): rows bottom-up or top-down, a gray
+  conversion in OpenCV's 14-bit fixed point.
+
+Other files (16-bit, palette or interlaced PNG, progressive or 12-bit
+JPEG, compressed BMP) raise ``NotImplementedError``: they need OpenCV's
+decoders (``ROADMAP.md`` §1). ``imwrite`` writes PNG (filter 0, zlib level
+1, OpenCV's default compression) and JPEG (``encode_jpeg`` at quality 95,
+OpenCV's default).
 """
 
 from __future__ import annotations
@@ -22,13 +32,12 @@ from pathlib import Path
 
 import numpy as np
 
-IMREAD_GRAYSCALE = 0
-IMREAD_COLOR = 1
+from gims_tpu_torch.core.jpeg import IMREAD_COLOR, IMREAD_GRAYSCALE, decode_jpeg, encode_jpeg
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples per pixel
 _NEEDS_OPENCV = ("needs OpenCV's image decoders, which the port does not have "
-                 "(ROADMAP.md §1, JPEG decoding)")
+                 "(ROADMAP.md §1)")
 # libpng's png_set_rgb_to_gray(png_ptr, 1, 0.299, 0.587), as OpenCV calls it
 # for IMREAD_GRAYSCALE: 15-bit coefficients truncated from 0.299 * 32768 and
 # 0.587 * 32768, the blue one the rest of 32768; the sum is truncated too
@@ -112,7 +121,7 @@ def _unfilter(raw, h, w, bpp):
 def decode_png(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     """`imread` on the bytes of a PNG file."""
     if not data.startswith(_SIGNATURE):
-        raise NotImplementedError(f"only PNG is decoded here; this file {_NEEDS_OPENCV}")
+        raise NotImplementedError(f"decode_png takes PNG only; this file {_NEEDS_OPENCV}")
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -184,16 +193,25 @@ def decode_bmp(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
     return np.ascontiguousarray(bgr)
 
 
-def imread(path, flags: int = IMREAD_COLOR):
-    """``cv2.imread`` for PNG and uncompressed BMP: None when the file cannot
-    be read."""
+def imdecode(buf, flags: int = IMREAD_COLOR, device="cpu"):
+    """``cv2.imdecode`` of the bytes of a PNG, JPEG or BMP file. JPEG's
+    transforms run on `device`."""
+    data = bytes(buf)
+    if data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data, flags, device=device)
+    if data.startswith(b"BM"):
+        return decode_bmp(data, flags)
+    return decode_png(data, flags)
+
+
+def imread(path, flags: int = IMREAD_COLOR, device="cpu"):
+    """``cv2.imread`` for PNG, baseline JPEG and uncompressed BMP: None when
+    the file cannot be read."""
     try:
         data = Path(path).read_bytes()
     except OSError:
         return None
-    if data.startswith(b"BM"):
-        return decode_bmp(data, flags)
-    return decode_png(data, flags)
+    return imdecode(data, flags, device=device)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -224,11 +242,22 @@ def encode_png(img: np.ndarray) -> bytes:
             + _chunk(b"IDAT", zlib.compress(lines.tobytes(), 1)) + _chunk(b"IEND", b""))
 
 
+def imencode(ext: str, img):
+    """``cv2.imencode``: (True, uint8 array of the file's bytes) for ``.png``
+    and ``.jpg``/``.jpeg``; other formats raise."""
+    ext = ext.lower()
+    if ext == ".png":
+        data = encode_png(img)
+    elif ext in (".jpg", ".jpeg"):
+        data = encode_jpeg(img)
+    else:
+        raise NotImplementedError(f"imencode {ext}: only PNG and JPEG are written here; "
+                                  "other formats need OpenCV's encoders")
+    return True, np.frombuffer(data, np.uint8)
+
+
 def imwrite(path, img) -> bool:
-    """``cv2.imwrite`` for ``.png`` paths; other formats raise."""
-    if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(f"imwrite {Path(path).name}: only PNG is written here; "
-                                  "other formats need OpenCV's encoders (ROADMAP.md §1, "
-                                  "JPEG decoding and the match drawings)")
-    Path(path).write_bytes(encode_png(img))
+    """``cv2.imwrite`` for ``.png``, ``.jpg`` and ``.jpeg`` paths."""
+    _, data = imencode(Path(path).suffix, img)
+    Path(path).write_bytes(data.tobytes())
     return True

@@ -7,14 +7,15 @@ reprojection GT — then aggregate AUC@{5,10,25}. Writes the same
 ``{stem}_matches.npz`` / ``{stem}_evaluation.npz`` artifacts and
 ``result/results.txt``.
 
-The JAX package's OpenCV calls are replaced by the port's own: PNG I/O
-(``core/image_io.py``), warps, resizes and blurs (``core/imgproc.py``),
-RANSAC (``eval/ransac.py``). Ground-truth matching (``train/gt.py``) and
-RANSAC run in torch on the harness's device (``cuda`` unless the caller
+The JAX package's OpenCV calls are replaced by the port's own: PNG and
+JPEG I/O (``core/image_io.py``), warps, resizes and blurs
+(``core/imgproc.py``), RANSAC (``eval/ransac.py``), the drawings of
+``save_viz`` (``eval/viz.py``, written as ``{stem}_bordered.jpg``).
+Ground-truth matching (``train/gt.py``) and RANSAC run in torch on the harness's device (``cuda`` unless the caller
 names another), so the matcher's host outputs go back to the card for
-them. ``generate_benchmark`` makes the ``noise`` style (and reads PNG
-``source_dir`` images); the ``structured`` style, drawn with OpenCV's
-anti-aliased shapes, and the ``save_viz`` drawings raise.
+them. ``generate_benchmark`` makes the ``noise`` style (and reads PNG or
+JPEG ``source_dir`` images); the ``structured`` style, drawn with
+OpenCV's anti-aliased shapes, raises.
 """
 
 from __future__ import annotations
@@ -33,12 +34,9 @@ from gims_tpu_torch.core import image_io, imgproc
 from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.eval import metrics as M
 from gims_tpu_torch.eval.ransac import find_homography
+from gims_tpu_torch.eval.viz import draw_homography_boxes, draw_matches
 from gims_tpu_torch.train.data import get_perspective_mat, scale_homography
 from gims_tpu_torch.train.gt import find_matches
-
-VIZ_TODO = ("needs OpenCV's drawing (lines, circles, Hershey text), not ported yet "
-            "(ROADMAP.md §1, viz and match_pair_cli)")
-
 
 def read_image_with_homography(path, homo_matrix, resize, color=True):
     """Reference: utils/common.py:364-385 (color path)."""
@@ -178,8 +176,6 @@ def run_benchmark(
 ):
     """The 199-pair benchmark (or any 'name h00..h22' list). `device`
     runs the default ``Matching``, ground-truth matching and RANSAC."""
-    if save_viz:
-        raise NotImplementedError(f"save_viz {VIZ_TODO}")
     dev = resolve_device(device)
     agc = agc or {"radius": 15, "percentile": 2, "min_size": 7}
     with open(input_homography) as f:
@@ -201,7 +197,8 @@ def run_benchmark(
 
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "result" / "matches").mkdir(parents=True, exist_ok=True)
+    match_dir = out / "result" / "matches"
+    match_dir.mkdir(parents=True, exist_ok=True)
     records = []
     results_lines = []
     for i, info in enumerate(homo_pairs):
@@ -233,6 +230,13 @@ def run_benchmark(
             f"[{i+1}/{len(homo_pairs)}] {name}: {n_m} matches, "
             f"err_ransac={record['error_ransac']:.2f} ({dt:.2f}s)"
         )
+        if save_viz:
+            viz = draw_matches(image0, image1, artifacts["mkpts0"], artifacts["mkpts1"])
+            viz = draw_homography_boxes(
+                viz, image0.shape[1], homo, artifacts.get("est_ransac"),
+                f"error_ransac: {record['error_ransac']:.2f}",
+            )
+            image_io.imwrite(str(match_dir / f"{stem}_bordered.jpg"), viz)
         records.append(record)
 
     results = aggregate(records) if records else None
@@ -275,7 +279,7 @@ def generate_benchmark(out_dir: str, n_pairs=50, source_dir=None,
     """Create a deterministic benchmark set with the reference's file
     contract (reference: generate_pairs.py).
 
-    Uses PNG images from source_dir when given, else procedural textures
+    Uses PNG or JPEG images from source_dir when given, else procedural textures
     (the ``noise`` style). The random draws are made in the JAX package's
     order, one pair after the other; the images are then made and written
     by a pool of threads (numpy and zlib release the interpreter lock).

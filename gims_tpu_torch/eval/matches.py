@@ -10,8 +10,9 @@ The JAX package counts inliers with OpenCV's USAC (``cv2.USAC_DEFAULT``);
 the port has no USAC and counts them with its own RANSAC
 (``eval/ransac.py``, OpenCV's ``cv2.RANSAC`` algorithm, reprojection
 threshold 3 px), so its counts are RANSAC's, not USAC's (``ROADMAP.md``
-§1, USAC). Images are read with the port's PNG reader; ``save_match``
-(a drawing) raises.
+§1, USAC), and ``save_match`` draws the inliers of that RANSAC. Images are
+read with the port's PNG and JPEG reader (``core/image_io.py``); the
+drawings are ``eval/viz.py``'s.
 """
 
 from __future__ import annotations
@@ -22,12 +23,12 @@ from glob import glob
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from gims_tpu_torch.core import image_io
 from gims_tpu_torch.core.device import resolve_device
-from gims_tpu_torch.eval.homography import VIZ_TODO
+from gims_tpu_torch.core.profiling import device_peak_memory_gb
 from gims_tpu_torch.eval.ransac import find_homography
+from gims_tpu_torch.eval.viz import draw_matches
 
 
 def calculate_nndr(desc_a, desc_b, threshold=0.8):
@@ -67,14 +68,6 @@ def _as_nc(d):
     return d
 
 
-def device_peak_memory_gb(device=None) -> float:
-    """Peak memory allocated by torch on the card, in GiB (0 on the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
-        return 0.0
-    return torch.cuda.max_memory_allocated(dev) / (1024**3)
-
-
 def run_match_eval(
     image0_path: str,
     image1s_path: str,
@@ -87,11 +80,9 @@ def run_match_eval(
     device=None,
 ):
     """Match `image0_path` against every image of the glob `image1s_path`
-    (PNG); inliers of the port's RANSAC (in place of OpenCV's USAC) per
-    pair into ``result.txt``. `device` runs the default ``Matching`` and
-    RANSAC."""
-    if save_match:
-        raise NotImplementedError(f"save_match {VIZ_TODO}")
+    (PNG or JPEG); inliers of the port's RANSAC (in place of OpenCV's USAC)
+    per pair into ``result.txt``, and with `save_match` a drawing of them,
+    ``{name}.jpg``. `device` runs the default ``Matching`` and RANSAC."""
     dev = resolve_device(device)
     agc = dict(agc or {"radius": 15, "percentile": 2, "min_size": 7})
     if dgims:
@@ -138,6 +129,10 @@ def run_match_eval(
         print(f">> Peak device memory: {device_peak_memory_gb(dev):.2f} GB")
         print(f"{inliers}/{len(matches)}")
         results_file.append(f"{name1} => {inliers} [{t_total}]")
+        if save_match:
+            keep = found[1].ravel() == 1
+            viz = draw_matches(image0, image1, mkpts0[keep], mkpts1[keep])
+            image_io.imwrite(os.path.join(result_dir, name1 + ".jpg"), viz)
     with open(os.path.join(result_dir, "result.txt"), "w+") as f:
         f.write("\n".join(results_file))
     # completion ping (reference: eval_matches.py:181); no-op unless

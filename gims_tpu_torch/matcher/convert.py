@@ -2,7 +2,11 @@
 
 ``load_gims_checkpoint`` reads the ``.npz`` flat-pytree format of the JAX
 package (``gims_tpu/matcher/convert.py:128-140``) into the same nested
-variables tree. ``variables_to_state_dict`` maps that tree onto the port's
+variables tree, or a reference torch training checkpoint (``.pt``: the EMA
+weights first, then ``model``, then a bare state_dict) through
+``convert_gmatcher_torch``, the port's copy of the JAX package's converter
+(``gims_tpu/matcher/convert.py:70-148``; reference layout
+models/gmatcher.py:165-217). ``variables_to_state_dict`` maps that tree onto the port's
 ``state_dict``: the port's submodules carry the flax module names, so a
 leaf's path is its key, with the leaf renamed:
 
@@ -34,13 +38,115 @@ _RENAME = {"kernel": "weight", "scale": "weight",
 _COLLECTIONS = ("params", "batch_stats")
 
 
-def load_gims_checkpoint(path: str):
-    """GMatcher variables from a ``.npz`` of the JAX package."""
-    if not str(path).endswith(".npz"):
-        raise NotImplementedError(
-            "only .npz GMatcher checkpoints load in the port; the reference's "
-            "torch .pt import is not ported yet (see ROADMAP.md)")
-    return unflatten_npz(path)
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float32)
+
+
+class TorchTree:
+    """Collects flax leaves from a reference state_dict and records the keys
+    it consumed."""
+
+    def __init__(self, sd):
+        self.sd = dict(sd)
+        self.params = {}
+        self.stats = {}
+        self.used = set()
+
+    def get(self, key):
+        self.used.add(key)
+        return _f32(self.sd[key])
+
+    def dense_from_conv1d(self, tp, fp):  # Conv1d (O, I, 1) -> Dense (I, O)
+        self.params[fp] = {"kernel": self.get(f"{tp}.weight")[:, :, 0].T,
+                           "bias": self.get(f"{tp}.bias")}
+
+    def dense_from_linear(self, tp, fp, bias=True):
+        p = {"kernel": self.get(f"{tp}.weight").T}
+        if bias:
+            p["bias"] = self.get(f"{tp}.bias")
+        self.params[fp] = p
+
+    def bn(self, tp, fp):
+        self.params[fp] = {"scale": self.get(f"{tp}.weight"), "bias": self.get(f"{tp}.bias")}
+        self.stats[fp] = {"mean": self.get(f"{tp}.running_mean"),
+                          "var": self.get(f"{tp}.running_var")}
+        self.used.add(f"{tp}.num_batches_tracked")
+
+    def mlp(self, tp, fp, n_layers):
+        """The reference MLP(): [conv, norm, relu] * (n - 1) + conv, so the
+        convs sit at 3i and the norms at 3i + 1."""
+        for i in range(n_layers):
+            self.dense_from_conv1d(f"{tp}.{3 * i}", f"{fp}/dense_{i}")
+            if i < n_layers - 1:
+                self.bn(f"{tp}.{3 * i + 1}", f"{fp}/norm_{i}")
+
+    def check_consumed(self):
+        unused = set(self.sd) - self.used
+        if unused:
+            raise ValueError(f"unconsumed torch keys: {sorted(unused)[:8]} ...")
+
+
+def nest_flat(flat):
+    """{"a/b/c": leaf} -> nested dicts; a module's extra leaves merge into it."""
+    tree = {}
+    for path, leaf in flat.items():
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        last = parts[-1]
+        if last in node and isinstance(node[last], dict) and isinstance(leaf, dict):
+            node[last].update(leaf)  # GraphSAGE's bias on the conv module itself
+        else:
+            node[last] = leaf
+    return tree
+
+
+def convert_gmatcher_torch(state_dict, num_gnn_layers=18, kenc_layers=(32, 64, 128, 256),
+                           has_input_proj=False):
+    """A reference GMatcher state_dict -> the JAX layout's variables tree
+    ({'params': ..., 'batch_stats': ...}, f32 numpy leaves). DDP's
+    ``module.`` prefixes are stripped (reference utils/common.py:107-114);
+    a key left over raises."""
+    b = TorchTree({(k[7:] if k.startswith("module.") else k): v
+                    for k, v in dict(state_dict).items()})
+    b.mlp("kenc.encoder", "kenc/encoder", len(kenc_layers) + 1)
+    for i in range(num_gnn_layers):
+        base, fp = f"gnn.layers.{i}", f"gnn/layer_{i}"
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            b.dense_from_conv1d(f"{base}.attn.proj.{j}", f"{fp}/attn/{name}")
+        b.dense_from_conv1d(f"{base}.attn.merge", f"{fp}/attn/merge")
+        b.mlp(f"{base}.mlp", f"{fp}/mlp", 2)
+    for i in range(3):
+        base, fp = f"gnn_encoder.layers.{i}", f"gnn_encoder/layer_{i}"
+        b.dense_from_linear(f"{base}.fc_self", f"{fp}/fc_self", bias=False)
+        b.dense_from_linear(f"{base}.fc_neigh", f"{fp}/fc_neigh", bias=False)
+        b.params[fp] = {"bias": b.get(f"{base}.bias")}  # DGL keeps it on the conv
+    if has_input_proj:
+        b.dense_from_linear("input_proj", "input_proj")
+    b.dense_from_conv1d("final_proj", "final_proj")
+    b.params["bin_score"] = b.get("bin_score").reshape(())
+    b.check_consumed()
+    return {"params": nest_flat(b.params), "batch_stats": nest_flat(b.stats)}
+
+
+def load_gims_checkpoint(path: str, **kwargs):
+    """GMatcher variables from a ``.npz`` of the JAX package, or from a
+    reference torch checkpoint (``.pt``): its ``ema`` weights where set, else
+    its ``model``, else the file as a bare state_dict (reference
+    models/gmatcher.py:208-217). `kwargs` go to ``convert_gmatcher_torch``."""
+    if str(path).endswith(".npz"):
+        return unflatten_npz(path)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ckpt.get("ema") is not None:
+        sd = ckpt["ema"]
+    elif isinstance(ckpt, dict) and "model" in ckpt:
+        sd = ckpt["model"]
+    else:
+        sd = ckpt
+    return convert_gmatcher_torch(sd, **kwargs)
 
 
 def variables_to_state_dict(variables) -> Dict[str, torch.Tensor]:

@@ -8,10 +8,9 @@ both packages. OpenCV's calls are the port's ``core/imgproc.py``:
 ``perspective_transform``, ``warp_perspective`` (5-bit fixed-point
 weights in OpenCV, so a few pixels of a warped image differ by one level),
 ``resize`` (INTER_CUBIC, INTER_LINEAR, INTER_AREA), ``gaussian_blur`` and
-``filter2d``; the port reads PNG only (``core/image_io.py``), so
-``CocoPairDataset``, ``ImageFolderPairDataset`` and
-``FixedHomographyDataset`` raise on a JPEG, naming the ROADMAP item of its
-decoder.
+``filter2d``. ``CocoPairDataset``, ``ImageFolderPairDataset`` and
+``FixedHomographyDataset`` read PNG and baseline JPEG with the port's
+reader (``core/image_io.py``, bit-equal to ``cv2.imread``).
 """
 
 from __future__ import annotations
@@ -149,13 +148,9 @@ def apply_photometric(image, rng):
 
 # --- datasets ---
 
-def _read_png(path, flags=None):
+def _read_image(path, flags=None):
     from gims_tpu_torch.core.image_io import IMREAD_COLOR, imread
 
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{os.path.basename(path)}: the port reads PNG only; a JPEG decoder is "
-            "ROADMAP.md section 1 item 4")
     return imread(path, IMREAD_COLOR if flags is None else flags)
 
 
@@ -189,7 +184,7 @@ class CocoPairDataset:
     def __getitem__(self, index):
         from gims_tpu_torch.core.image_io import IMREAD_COLOR, IMREAD_GRAYSCALE
 
-        image = _read_png(os.path.join(self.images_path, self.files[index]),
+        image = _read_image(os.path.join(self.images_path, self.files[index]),
                           IMREAD_COLOR if self.color else IMREAD_GRAYSCALE)
         rng = np.random.RandomState(self.seed * 100003 + 59 + index)
         return make_pair(image, self.cfg, rng)
@@ -215,7 +210,7 @@ class ImageFolderPairDataset:
 
     def _load(self, name):
         if name not in self._cache:
-            self._cache[name] = _read_png(os.path.join(self.folder, name))
+            self._cache[name] = _read_image(os.path.join(self.folder, name))
         return self._cache[name]
 
     def __getitem__(self, index):
@@ -308,7 +303,7 @@ class FixedHomographyDataset:
     def __getitem__(self, index):
         parts = self.entries[index]
         H = np.array(list(map(float, parts[1:]))).reshape(3, 3).astype(np.float32)
-        image = _read_png(os.path.join(self.images_path, parts[0]))
+        image = _read_image(os.path.join(self.images_path, parts[0]))
         height, width = image.shape[:2]
         warped = imgproc.warp_perspective(image.copy(), H, (width, height))
         size = (self.cfg.image_width, self.cfg.image_height)

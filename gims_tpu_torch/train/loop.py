@@ -17,8 +17,8 @@ Port of ``gims_tpu/train/loop.py``. Two trainers:
   trains the descriptor CNN and the matcher on the device. Validation runs
   the fused inference program (``FusedMatching``).
 
-Batches come from COCO when ``<dataset_path>/train2017`` exists (PNG files;
-a JPEG raises), else from synthetic pairs. A prefetch worker prepares batch
+Batches come from COCO when ``<dataset_path>/train2017`` exists (PNG or
+JPEG files), else from synthetic pairs. A prefetch worker prepares batch
 i + 1 while the device runs step i, and a side pool of threads extracts the
 images of a batch. Checkpoint policy parity: lastiter every
 ``lastiter_every`` iterations, minloss on a new rolling-mean minimum every

@@ -20,7 +20,9 @@ The attention kernel's partial mode: its output bit-equal to the default
 mode's, its row statistics 1e-4 from the plain version's.
 The patch warp on the card against the same warp on the CPU: 1e-3 on the
 0..255 scale with TF32 off (the same f32 arithmetic; a sample coordinate may
-round differently by an ulp).
+round differently by an ulp). JPEG decoding on the card: bit-equal to the
+CPU's on the six photos of assets/photos. One HTTP round trip through
+``serve_cli.make_server`` on the card, held to ``find_matches`` in-process.
 """
 
 import os
@@ -926,3 +928,75 @@ def test_sharded_one_rank_nccl_vs_unsharded(cuda):
     finally:
         ring_attention.set_ring_group(None)
         dist.destroy_process_group()
+
+
+PHOTOS = sorted(__import__("glob").glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "photos", "*.jpg")))
+
+
+def test_jpeg_decode_card_equals_cpu(cuda):
+    """The six baseline photos: dequantisation, IDCT, upsampling and colour
+    conversion on the card give the CPU's bytes, colour and gray."""
+    from gims_tpu_torch.core import jpeg
+
+    assert len(PHOTOS) == 6
+    for path in PHOTOS:
+        with open(path, "rb") as f:
+            data = f.read()
+        for flags in (jpeg.IMREAD_COLOR, jpeg.IMREAD_GRAYSCALE):
+            np.testing.assert_array_equal(jpeg.decode_jpeg(data, flags, device=cuda),
+                                          jpeg.decode_jpeg(data, flags, device="cpu"),
+                                          err_msg=path)
+
+
+def test_server_round_trip_on_card(cuda):
+    """make_server on the card (the fused configuration, its K1/K2/label
+    kernels): a POST of two JPEGs answers the PNG and X-Match-Details of
+    find_matches in-process on the same bytes; 404 and 500 as on the CPU."""
+    import http.client
+    import json
+    import threading
+
+    from gims_tpu_torch.cli import serve_cli
+    from gims_tpu_torch.core import image_io
+
+    img0, img1, _ = synthetic_image_pair(31, (240, 320), colour=True)
+    data = [image_io.encode_jpeg(img0), image_io.encode_jpeg(img1)]
+    weights = os.path.join(os.path.dirname(CAR_WEIGHTS), "gims_tpu_dense_gray_e2e.npz")
+    server = serve_cli.make_server(0, weights, fused=True, total_keypoints=2048, device=cuda)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(fields, path="/find_matches"):
+        body, ctype = serve_cli.encode_multipart(fields)
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        try:
+            conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
+    try:
+        fields = {"image0": data[0], "image1": data[1], "resize_enabled": b"0"}
+        assert post(fields, "/other")[0] == 404
+        assert post({"image0": b"garbage", "image1": data[1]})[0] == 500
+        status, headers, body = post(fields)
+        assert status == 200 and headers["Content-Type"] == "image/png"
+        details = json.loads(headers["X-Match-Details"])
+        imgs = [image_io.imdecode(d, device=cuda) for d in data]
+        viz, want = serve_cli.find_matches(server.matcher, *imgs, resize_enabled=False)
+        # keypoints equal; the match count as chip_smoke.py's phase 23 holds it
+        # (float atomics in AGC's centroid sums may flip a match near a tie)
+        for key in ("keypoints0", "keypoints1"):
+            assert details[key] == want[key], key
+        assert abs(details["matches"] - want["matches"]) <= 0.01 * want["matches"]
+        assert want["matches"] > 20
+        got = image_io.decode_png(body)
+        assert got.shape == viz.shape
+        if details["matches"] == want["matches"]:
+            np.testing.assert_array_equal(got, viz)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()

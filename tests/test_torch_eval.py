@@ -145,11 +145,13 @@ def test_imread_unported_formats_raise(tmp_path):
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
     interlaced = tmp_path / "interlaced.png"
     interlaced.write_bytes(bytes(data))
-    for path in (jpg, deep, bilevel, interlaced):
+    for path in (deep, bilevel, interlaced):
         with pytest.raises(NotImplementedError, match="OpenCV"):
             image_io.imread(str(path))
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        image_io.imwrite(str(tmp_path / "b.jpg"), img)
+    # JPEG is read and written now (core/jpeg.py), as OpenCV reads and writes it
+    np.testing.assert_array_equal(image_io.imread(str(jpg)), cv2.imread(str(jpg)))
+    assert image_io.imwrite(str(tmp_path / "b.jpg"), img)
+    assert (tmp_path / "b.jpg").read_bytes() == cv2.imencode(".jpg", img)[1].tobytes()
 
 
 # ---------------------------------------------------------------- imgproc
@@ -516,23 +518,38 @@ def test_opencv_only_paths_raise(tmp_path):
     txt, images = homography.generate_benchmark(str(tmp_path / "s"), n_pairs=1, height=60,
                                                 width=80)
     cases = [
-        lambda: homography.run_benchmark(txt, images, str(tmp_path / "o"), save_viz=True,
-                                         matcher=lambda d: None, device="cpu"),
         lambda: homography.generate_benchmark(str(tmp_path / "g"), 1, style="structured"),
         lambda: geometry.estimate_pose(np.zeros((8, 2)), np.zeros((8, 2)), np.eye(3),
                                        np.eye(3), 1.0),
-        lambda: matches.run_match_eval(os.path.join(images, "pair_0000.png"), images + "/*",
-                                       str(tmp_path / "m"), save_match=True,
-                                       matcher=lambda d: None, device="cpu"),
-        lambda: eval_homography_cli.main(["--input_homography", txt, "--input_dir", images,
-                                          "--output_dir", str(tmp_path / "c"), "--save_viz",
-                                          "--detector", "device", "--device", "cpu"]),
         lambda: image_io.decode_png(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8))[1]
                                     .tobytes()),
     ]
     for case in cases:
         with pytest.raises(NotImplementedError, match="OpenCV"):
             case()
+    # the drawings run now (eval/viz.py): save_viz, save_match and the CLI's
+    # --save_viz write their JPEGs
+    stub = StubMatcher(0, np.eye(3, dtype=np.float32), 60, 80, n=200)
+    homography.run_benchmark(txt, images, str(tmp_path / "o"), save_viz=True, matcher=stub,
+                             device="cpu", resize=(80, 60))
+    drawn = image_io.imread(str(tmp_path / "o" / "result" / "matches" / "pair_0000_bordered.jpg"))
+    assert drawn.shape == (60, 160, 3)
+    other = os.path.join(str(tmp_path), "other.jpg")  # a JPEG to match against
+    image_io.imwrite(other, image_io.imread(os.path.join(images, "pair_0000.png")))
+    matches.run_match_eval(os.path.join(images, "pair_0000.png"), other,
+                           str(tmp_path / "m"), save_match=True,
+                           matcher=lambda d: stub.pred, device="cpu")
+    saved = sorted(os.listdir(tmp_path / "m" / "gims"))
+    assert saved == ["other.jpg", "result.txt"]
+    assert image_io.imread(str(tmp_path / "m" / "gims" / "other.jpg")).shape == (60, 160, 3)
+    eval_homography_cli.main(["--input_homography", txt, "--input_dir", images,
+                              "--output_dir", str(tmp_path / "c"), "--save_viz",
+                              "--detector", "device", "--device", "cpu",
+                              "--weights_path", os.path.join(REPO, "weights",
+                                                             "gims_tpu_sift_last.npz"),
+                              "--descriptor_source", "sift", "--sift_descriptor", "device",
+                              "--max_keypoints", "256", "--resize", "80", "60"])
+    assert (tmp_path / "c_gims" / "result" / "matches" / "pair_0000_bordered.jpg").exists()
     # the JAX defaults (OpenCV's SIFT detector, computed by the port) run
     eval_homography_cli.main(["--input_homography", txt, "--input_dir", images,
                               "--output_dir", str(tmp_path / "d"), "--device", "cpu",

@@ -4,7 +4,8 @@ The machine with the card has torch and numpy but no JAX, flax, OpenCV,
 PIL, PyYAML, networkx or scikit-learn, and the port must not import the JAX
 package at all. A fresh interpreter with those imports refused must import
 every module of ``gims_tpu_torch`` and ``chip_smoke``, and run the port's
-host SIFT (OpenCV's algorithm, without OpenCV). ``chip_smoke.py``
+host SIFT (OpenCV's algorithm, without OpenCV), a JPEG encode and decode,
+and the demo's ``find_matches`` with its drawing. ``chip_smoke.py``
 without a card must exit non-zero and print no result (no CPU fallback).
 The kernels build with nvcc into a plain C library: no PyTorch extension
 headers or builder.
@@ -44,7 +45,12 @@ REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_tor
             "gims_tpu_torch.matcher.ring_attention",
             # keypoint-axis sharding
             "gims_tpu_torch.agc.sharded", "gims_tpu_torch.matcher.sharded",
-            "gims_tpu_torch.train.shard_check"]
+            "gims_tpu_torch.train.shard_check",
+            # the entry points, JPEG, the drawings, profiling
+            "gims_tpu_torch.core.jpeg", "gims_tpu_torch.core.drawing",
+            "gims_tpu_torch.core.text_glyphs", "gims_tpu_torch.core.profiling",
+            "gims_tpu_torch.eval.viz", "gims_tpu_torch.cli.match_pair_cli",
+            "gims_tpu_torch.cli.serve_cli"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -76,6 +82,18 @@ img = (np.random.RandomState(0).rand(48, 64, 3) * 255).astype(np.uint8)
 kp, desc = detect_and_describe(img, FrontendConfig(), 64, train_topup=True,
                                rng=np.random.RandomState(0), device="cpu")
 assert len(kp) == 64 and desc.shape == (64, 128), (len(kp), desc.shape)
+# a JPEG written and read, a drawing and the demo's find_matches, with cv2
+# and PIL refused
+from gims_tpu_torch.cli.serve_cli import find_matches
+from gims_tpu_torch.core import image_io
+from gims_tpu_torch.fused import FusedMatching
+from gims_tpu_torch.synthetic import synthetic_image_pair
+a, b, _ = synthetic_image_pair(1, (96, 128), colour=True)
+a = image_io.imdecode(image_io.imencode(".jpg", a)[1])
+viz, details = find_matches(FusedMatching({"descriptor_source": "dense_gray"},
+                                          total_keypoints=256, device="cpu"),
+                            a, b, resize_enabled=False)
+assert viz.shape == (96, 256, 3) and details["keypoints0"] > 0, details
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names), "modules")

@@ -40,6 +40,7 @@ from gims_tpu_torch.frontend import patches as tpatches
 from gims_tpu_torch.frontend import pyramid as tpyramid
 from gims_tpu_torch.frontend.sift import KeypointArrays, unpack_octaves
 from gims_tpu_torch.synthetic import synthetic_image_pair
+from reference_layouts import carhynet_state_dict
 from torch_threads import torch_threads_per_worker  # noqa: F401 (autouse)
 
 FRAME = (48, 64)
@@ -211,9 +212,26 @@ def test_descriptor_engine_matches_jax(engines, n):
     np.testing.assert_array_equal(desc, got)
 
 
-def test_engine_weights_files():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.load_variables("car_hynet.pth")
+def test_engine_weights_files(tmp_path):
+    # a reference .pth (a torch state_dict) loads through convert_carhynet_torch
+    # into JAX's variables for it, and the engine runs on them as JAX's does
+    sd = carhynet_state_dict(np.random.RandomState(6))
+    path = tmp_path / "car_hynet.pth"
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, path)
+    got = tengine.load_variables(str(path))
+    want = jengine.load_variables(str(path))
+    flat = jax.tree_util.tree_leaves_with_path(want)
+    assert len(jax.tree_util.tree_leaves(got)) == len(flat)
+    for key, leaf in flat:
+        node = got
+        for k in key:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf), err_msg=str(key))
+    patches = np.random.RandomState(4).rand(5, 32, 32, 3).astype(np.float32)
+    np.testing.assert_allclose(
+        tengine.DescriptorEngine(variables=got, device="cpu").compute(patches),
+        jengine.DescriptorEngine(variables=jax.tree_util.tree_map(jnp.asarray, want))
+        .compute(patches), atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="format"):
         tengine.load_variables("car_hynet.bin")
 

@@ -510,7 +510,15 @@ def test_image_folder_mixed_and_fixed_datasets_match_jax(tmp_path):
             assert a.shape == b.shape == (96, 128, 3)
             d = np.abs(a.astype(np.int32) - b.astype(np.int32))
             assert d.max() <= 2 and (d > 0).mean() <= 2e-2
-    cv2.imwrite(str(tmp_path / "s2.jpg"), np.zeros((80, 80, 3), np.uint8))
-    jpeg = tdata.ImageFolderPairDataset(DatasetConfig(**kw), str(tmp_path), length=3, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jpeg[2]
+    # a JPEG source: the port's decoder against JAX's cv2.imread
+    cv2.imwrite(str(tmp_path / "s2.jpg"), cv2.GaussianBlur(
+        rng.randint(0, 256, (140, 190, 3)).astype(np.uint8), (0, 0), 1.5))
+    tj = tdata.ImageFolderPairDataset(DatasetConfig(**kw), str(tmp_path), length=3, seed=1)
+    jj = jdata.ImageFolderPairDataset(JDatasetConfig(**kw), str(tmp_path), length=3, seed=1)
+    assert tj.paths == jj.paths and tj.paths[2] == "s2.jpg"
+    (j0, j1, jh), (t0, t1, th) = jj[2], tj[2]
+    np.testing.assert_array_equal(th, jh)
+    for a, b in ((t0, j0), (t1, j1)):
+        assert a.shape == b.shape == (96, 128, 3)
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert d.max() <= 2 and (d > 0).mean() <= 2e-2

@@ -183,10 +183,20 @@ def test_coco_pair_dataset_matches_jax(tmp_path, with_json):
             assert a.shape == b.shape == (96, 128, 3)
             d = np.abs(a.astype(np.int32) - b.astype(np.int32))
             assert d.max() <= 2 and (d > 0).mean() <= 2e-2
-    cv2.imwrite(str(root / "train2017" / "d.jpg"), np.zeros((40, 40, 3), np.uint8))
+    # a JPEG image: the port's decoder against JAX's cv2.imread
+    low = rng.randint(0, 255, (30, 40, 3)).astype(np.uint8)
+    cv2.imwrite(str(root / "train2017" / "d.jpg"),
+                cv2.GaussianBlur(cv2.resize(low, (160, 120)), (0, 0), 1.5))
     if with_json:
         (root / "annotations" / "instances_train2017.json").write_text(
             json.dumps({"images": [{"file_name": n} for n in names + ["d.jpg"]]}))
-    jpeg = tdata.CocoPairDataset(DatasetConfig(**kw), "train", seed=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jpeg[jpeg.files.index("d.jpg")]
+    tjpeg = tdata.CocoPairDataset(DatasetConfig(**kw), "train", seed=4)
+    jjpeg = jdata.CocoPairDataset(JDatasetConfig(**kw), "train", seed=4)
+    assert tjpeg.files == jjpeg.files
+    i = tjpeg.files.index("d.jpg")
+    (j0, j1, jh), (t0, t1, th) = jjpeg[i], tjpeg[i]
+    np.testing.assert_array_equal(th, jh)
+    for a, b in ((t0, j0), (t1, j1)):
+        assert a.shape == b.shape == (96, 128, 3)
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        assert d.max() <= 2 and (d > 0).mean() <= 2e-2

@@ -10,8 +10,9 @@ Phases, one line each with its seconds:
     kernel; the count of wgmma (HGMMA) instructions in the attention
     kernels' SASS, which must not be 0 for the bf16 kernel.
   2 the attention kernel against its plain PyTorch versions on the card,
-    at the paths' trunk shapes among others (head width 64), and at a head
-    width of 256 (a 512-d trunk of 2 heads; the kernel's widest), timed.
+    at the paths' trunk shapes among others (head width 64), at a head
+    width of 256 (a 512-d trunk of 2 heads; the column-block kernels'
+    widest) and at 320 (the wide-head kernel, which no path runs yet), timed.
   3 the Sinkhorn kernels against their plain PyTorch version on the card:
     the fused kernel at Z of 2049, 8193, (8, 3073), (4, 6145), 6145 and
     3073 square, the streaming kernel at 24577 (the widest bucket) and at
@@ -121,8 +122,9 @@ Phases, one line each with its seconds:
     a temporary output directory. It fails unless every loss is finite, the
     matcher's parameters stay fixed in the frozen steps while the CNN's
     move and both move afterwards, each train step launches the label
-    rounds twice and neither K1 nor K2, each validation pair launches K1 18
-    times, K2 and the label rounds once, the first step's two AGC graphs
+    rounds and the centroid sums twice, the loss sums once and neither K1
+    nor K2, each validation pair launches K1 18 times, K2, the label rounds
+    and the centroid sums once, the first step's two AGC graphs
     (adjacency and kept) are equal with the label kernel and with its plain
     version, the exported EMA npz loaded into a fresh FusedMatching matches
     a pair as the in-memory EMA model does, and a resume from `last`
@@ -209,9 +211,8 @@ Phases, one line each with its seconds:
     (--descriptor_source sift, the staged checkpoint) and --fused --fast
     dense_gray (the joint e2e matcher, the CNN seeded as the JAX CLI leaves
     it): keypoints equal to a direct Matching / FusedMatching call of the
-    same configuration on the decoded images and matches on ENTRY_AGREE of
-    the rows (float sums made with atomics on the card can flip a match
-    near a tie from one run to the next), the launches
+    same configuration on the decoded images and matches on ENTRY_AGREE
+    (1.0) of the rows, the launches
     equal to that call's, a staged correct share >= 0.5, the PNG written
     equal to draw_matches of the prediction; (c) the staged checkpoint
     rewritten as the reference's torch state_dict, saved as {"ema": sd},
@@ -227,9 +228,20 @@ Phases, one line each with its seconds:
     before them; ms per request beside the card's name and power limit, and
     where an in-process request's time goes. Launches of each path are
     counted.
+  24 the tools and the deterministic sums (run after phase 23, before 13),
+    on phase 23's entry pair: tools.parameter_search over TOOLS_PARAMS with
+    the staged Matching (the staged checkpoint, host SIFT detection and
+    descriptors, 20 iterations):
+    one record row per setting, K1, K2, the label rounds and the centroid
+    sums launched on every row (the SIFT sums printed), ms per row; the
+    port's USAC (eval/usac.py) on the card and on the CPU on the first
+    row's matches: equal counts;
+    the native library built with g++ and a KNN case against numpy; the
+    headless image viewer (the grid equals compose_grid) and the static and
+    interactive reports of the sweep's records.
   13 the label-rounds kernel against its plain version on the graphs the
     paths above gave it (recorded during phases 4, 6, 9, 10, 12, 15-20, 22,
-    23):
+    23, 24):
     labels equal, and the rounds each graph ran equal to rounds_plain's;
     per path the route plan() took (cluster size, shared bytes per block),
     the share of blocks that listed their rows' neighbours (as the kernel
@@ -237,10 +249,17 @@ Phases, one line each with its seconds:
     and at cap 0 (one round; the difference over the rounds past the first
     gives the cost of a round), the share of its bound, and, labelled as a
     model, the bytes one launch moves in the kernel's design.
+  Every path's launches include the segmented-sum kernel's
+    (csrc/segsum.cu) by caller: each AGC build launches the centroid sums
+    once, each training step the loss sums once (both checked wherever the
+    label rounds are), each image described by SIFT on the card the
+    histograms at least once (checked in phase 17).
   14 one JSON line with every kernel's launches, error and times, on the
     eighteen paths' shapes (phase 22's unsharded reference at 16384 and
-    phase 23's four entry-point paths among them), the label rounds of phase 20's steps and K1's partial mode at
-    the step shapes of phase 21's and phase 22's rings; the script's total
+    phase 23's four entry-point paths and phase 24's parameter sweep among
+    them), the label rounds of phase 20's steps, K1's partial mode at
+    the step shapes of phase 21's and phase 22's rings, and the
+    segmented-sum kernel at its three callers' shapes; the script's total
     seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
@@ -250,13 +269,15 @@ the standard library and gims_tpu_torch only, and writes nothing outside
 gims_tpu_torch/_build/ but phase 15's pairs and artifacts, phases 16's
 and 18's checkpoints, the spec and results of phases 20's, 21's and 22's
 ranks and phase 23's images, checkpoints and outputs, in temporary
-directories that it removes. Phases 20-22 start their ranks as processes
+directories that it removes, and the native library into
+gims_tpu_torch/_build/. Phases 20-22 start their ranks as processes
 and wait for them to end; phase 23's server listens on 127.0.0.1 only and
 is shut down before the phase ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -285,6 +306,7 @@ from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
 from gims_tpu_torch.config import (AGCConfig, FrontendConfig, MatcherConfig,  # noqa: E402
                                    load_config)
 from gims_tpu_torch.core import checkpoint as ckpt_io  # noqa: E402
+from gims_tpu_torch.core import segsum  # noqa: E402
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
 from gims_tpu_torch.eval import homography  # noqa: E402
 from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
@@ -355,6 +377,9 @@ ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
 # trunk of 2 heads) at the staged image path's bucket: the kernel's widest
 WIDE_ATTN_CASE = (2, 6144, 6144, 900)
 WIDE_HEAD_DIM = 256
+# the wide-head kernel (heads past 256): a 640-d trunk of 2 heads at 2048
+WIDER_ATTN_CASE = (2, 2048, 2048, 248)
+WIDER_HEAD_DIM = 320
 # (bucket, valid rows, valid cols, iterations) of the Sinkhorn input Z
 # (bucket+1 square), one entry per batch item: the fused kernel (Z read once
 # per iteration) at 2049 and 8193, the streaming kernel (twice) at 24577,
@@ -551,15 +576,12 @@ ENTRY_FRAME = (600, 800)
 ENTRY_SMALL = (480, 640)
 ENTRY_SEED = 2300
 ENTRY_SHARE = 0.5
-# matches0 of two runs of a path on the card: float sums made with atomics
-# (the staged SIFT descriptors' histograms, index_add_; the centroid
-# reconnect's coordinate sums, scatter_add_) may round differently from one
-# run to the next, so a descriptor byte or a centroid can move by an ulp and
-# flip a match near a tie. Two runs agree on ENTRY_AGREE of the rows, and a
+# matches0 of two runs of a path on the card agree on ENTRY_AGREE of the rows
+# (every float sum into slots is made in source order, core/segsum.py), and a
 # served request's match count lies within ENTRY_COUNT_SLACK of the
 # in-process call's (its drawing is then compared only where the counts are
 # equal). Keypoints must be equal.
-ENTRY_AGREE = {"staged": 0.99, "fused": 0.999}
+ENTRY_AGREE = {"staged": 1.0, "fused": 1.0}
 ENTRY_COUNT_SLACK = 0.01
 ENTRY_CLI = {"staged": ["--descriptor_source", "sift", "--weights_path", WEIGHTS],
              "fused": ["--fused", "--fast", "--descriptor_source", "dense_gray",
@@ -570,6 +592,21 @@ ENTRY_FUSED_CONFIG = {"sinkhorn_iterations": 20, "match_threshold": 0.02,
                       "descriptor_source": "dense_gray", "radius": 15, "percentile": 2,
                       "min_size": 7, "attention_dtype": "bfloat16",
                       "use_pallas_sinkhorn": True, "fast_frontend": True}
+# phase 24: parameter_search's (radius, percentile, min_size) rows on phase
+# 23's pair, with the Matching that tools.parameter_search builds, on the
+# SIFT descriptors the staged checkpoint was trained with
+TOOLS_PARAMS = ([15, 2, 7], [20, 5, 3], [10, 1, 10])
+TOOLS_CONFIG = {"weights_path": WEIGHTS, "sinkhorn_iterations": 20, "match_threshold": 0.02,
+                "max_keypoints": -1, "descriptor_source": "sift"}
+# the callers of the segmented sum (core/segsum.py), by their tags, and the
+# path whose run gives each one's row in the kernels line: its input,
+# recorded on the host in that path's untimed first call, and its launches
+SEGSUM_PATHS = {"sift_descriptors": "_host_sift_staged_path",
+                "agc_centroid_sums": "_host_sift_staged_path",
+                "train_loss_sums": "_train_path"}
+# what every matching path launches: K1, K2, and per AGC build one
+# label-rounds and one centroid-sums launch
+MATCH_KERNELS = ("attention", "sinkhorn", "label_rounds", "segsum_agc_centroid_sums")
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
 
@@ -766,17 +803,20 @@ def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
 def attention_phase():
     t0 = time.perf_counter()
     rows = {}
-    cases = [(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM)]
+    cases = [(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM),
+                                                      (WIDER_ATTN_CASE, 2, WIDER_HEAD_DIM)]
     for (b, n, m, tail), h, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
             row = attention_row(b, n, m, tail, dtype, h, d)
             rows[(b, n, m, row["dtype"]) if d == HEAD_DIM else (b, n, m, row["dtype"], d)] = row
     torch.cuda.empty_cache()
     wide = rows[WIDE_ATTN_CASE[:3] + ("bfloat16", WIDE_HEAD_DIM)]
+    wider = rows[WIDER_ATTN_CASE[:3] + ("bfloat16", WIDER_HEAD_DIM)]
     phase("2 attention kernel vs plain", t0,
           max_err_f32=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "float32"),
           max_err_bf16=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "bfloat16"),
-          wide_head_bf16_ms=wide["ms"], wide_head_bound_ms=wide["bound_ms"])
+          wide_head_bf16_ms=wide["ms"], wide_head_bound_ms=wide["bound_ms"],
+          head_320_bf16_ms=wider["ms"], head_320_bound_ms=wider["bound_ms"])
     return rows
 
 
@@ -876,9 +916,10 @@ def slice_phase():
                     raise AssertionError(f"request {i}: mdesc shape")
     launches = counts()
     n = len(requests)
-    if launches != {"attention": NUM_LAYERS * n, "sinkhorn": n, "label_rounds": n}:
+    if differs(launches, match_counts(NUM_LAYERS * n, n, n)):
         raise AssertionError(f"kernel launches on the Matching path: {launches}, expected "
-                             f"{NUM_LAYERS} attention, 1 Sinkhorn and 1 label-rounds per request")
+                             f"{NUM_LAYERS} attention, 1 Sinkhorn, 1 label-rounds and 1 "
+                             "centroid-sums per request")
     phase("4 slice (Matching, 4 keypoint requests)", t0, launches=json.dumps(launches))
     return launches
 
@@ -1001,19 +1042,73 @@ class record_labels:
 def reset_counts():
     cuda_attention.launches = cuda_sinkhorn.launches = labels.launches = 0
     cuda_attention.partial_launches = 0
+    segsum.launches = 0
+    segsum.launches_by_tag.clear()
 
 
 def counts():
     return {"attention": cuda_attention.launches, "sinkhorn": cuda_sinkhorn.launches,
-            "label_rounds": labels.launches}
+            "label_rounds": labels.launches,
+            **{f"segsum_{tag}": segsum.launches_by_tag.get(tag, 0) for tag in SEGSUM_PATHS}}
+
+
+def match_counts(attention, sinkhorn, builds, loss_steps=0):
+    """The launches a matching path's run must show: K1, K2, one label-rounds
+    and one centroid-sums launch per AGC build, one loss-sums launch per
+    training step (the SIFT descriptors' launches vary with the keypoints:
+    not compared)."""
+    return {"attention": attention, "sinkhorn": sinkhorn, "label_rounds": builds,
+            "segsum_agc_centroid_sums": builds, "segsum_train_loss_sums": loss_steps}
+
+
+def differs(got, want):
+    """Whether the counts `got` differ from `want` on want's keys."""
+    return any(got[k] != v for k, v in want.items())
+
+
+def zero_counts():
+    return dict.fromkeys(counts(), 0)
+
+
+def host_ms(fn, reps=5):
+    """Mean ms per call of a host function over `reps` calls after one warm-up."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+# inputs of the segmented sum by tag: (values, index, slots) on the host
+SEGSUM_INPUTS = {}
+
+
+@contextlib.contextmanager
+def record_segsum(tags):
+    """While active, keeps on the host (SEGSUM_INPUTS) the largest input
+    that the segmented-sum kernel got under each of `tags`. Each recording
+    copies to the host: use it only in a path's untimed first call."""
+    real = segsum.segment_sum_cuda
+
+    def recorded(values, index, num, tag="other"):
+        kept = SEGSUM_INPUTS.get(tag)
+        if tag in tags and (kept is None or values.numel() > kept[0].numel()):
+            SEGSUM_INPUTS[tag] = (values.detach().cpu(), index.cpu(), int(num))
+        return real(values, index, num, tag)
+
+    segsum.segment_sum_cuda = recorded
+    try:
+        yield
+    finally:
+        segsum.segment_sum_cuda = real
 
 
 def timed_dispatches(m, batches, name, min_share=0.5, chunks=1):
     """Timed dispatches of `m` (one per batch after the first, a warm-up):
     launches per dispatch, matches and the share within 3 px, pairs/s and
     peak memory. Fails on a launch count other than 18 attention, 1
-    Sinkhorn and 1 label-rounds per dispatch and chunk (`chunks`: the
-    devices of a split), a pair without matches, non-finite scores or a
+    Sinkhorn, 1 label-rounds and 1 centroid-sums per dispatch and chunk
+    (`chunks`: the devices of a split), a pair without matches, non-finite scores or a
     correct share under `min_share` (None: no bound, for descriptors of
     untrained weights)."""
     imgs0, imgs1, _ = batches[0]
@@ -1026,13 +1121,12 @@ def timed_dispatches(m, batches, name, min_share=0.5, chunks=1):
     for imgs0, imgs1, hs in batches[1:]:
         before = counts()
         preds.append((m.collect_batch(m.dispatch_batch(imgs0, imgs1)), hs))
-        per_dispatch.append(tuple(v - before[k] for k, v in counts().items()))
+        per_dispatch.append({k: v - before[k] for k, v in counts().items()})
     elapsed = time.perf_counter() - t
     launches = counts()
-    want = (chunks * NUM_LAYERS, chunks, chunks)
-    if any(d != want for d in per_dispatch):
-        raise AssertionError(f"{name}: launches per dispatch (attention, Sinkhorn, label "
-                             f"rounds) {per_dispatch}, expected {want}")
+    want = match_counts(chunks * NUM_LAYERS, chunks, chunks)
+    if any(differs(d, want) for d in per_dispatch):
+        raise AssertionError(f"{name}: launches per dispatch {per_dispatch}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
     n_good = n_all = 0
     shares = []
@@ -1105,7 +1199,7 @@ def fused_phase(variables, car_variables):
                 and rc["compact_to"] == FUSED_COMPACT and got == want):
             raise AssertionError(f"FusedMatching {name} on {DEVICE}: {rc}")
     batches = [fused_pairs(FUSED_BATCH, 100 * (i + 1)) for i in range(FUSED_TIMED + 1)]
-    total = {"attention": 0, "sinkhorn": 0, "label_rounds": 0}
+    total = zero_counts()
     for name in ("A", "B", "B", "A"):
         with record_labels("fused_" + name):
             launches = timed_dispatches(ms[name], batches, name)
@@ -1338,9 +1432,9 @@ def staged_phase(variables):
         elapsed = time.perf_counter() - t
     launches = counts()
     n = STAGED_PAIRS
-    if launches != {"attention": NUM_LAYERS * n, "sinkhorn": n, "label_rounds": n}:
+    if differs(launches, match_counts(NUM_LAYERS * n, n, n)):
         raise AssertionError(f"staged S1 launches {launches}, expected {NUM_LAYERS} attention, "
-                             "1 Sinkhorn and 1 label-rounds per request")
+                             "1 Sinkhorn, 1 label-rounds and 1 centroid-sums per request")
     # the same pairs one request after the other, frontends not overlapped
     t = time.perf_counter()
     for pair in pairs[1:]:
@@ -1574,9 +1668,12 @@ def staged_launches_ok(c, pairs, sinkhorn=1):
     """Launch counts of `pairs` staged Matching requests: `sinkhorn` K2
     launches a pair (0 where the config takes the plain Sinkhorn); a pair
     whose sides fill the same bucket stacks them (one AGC, one trunk call a
-    layer: 18 K1, 1 label rounds), another runs them apart (36, 2)."""
+    layer: 18 K1, 1 label rounds), another runs them apart (36, 2); one
+    centroid-sums launch per AGC build."""
     return (c["sinkhorn"] == sinkhorn * pairs and pairs <= c["label_rounds"] <= 2 * pairs
-            and c["attention"] == NUM_LAYERS * c["label_rounds"])
+            and c["attention"] == NUM_LAYERS * c["label_rounds"]
+            and c["segsum_agc_centroid_sums"] == c["label_rounds"]
+            and c["segsum_train_loss_sums"] == 0)
 
 
 class TimedMatching:
@@ -1697,7 +1794,7 @@ def eval_phase(sift_variables, e2e_variables, e2e_car):
                 if not staged_launches_ok(launches[name], EVAL_PAIRS):
                     raise AssertionError(f"eval {name}: launches {launches[name]} over "
                                          f"{EVAL_PAIRS} pairs")
-            elif per_pair != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+            elif differs(per_pair, match_counts(NUM_LAYERS, 1, 1)):
                 raise AssertionError(f"eval {name}: launches per pair {per_pair}")
             if not all(abs(d) <= EVAL_BOUND for d in row["difference_to_record"]):
                 raise AssertionError(f"eval {name}: RANSAC AUC@5/10/25, precision, recall "
@@ -1806,9 +1903,12 @@ def train_phase():
 
         def step(state, batch):
             before_m, before_c = params_of(state, "gmatcher."), params_of(state, "carhynet.")
+            first = not steps
             torch.cuda.synchronize()
             before, t = counts(), time.perf_counter()
-            state, metrics = inner(state, batch)
+            # the first step's loss sums: the input of their kernels-line row
+            with record_segsum(("train_loss_sums",)) if first else contextlib.nullcontext():
+                state, metrics = inner(state, batch)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t)
             after = counts()
@@ -1894,12 +1994,12 @@ def train_phase():
     for st in steps:
         if not all(math.isfinite(x) for x in st["losses"]):
             raise AssertionError(f"training: a loss is not finite: {st}")
-        if st["launches"] != {"attention": 0, "sinkhorn": 0, "label_rounds": 2}:
+        if differs(st["launches"], match_counts(0, 0, 2, loss_steps=1)):
             raise AssertionError(f"training: launches per step {st['launches']}")
         if st["matcher_moved"] == st["frozen"] or not st["cnn_moved"]:
             raise AssertionError(f"training: freezing {st}")
     for v in vals:
-        if v["launches_per_pair"] != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+        if differs(v["launches_per_pair"], match_counts(NUM_LAYERS, 1, 1)):
             raise AssertionError(f"training validation: launches per pair {v}")
     # the first step's graphs: the label kernel against its plain version
     for side, args in enumerate(agc_inputs):
@@ -2026,7 +2126,9 @@ def host_sift_phase(variables):
             "sift", "host", "host", HOST_SIFT_KEYPOINTS):
         raise AssertionError(f"host staged configuration: {fe}")
     pairs = [synthetic_image_pair(620 + i, FUSED_FRAME) for i in range(HOST_STAGED_PAIRS + 1)]
-    staged_request(m, pairs[0], return_descriptors=False)  # warm-up
+    # the warm-up, untimed, gives the SIFT and centroid sums' kernels-line inputs
+    with record_segsum(("sift_descriptors", "agc_centroid_sums")):
+        staged_request(m, pairs[0], return_descriptors=False)
     torch.cuda.synchronize()
     reset_counts()
     preds, per_request = [], []
@@ -2056,10 +2158,13 @@ def host_sift_phase(variables):
             "launches": launches, "launches_per_request": per_request[0],
             "timings_last_pair_s": m.timings}
     print(f"  host staged {json.dumps(info)}", flush=True)
-    # both sides fill the 2048 bucket: stacked, one AGC and one trunk call a layer
-    want = {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}
-    if any(r != want for r in per_request):
+    # both sides fill the 2048 bucket: stacked, one AGC and one trunk call a
+    # layer; each pair's two images described on the card (SIFT's sums)
+    want = match_counts(NUM_LAYERS, 1, 1)
+    if any(differs(r, want) for r in per_request):
         raise AssertionError(f"host staged: launches per request {per_request}, expected {want}")
+    if launches["segsum_sift_descriptors"] < 2 * HOST_STAGED_PAIRS:
+        raise AssertionError(f"host staged: SIFT's segmented sums launched {launches}")
     if not info["correct_share"] >= 0.5:
         raise AssertionError(f"host staged: {info['correct_share']} of matches within 3 px < 0.5")
     del m
@@ -2184,7 +2289,7 @@ def classic_train_phase():
     for st in steps:
         if not all(math.isfinite(x) for x in st["losses"]):
             raise AssertionError(f"classic training: a loss is not finite: {st}")
-        if st["launches"] != {"attention": 0, "sinkhorn": 0, "label_rounds": 2}:
+        if differs(st["launches"], match_counts(0, 0, 2, loss_steps=1)):
             raise AssertionError(f"classic training: launches per step {st['launches']}")
     for v in vals:
         # Matching with every keypoint kept: a pair's sides may fall in two
@@ -2274,7 +2379,7 @@ def dp_serving_phase(variables, car_variables):
     torch.cuda.empty_cache()
     ms = {"unsplit": fused.FusedMatching(FUSED_CONFIG, **common),
           "split": fused.FusedMatching(FUSED_CONFIG, devices=split_devices, **common)}
-    total = {"attention": 0, "sinkhorn": 0, "label_rounds": 0}
+    total = zero_counts()
     for name in ("unsplit", "split", "split", "unsplit"):
         if name == "split":
             with record_labels("dp_serving"):
@@ -2575,7 +2680,7 @@ def shard_phase(variables):
             out, first_ms = timed_call(unsharded)
         launches = counts()
         peak = torch.cuda.max_memory_allocated()
-        if launches != {"attention": NUM_LAYERS, "sinkhorn": 1, "label_rounds": 1}:
+        if differs(launches, match_counts(NUM_LAYERS, 1, 1)):
             raise AssertionError(f"unsharded {nb}: launches {launches}")
         want[nb] = {k: v.cpu() for k, v in out.items()}
         info[nb] = {"case": f"bucket {nb}, {nv} valid a side, {dt}",
@@ -2816,7 +2921,7 @@ def entry_phase(smi):
                  "matches0": saved["matches"]},
                 {k: pred[k][0] for k in ("keypoints0", "keypoints1", "matches0")},
                 f"match_pair {name}", ENTRY_AGREE[name])
-            if cli_counts != direct_counts or min(cli_counts.values()) < 1:
+            if cli_counts != direct_counts or min(cli_counts[k] for k in MATCH_KERNELS) < 1:
                 raise AssertionError(f"match_pair {name}: launches {cli_counts}, the direct "
                                      f"call's {direct_counts}")
             valid = pred["matches0"][0] > -1
@@ -2923,7 +3028,7 @@ def entry_phase(smi):
                 server.shutdown()
                 server.server_close()
                 thread.join()
-            if min(served.values()) < 1:
+            if min(served[k] for k in MATCH_KERNELS) < 1:
                 raise AssertionError(f"serve {name}: launches {served}")
             launches[key], shapes[key] = served, rec
             print(f"  entry serve {json.dumps({'config': name, 'ms_per_request': ms, 'matches': [json.loads(a[1]['X-Match-Details'])['matches'] for a in answers], 'launches': served, 'in_process_split': split, 'card': card})}",
@@ -2932,6 +3037,147 @@ def entry_phase(smi):
             torch.cuda.empty_cache()
     phase("23 entry points", t0, encode_ms=f"{encode_ms:.1f}", decode_card_ms=f"{decode_ms:.1f}")
     return launches, shapes
+
+
+def segsum_rows(path_launches):
+    """The segmented-sum kernel at each caller's input on the path named in
+    SEGSUM_PATHS (recorded on the host in its untimed first call): equal to
+    the CPU's sequential sum (index_add_ there, the plain version) on two
+    runs; its time (the stable sort of the destinations included) beside
+    the plain version's on the CPU and index_add_'s atomics on the card; its
+    bound: each key (8 B), value (4 B) and slot (4 B) moved once; the
+    launches of that path's run."""
+    rows = []
+    for tag, path in SEGSUM_PATHS.items():
+        if tag not in SEGSUM_INPUTS:
+            raise AssertionError(f"segsum: no input of {tag} was recorded on {path}")
+        values_h, index_h, num = SEGSUM_INPUTS[tag]
+        values, index = values_h.to(DEVICE), index_h.to(DEVICE)
+        want = segsum.segment_sum_plain(values_h, index_h, num)
+        runs = [segsum.segment_sum_cuda(values, index, num) for _ in range(2)]
+        torch.cuda.synchronize()
+        err = max(float((r.cpu() - want).abs().max()) for r in runs)
+        if not all(torch.equal(r.cpu(), want) for r in runs):
+            raise AssertionError(f"segsum {tag}: differs from the CPU's sequential sum ({err})")
+        launches = path_launches[path][f"segsum_{tag}"]
+        if launches < 1:
+            raise AssertionError(f"segsum {tag}: {path} launched it {launches} times")
+        n = values.numel()
+        bnd, by = bound_ms(12 * n + 4 * num, n, torch.float32)
+        rows.append({"name": f"segment_sum_{tag}", "route": "cuda",
+                     "source": "gims_tpu_torch/csrc/segsum.cu",
+                     "replaces": "none: index_add_/scatter_add_ atomics of the port where JAX's "
+                                 "segment sums are deterministic (frontend/sift.py, "
+                                 "agc/graph.py, matcher/pipeline.py)",
+                     "path": path, "shape": f"{n} values into {num} slots",
+                     "launches": launches, "max_abs_err": err,
+                     "two_runs_equal": torch.equal(runs[0], runs[1]),
+                     "ms": cuda_ms(lambda: segsum.segment_sum_cuda(values, index, num)),
+                     "plain_ms": host_ms(lambda: segsum.segment_sum_plain(values_h, index_h, num)),
+                     "plain_on": "cpu", "bound_ms": bnd, "bound_by": by,
+                     "library_ms": cuda_ms(lambda: torch.zeros(num, device=DEVICE)
+                                           .index_add_(0, index, values)),
+                     "library": "torch.Tensor.index_add_ (atomics)"})
+        print(f"  segsum {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def tools_phase(smi):
+    """Phase 24: parameter_search, USAC, the native library, the viewer and
+    the reports on the entry pair."""
+    from gims_tpu_torch.core import image_io
+    from gims_tpu_torch.eval.usac import find_homography_usac
+    from gims_tpu_torch.native import bridge
+    from gims_tpu_torch.tools import image_viewer, parameter_search, parameter_visualize
+
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="gims_tools_") as tmp:
+        img0, img1, _ = synthetic_image_pair(ENTRY_SEED, ENTRY_FRAME, colour=True)
+        paths = [os.path.join(tmp, f"{i}.png") for i in range(2)]
+        for path, img in zip(paths, (img0, img1)):
+            image_io.imwrite(path, img)
+        # (a) the sweep: the rows one by one, each with its own launch counts
+        matcher = Matching(TOOLS_CONFIG, device=DEVICE)
+        ims = [image_io.imread(p) for p in paths]
+        out = os.path.join(tmp, "search", "0_1")
+        os.makedirs(out)
+        parameter_search.search_process(matcher, TOOLS_PARAMS[0], *ims, "0", "1", tmp)  # warm-up
+        reset_counts()
+        rows, per_row = [], []
+        with record_labels("tools_search"), record_kernel_shapes() as shapes:
+            for param in TOOLS_PARAMS:
+                before = counts()
+                t = time.perf_counter()
+                rows.append(parameter_search.search_process(matcher, param, *ims, "0", "1", out))
+                ms = 1e3 * (time.perf_counter() - t)
+                grew = {k: v - before[k] for k, v in counts().items()}
+                if min(grew[k] for k in MATCH_KERNELS) < 1:
+                    raise AssertionError(f"parameter_search {param}: launches {grew}")
+                per_row.append({"param": param, "ms": ms, "launches": grew,
+                                "correct": rows[-1][3], "total": rows[-1][4]})
+        launches["_tools_search_path"] = counts()
+        with open(os.path.join(out, "record.txt")) as f:
+            if len(f.read().splitlines()) != len(TOOLS_PARAMS):
+                raise AssertionError("parameter_search: record.txt lacks rows")
+        if any(r[3] < 1 for r in rows):
+            raise AssertionError(f"parameter_search: a row counted no inlier: {rows}")
+        print(f"  tools search {json.dumps({'rows': per_row, 'card': smi})}", flush=True)
+        # (b) USAC on the card and on the CPU on the same matches
+        pred = matcher({"image0": ims[0][None], "image1": ims[1][None],
+                        **dict(zip(("radius", "percentile", "min_size"), TOOLS_PARAMS[0])),
+                        "return_descriptors": False})
+        m = pred["matches0"][0]
+        mk0 = np.float32(pred["keypoints0"][0][m > -1])
+        mk1 = np.float32(pred["keypoints1"][0][m[m > -1]])
+        usac = {}
+        for dev in (DEVICE, "cpu"):
+            t = time.perf_counter()
+            found = find_homography_usac(mk0, mk1, device=dev)
+            usac[dev] = (int(found[1].sum()), 1e3 * (time.perf_counter() - t))
+        if usac[DEVICE][0] != usac["cpu"][0] or usac[DEVICE][0] != rows[0][3]:
+            raise AssertionError(f"usac: card {usac[DEVICE]}, cpu {usac['cpu']}, row {rows[0]}")
+        print(f"  tools usac {json.dumps({'matches': len(mk0), 'inliers': usac[DEVICE][0], 'card_ms': usac[DEVICE][1], 'cpu_ms': usac['cpu'][1]})}",
+              flush=True)
+        del matcher
+        # (c) the native library: built with g++, a KNN case against numpy
+        t = time.perf_counter()
+        lib = bridge.build_library()
+        build_s = time.perf_counter() - t
+        rng = np.random.RandomState(0)
+        qd, td = rng.randn(40, 16).astype(np.float32), rng.randn(50, 16).astype(np.float32)
+        b = bridge.CPPbridge(lib)
+        b.CreateMatcher(16, k=1, sim_thres=0.95)
+        b.KnnMatch(rng.rand(40, 2).astype(np.float32), qd, rng.rand(50, 2).astype(np.float32), td)
+        got = {(q, t_) for q, t_, _ in b.all_matches()}
+        dist = np.linalg.norm(qd[:, None] - td[None], axis=-1)
+        order = np.argsort(dist, axis=1)
+        want = {(q, int(order[q, 0])) for q in range(40)
+                if dist[q, order[q, 0]] <= 0.95 * dist[q, order[q, 1]]}
+        if got != want or not got:
+            raise AssertionError(f"native KNN: {sorted(got)} against numpy's {sorted(want)}")
+        # (d) the headless viewer and the reports
+        folders = [os.path.join(tmp, f) for f in ("gims", "dgims")]
+        for folder in folders:
+            os.makedirs(folder)
+            for i, path in enumerate(paths):
+                image_io.imwrite(os.path.join(folder, f"{i}.png"), image_io.imread(path))
+        image_viewer.run_headless(folders, os.path.join(tmp, "grids"))
+        grid = image_io.imread(os.path.join(tmp, "grids", "0.png"))
+        if grid.shape != (720, 960, 3) or not np.array_equal(
+                grid, image_viewer.compose_grid(folders, "0.png")):
+            raise AssertionError("image_viewer: the headless grid is not compose_grid's")
+        record = os.path.join(out, "record.txt")
+        with open(parameter_visualize.render_report([record], os.path.join(tmp, "r.html"))) as f:
+            report = f.read()
+        with open(parameter_visualize.render_interactive([record], os.path.join(tmp, "d.html"))) as f:
+            dash = f.read()
+        if report.count("data:image/png;base64,") < 5 or '"0_1"' not in dash:
+            raise AssertionError("parameter_visualize: a report lacks its plots or records")
+    phase("24 tools", t0, native_build_s=f"{build_s:.1f}",
+          launches=json.dumps(launches["_tools_search_path"]))
+    return launches, shapes
+
 
 
 def entry_matcher(name, args):
@@ -3203,6 +3449,10 @@ def main():
     torch.cuda.empty_cache()
     entry_launches, entry_shapes = entry_phase(smi)
     torch.cuda.empty_cache()
+    tools_launches, tools_shapes = tools_phase(smi)
+    entry_launches.update(tools_launches)
+    entry_shapes["_tools_search_path"] = tools_shapes
+    torch.cuda.empty_cache()
     lab = label_phase()
 
     t0 = time.perf_counter()
@@ -3221,6 +3471,7 @@ def main():
                                        "_sharded_reference_path": shard[2]},
                       partial, dp_train_launches, ring_launches, shard[:2])
     rows += entry_rows(attn, sk, lab, entry_launches, entry_shapes)
+    rows += segsum_rows({"_host_sift_staged_path": host_launches, "_train_path": train_launches})
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

@@ -133,6 +133,13 @@ def _declare(lib):
         + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
         + [i64]                    # key_mask batch stride
         + [f, p])                  # scale * log2(e), stream
+    lib.gims_attention_fwd_wide.restype = i
+    lib.gims_attention_fwd_wide.argtypes = (
+        [p, p, p, p, p, p, p]      # q, k, v, key_mask, out, stats (or null), workspace
+        + [i] * 6                  # dtype, B, N, M, H, D
+        + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
+        + [i64]                    # key_mask batch stride
+        + [f, p])                  # scale * log2(e), stream
     lib.gims_sinkhorn_z_reads.restype = i
     lib.gims_sinkhorn_z_reads.argtypes = [i, i, i]      # B, M1, N1
     lib.gims_sinkhorn_scratch_len.restype = i64
@@ -149,3 +156,6 @@ def _declare(lib):
         [i, p, p, p, p, p, p, p, i64]  # mode, edges, nbr_idx, valid, labels, rounds run,
                                        # listed, scratch, len
         + [i, i, i, i, p])          # B, N, W, rounds, stream
+    lib.gims_segsum.restype = i
+    lib.gims_segsum.argtypes = [p, p, p, p, p, i64, i64, p]  # keys, perm, offsets, values,
+                                                             # out, n, num, stream

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from gims_tpu_torch.agc import labels as label_rounds
+from gims_tpu_torch.core.segsum import batched_segment_sum
 from gims_tpu_torch.agc.band import (
     _band_shear_bwd,
     _band_to_dense,
@@ -193,7 +194,11 @@ def _first_min_index(values: torch.Tensor, mask: torch.Tensor, dim: int = -1):
 
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    """Per-batch segment sum: out[b, s] = sum of data[b, i] with seg[b, i] == s."""
+    """Per-batch segment sum: out[b, s] = sum of data[b, i] with seg[b, i] == s.
+    Integers add exactly in any order; floats add in ascending i
+    (``core/segsum.py``), so the card gives the same bits every run."""
+    if data.is_floating_point():
+        return batched_segment_sum(data, seg, num, tag="agc_centroid_sums")
     out = torch.zeros((data.shape[0], num), dtype=data.dtype, device=data.device)
     return out.scatter_add_(1, seg, data)
 
@@ -234,14 +239,16 @@ def _component_links_head(kpts, labels, kept, C, nearest=_nearest_component):
     lab = torch.where(kept, torch.gather(rank, 1, safe_labels),
                       torch.full_like(rank, C))  # component id in [0, C]
 
-    keptf = kept.float()
-    cnt = _segment_sum(keptf, lab, C + 1)
+    cnt = _segment_sum(kept.long(), lab, C + 1).float()  # exact in any order
     comp_ok = cnt > 0
     comp_ok[:, C] = False
     num_comps = comp_ok.sum(dim=1)
-    sx = _segment_sum(torch.where(kept, kpts[..., 0], 0.0), lab, C + 1)
-    sy = _segment_sum(torch.where(kept, kpts[..., 1], 0.0), lab, C + 1)
-    cent = torch.stack([sx, sy], dim=-1) / torch.clamp(cnt, min=1.0)[..., None]
+    # x into slots [0, C], y into [C + 1, 2C + 1]: one launch, each slot in
+    # ascending node order
+    xy = torch.where(kept[..., None], kpts[..., :2], 0.0)
+    xy = xy.transpose(1, 2).reshape(b, 2 * n)
+    sums = _segment_sum(xy, torch.cat([lab, lab + C + 1], dim=1), 2 * (C + 1))
+    cent = sums.reshape(b, 2, C + 1).transpose(1, 2) / torch.clamp(cnt, min=1.0)[..., None]
 
     comp_ids = torch.arange(C + 1, device=dev)
     nnc = nearest(cent, comp_ok)                         # sentinel C+1

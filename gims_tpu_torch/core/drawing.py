@@ -14,7 +14,8 @@ The port's counterparts of what ``gims_tpu/eval/viz.py`` draws, each on an
   quadrilateral in 16-bit fixed point (``FillConvexPoly``, its edges by
   ``Line2``) and a filled circle at its end.
 - ``get_text_size`` and ``put_text`` for ``FONT_HERSHEY_SIMPLEX`` at
-  ``fontScale`` 1. OpenCV 5 draws this face with its embedded TrueType
+  ``fontScale`` 1, and at 0.7 of thickness 2 and up (the image viewer's
+  labels). OpenCV 5 draws this face with its embedded TrueType
   font, not with Hershey strokes: 8-bit coverage bitmaps at integer pen
   positions, no kerning, one weight for thickness 1 and another for 2 and
   up, and the same coverage for ``LINE_8`` and ``LINE_AA``. The bitmaps and
@@ -39,7 +40,6 @@ FONT_HERSHEY_SIMPLEX = 0
 
 _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
-_TEXT_HEIGHT = 27  # cv2.getTextSize's height at fontScale 1, whatever the (non-empty) text
 
 
 def gray_to_bgr(img):
@@ -337,12 +337,16 @@ def polylines(img, pts, is_closed, color, thickness=1):
 _GLYPHS = {}
 
 
-def _glyph_table(thickness):
-    """(advances, [(x, y, bitmap)]) of the weight that `thickness` selects."""
-    name = "REGULAR" if thickness <= 1 else "BOLD"
-    if name not in _GLYPHS:
-        from gims_tpu_torch.core import text_glyphs
+def _glyph_table(thickness, font_scale=1):
+    """(advances, [(x, y, bitmap)]) of the weight that `thickness` selects
+    at `font_scale`."""
+    from gims_tpu_torch.core import text_glyphs
 
+    name = text_glyphs.SCALES[font_scale][1 if thickness <= 1 else 2]
+    if name is None:
+        raise NotImplementedError(f"text at fontScale {font_scale} of thickness {thickness}: "
+                                  "that weight is not carried (ROADMAP.md §1)")
+    if name not in _GLYPHS:
         advances = getattr(text_glyphs, f"{name}_ADVANCES")
         offsets = getattr(text_glyphs, f"{name}_OFFSETS")
         blob = np.frombuffer(zlib.decompress(base64.b64decode(
@@ -356,10 +360,12 @@ def _glyph_table(thickness):
 
 
 def _check_font(text, font_face, font_scale):
-    if font_face != FONT_HERSHEY_SIMPLEX or font_scale != 1:
+    from gims_tpu_torch.core import text_glyphs
+
+    if font_face != FONT_HERSHEY_SIMPLEX or font_scale not in text_glyphs.SCALES:
         raise NotImplementedError(
             f"text of font {font_face} at scale {font_scale}: only FONT_HERSHEY_SIMPLEX at "
-            "fontScale 1, as OpenCV 5 draws it, is ported (ROADMAP.md §1)")
+            "fontScale 1 and 0.7, as OpenCV 5 draws it, is ported (ROADMAP.md §1)")
     codes = [ord(c) for c in text]
     if any(c < 32 or c > 126 for c in codes):
         raise NotImplementedError("text outside printable ASCII is not ported (ROADMAP.md §1)")
@@ -368,14 +374,16 @@ def _check_font(text, font_face, font_scale):
 
 def get_text_size(text, font_face, font_scale, thickness):
     """``cv2.getTextSize``: ((width, height), baseline)."""
+    from gims_tpu_torch.core import text_glyphs
+
     codes = _check_font(text, font_face, font_scale)
-    advances, glyphs = _glyph_table(thickness)
+    advances, glyphs = _glyph_table(thickness, font_scale)
     if not codes:
         return (0, 0), 0
     width = sum(advances[c] for c in codes) + 1
     baseline = max([0] + [glyphs[c][1] + glyphs[c][2].shape[0] for c in codes
                           if glyphs[c][2].size])
-    return (width, _TEXT_HEIGHT), baseline
+    return (width, text_glyphs.SCALES[font_scale][0]), baseline
 
 
 def put_text(img, text, org, font_face, font_scale, color, thickness=1, line_type=LINE_8):
@@ -383,7 +391,7 @@ def put_text(img, text, org, font_face, font_scale, color, thickness=1, line_typ
     codes = _check_font(text, font_face, font_scale)
     if line_type not in (LINE_8, LINE_AA):
         raise NotImplementedError(f"text of line type {line_type} is not ported")
-    advances, glyphs = _glyph_table(thickness)
+    advances, glyphs = _glyph_table(thickness, font_scale)
     colour = _colour(img, color).astype(np.int32)
     h, w = img.shape[:2]
     pen_x, pen_y = int(org[0]), int(org[1])

@@ -14,17 +14,23 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
   borders and 11-bit fixed-point weights. The same size returns a copy.
   On float32, INTER_LINEAR with OpenCV's float weights (a horizontal then a
   vertical pass, as OpenCV's float code sums them), and a shrink by exactly
-  2 on both axes as OpenCV takes it, the mean of each 2x2 block.
+  2 on both axes as the IPP build takes it, equal to the bit: a lerp by 1/2
+  along x, then along y.
   INTER_AREA shrinks by OpenCV's area weights (the mean of each 2x2 block
   rounded half up at a factor of 2, other integer factors rounded to
-  nearest even, fractional factors by OpenCV's float cell weights, here
-  summed in float64) and enlarges by OpenCV's area-mode bilinear taps.
-  Linear
-  downscales and the cubic 4x upscale of the benchmark generator agree
-  with OpenCV but for one level on a few pixels in 10^4; linear upscales
-  differ by one level on up to ~1% of the pixels of a noise texture, and
-  cubic resizes by other factors on up to ~5% (OpenCV 5 rounds those by
-  rules not reproduced here).
+  nearest even, fractional factors by OpenCV's float32 cell weights summed
+  in its order) and enlarges by OpenCV's area-mode bilinear taps.
+  INTER_LINEAR
+  equals OpenCV at every factor: 11-bit weights, the horizontal pass in
+  integers, the vertical pass as OpenCV's vector code does it
+  (``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2 >> 2``), and
+  along y the taps past the border keep both weights on the border row
+  (OpenCV moves them onto the border with weights (1, 0) only along x).
+  INTER_CUBIC on images of 4 x 4 and more goes, in the OpenCV build with
+  Intel IPP, through IPP's float code (``_resize_cubic_float``): equal at
+  the callers' power-of-two factors, off by one level on a few pixels in
+  10^5 to 10^3 at other fractional factors; smaller images take OpenCV's
+  11-bit fixed-point path.
 - ``gaussian_blur``: ``cv2.GaussianBlur(img, (0, 0), sigma)`` on uint8,
   OpenCV's bit-exact fixed-point filter: a kernel of round(6 sigma + 1) | 1
   taps in 8 fractional bits, a horizontal then a vertical pass in
@@ -121,10 +127,13 @@ def _cubic_weights(x):
     return np.stack([c0, c1, c2, c3], -1)
 
 
-def _axis_taps(n_out, n_in, interpolation, area_mode=False):
+def _axis_taps(n_out, n_in, interpolation, area_mode=False, clip=True):
     """(indices, weights) of one axis: (n_out, k) source indices (replicated
     at the border) and float32 weights, OpenCV's resize geometry.
-    area_mode: INTER_AREA's bilinear taps where it enlarges."""
+    area_mode: INTER_AREA's bilinear taps where it enlarges. clip: a
+    bilinear tap past the border moves onto it with weights (1, 0), as
+    OpenCV does along x; along y it keeps its two weights, and both taps
+    read the border row."""
     scale = n_in / n_out
     if area_mode:
         dx = np.arange(n_out)
@@ -135,11 +144,14 @@ def _axis_taps(n_out, n_in, interpolation, area_mode=False):
         f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
         s = np.floor(f).astype(np.int64)
         f = f - s.astype(np.float32)
-    if interpolation == INTER_LINEAR:
+    if interpolation == INTER_LINEAR and clip:
         low = s < 0
         f[low], s[low] = 0, 0
         high = s >= n_in - 1
         f[high], s[high] = 0, n_in - 1
+        idx = np.stack([s, s + 1], -1)
+        w = np.stack([1 - f, f], -1)
+    elif interpolation == INTER_LINEAR:
         idx = np.stack([s, s + 1], -1)
         w = np.stack([1 - f, f], -1)
     else:
@@ -148,23 +160,31 @@ def _axis_taps(n_out, n_in, interpolation, area_mode=False):
     return np.clip(idx, 0, n_in - 1), w
 
 
-def _area_weights(n_out, n_in):
-    """OpenCV's computeResizeAreaTab as an (n_out, n_in) float32 matrix: each
-    output cell's share of every source pixel it covers."""
-    scale = n_in / n_out
-    wts = np.zeros((n_out, n_in), np.float32)
+def _area_tab(n_out, n_in):
+    """OpenCV's computeResizeAreaTab as (n_out, K) source indices and float32
+    weights, each cell's taps in ascending source order (weight 0 pads)."""
+    scale = 1.0 / (n_out / n_in)
+    cells = []
     for dx in range(n_out):
         fsx1 = dx * scale
         fsx2 = fsx1 + scale
         cell = min(scale, n_in - fsx1)
         sx2 = min(int(np.floor(fsx2)), n_in - 1)
         sx1 = min(int(np.ceil(fsx1)), sx2)
+        taps = []
         if sx1 - fsx1 > 1e-3:
-            wts[dx, sx1 - 1] = np.float32((sx1 - fsx1) / cell)
-        wts[dx, sx1:sx2] = np.float32(1.0 / cell)
+            taps.append((sx1 - 1, np.float32((sx1 - fsx1) / cell)))
+        taps += [(sx, np.float32(1.0 / cell)) for sx in range(sx1, sx2)]
         if fsx2 - sx2 > 1e-3:
-            wts[dx, sx2] = np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)
-    return wts
+            taps.append((sx2, np.float32(min(min(fsx2 - sx2, 1.0), cell) / cell)))
+        cells.append(taps)
+    k = max(len(t) for t in cells)
+    idx = np.zeros((n_out, k), np.int64)
+    wts = np.zeros((n_out, k), np.float32)
+    for dx, taps in enumerate(cells):
+        for j, (sx, a) in enumerate(taps):
+            idx[dx, j], wts[dx, j] = sx, a
+    return idx, wts
 
 
 def _resize_area(src, w, h):
@@ -178,11 +198,17 @@ def _resize_area(src, w, h):
         if fx == fy == 2:  # OpenCV's vector path: (a + b + c + d + 2) >> 2
             return ((total + 2) >> 2).astype(np.uint8)
         return np.rint(total.astype(np.float32) * np.float32(1.0 / (fx * fy))).astype(np.uint8)
-    wx = _area_weights(w, w_in).astype(np.float64)
-    wy = _area_weights(h, h_in).astype(np.float64)
-    c = src.shape[2]
-    rows = (wy @ src.reshape(h_in, -1).astype(np.float64)).reshape(h, w_in, c)
-    out = (rows.transpose(0, 2, 1) @ wx.T).transpose(0, 2, 1)        # (h, w, c)
+    # ResizeArea_Invoker in float32: each source row's cells summed tap by
+    # tap, then each output row accumulates beta * row over its source rows
+    xi, xw = _area_tab(w, w_in)
+    yi, yw = _area_tab(h, h_in)
+    s = src.astype(np.float32)
+    rows = np.zeros((h_in, w, src.shape[2]), np.float32)
+    for k in range(xi.shape[1]):
+        rows = rows + s[:, xi[:, k]] * xw[None, :, k, None]
+    out = yw[:, 0, None, None] * rows[yi[:, 0]]
+    for k in range(1, yi.shape[1]):
+        out = out + yw[:, k, None, None] * rows[yi[:, k]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
@@ -201,6 +227,9 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
     if src.dtype != np.uint8:
         raise NotImplementedError(f"resize of {src.dtype}: only uint8, and float32 with "
                                   "INTER_LINEAR, are ported")
+    if interpolation == INTER_CUBIC and min(src.shape[:2]) >= 4:
+        out = _resize_cubic_float(src, w, h)
+        return out[..., 0] if flat else out
     area_mode = interpolation == INTER_AREA
     if area_mode:
         if w <= src.shape[1] and h <= src.shape[0]:
@@ -208,7 +237,7 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
             return out[..., 0] if flat else out
         interpolation = INTER_LINEAR  # enlarging: bilinear taps of area mode
     xi, xw = _axis_taps(w, src.shape[1], interpolation, area_mode)
-    yi, yw = _axis_taps(h, src.shape[0], interpolation, area_mode)
+    yi, yw = _axis_taps(h, src.shape[0], interpolation, area_mode, clip=False)
     # 11-bit weights; the horizontal pass in integers, the vertical pass as
     # OpenCV's vector code does it
     ax = np.rint(xw * _COEF_SCALE).astype(np.int32)
@@ -231,14 +260,55 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
     return out[..., 0] if flat else out
 
 
+def _cubic_taps_f64(n_out, n_in):
+    """INTER_CUBIC's taps of one axis with the weights computed in float64
+    (the source coordinate too), then rounded to float32."""
+    fx = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(fx)
+    f = fx - s
+    a = -0.75
+    c0 = ((a * (f + 1) - 5 * a) * (f + 1) + 8 * a) * (f + 1) - 4 * a
+    c1 = ((a + 2) * f - (a + 3)) * f * f + 1
+    c2 = ((a + 2) * (1 - f) - (a + 3)) * (1 - f) * (1 - f) + 1
+    w = np.stack([c0, c1, c2, 1 - c0 - c1 - c2], -1).astype(np.float32)
+    return np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0, n_in - 1), w
+
+
+def _pairwise4(t, c):
+    """fma(t0, c0, t1 c1) + fma(t2, c2, t3 c3) in float32."""
+    return _fmaf(t[0], c[0], t[1] * c[1]) + _fmaf(t[2], c[2], t[3] * c[3])
+
+
+def _resize_cubic_float(src, w, h):
+    """INTER_CUBIC of a uint8 (H, W, C) image, at least 4 x 4, as the
+    OpenCV build with Intel IPP computes it: float32 weights rounded from
+    float64, a horizontal then a vertical pass in float32, each summing its
+    taps as fma(t0, c0, t1 c1) + fma(t2, c2, t3 c3), the result rounded
+    half to even. Equal to cv2.resize at
+    power-of-two factors (the 4x and 8x upscales of the synthetic textures,
+    the 2x and 4x shrinks) and at 0.8; at factors whose weights are not
+    dyadic, such as 1.25 and 1.31, a few pixels in 10^5 round the other way,
+    and at 0.6 about 2 in 10^3 (IPP's weights there are not reproduced).
+    Smaller images take OpenCV's own fixed-point path (``resize``)."""
+    xi, xc = _cubic_taps_f64(w, src.shape[1])
+    yi, yc = _cubic_taps_f64(h, src.shape[0])
+    t = src.astype(np.float32)[:, xi]                                  # (H_in, w, 4, C)
+    rows = _pairwise4([t[:, :, k] for k in range(4)], [xc[None, :, k, None] for k in range(4)])
+    v = rows[yi]                                                       # (h, 4, w, C)
+    out = _pairwise4([v[:, k] for k in range(4)], [yc[:, k, None, None] for k in range(4)])
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def _resize_linear_f32(src, w, h):
     """INTER_LINEAR of a float32 (H, W, C) image."""
     h_in, w_in = src.shape[:2]
     if w_in == 2 * w and h_in == 2 * h:
-        # OpenCV takes an exact 2x shrink as INTER_AREA: ((a + b) + (c + d)) / 4
+        # the IPP build's exact 2x shrink: a lerp by 1/2 along x, then along y
         s = src[:2 * h, :2 * w]
         tl, tr, bl, br = s[0::2, 0::2], s[0::2, 1::2], s[1::2, 0::2], s[1::2, 1::2]
-        return (((tl + tr) + (bl + br)) * np.float32(0.25)).astype(np.float32)
+        half = np.float32(0.5)
+        top, bottom = tl + (tr - tl) * half, bl + (br - bl) * half
+        return (top + (bottom - top) * half).astype(np.float32)
     xi, xw = _axis_taps(w, w_in, INTER_LINEAR)
     yi, yw = _axis_taps(h, h_in, INTER_LINEAR)
     rows = src[:, xi[:, 0]] * xw[None, :, 0, None] + src[:, xi[:, 1]] * xw[None, :, 1, None]

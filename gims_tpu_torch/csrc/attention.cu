@@ -21,7 +21,7 @@
 // out' = (out_a w_a + out_b w_b) / (w_a + w_b). Without stats (a null
 // pointer) the kernels do and store what they did before.
 //
-// Head widths: any D up to 256. Both kernels work on column blocks of 64:
+// Head widths: any D. Up to 256 both kernels below work on column blocks of 64:
 // one block for D <= 64, two for D <= 128, three for D <= 192, four for
 // D <= 256. Columns from D up to the block's end are read as zeros (TMA's
 // out-of-bounds fill, or a bounds test in the f32 kernel), which add nothing
@@ -70,6 +70,19 @@
 //   library needs no -lcuda. The wrapper guarantees a unit D stride and
 //   16-byte aligned bases and strides, as TMA requires.
 //
+// Wider heads (D > 256, no path of the port runs one yet): attn_wide_kernel,
+// for both dtypes, the same arithmetic in tiles of the keys per tile of the
+// kernels above at D > 128 (64 keys in bf16, 128 in f32: where P is rounded
+// against the running max). One warp per query row, four rows per block; the
+// lanes split the columns. Each key's score is the warp's sum of the lanes'
+// f32 products, times scale*log2(e), plus the bias; the tile's p go through
+// shared memory, are rounded to the input dtype there, and each lane adds
+// p * v to its columns of the row's f32 accumulator, which lives in a
+// (B, N, H, D) f32 workspace in device memory (no width fits registers or
+// shared memory), rescaled once per tile. The epilogue writes acc / max(l,
+// 1e-30) rounded to the output dtype. Not tuned: K and V are read from
+// global memory (L1 and L2 serve the block's four rows) and q once per key.
+//
 // f32: attn_f32_kernel, scalar FMAs (the tensor cores would round to TF32,
 // which the port keeps off). One block per (b*h, tile of 64 query rows), one
 // thread per query row holding q and its f32 accumulator in registers (at
@@ -86,7 +99,7 @@
 namespace {
 
 constexpr int kBlockD = 64;   // columns per block of the head dim
-constexpr int kMaxD = 256;    // widest head dim: four blocks
+constexpr int kMaxD = 256;    // widest head dim of the block kernels: four blocks
 constexpr float kNegInf = -1e9f;
 constexpr int kMaxDevices = 64;
 
@@ -201,6 +214,107 @@ __global__ void __launch_bounds__(kBQ) attn_f32_kernel(
       if (d < D) op[d * os.d] = acc[d] * inv;
     }
     if (stats != nullptr) {
+      float* st = stats + (((long long)b * N + row) * H + h) * 2;
+      st[0] = m_run;
+      st[1] = l_run;
+    }
+  }
+}
+
+// ---------------------------------------------------- wide-head kernel
+
+constexpr int kWideRows = 4;  // query rows per block, one warp each
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// kBK keys per tile; work: (B, N, H, D) f32, contiguous.
+template <typename T, int kBK>
+__global__ void __launch_bounds__(32 * kWideRows) attn_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const uint8_t* __restrict__ key_mask, T* __restrict__ out, float* __restrict__ work, int N,
+    int M, int H, int D, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb,
+    float scale_log2, float* __restrict__ stats) {
+  __shared__ float bias[kBK];
+  __shared__ float p_sh[kWideRows][kBK];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int row = blockIdx.x * kWideRows + warp;
+  const bool row_ok = row < N;
+
+  const T* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  const uint8_t* mb = key_mask + b * mask_sb;
+  float* wp = work + (((long long)b * N + (row_ok ? row : 0)) * H + h) * D;
+  float* ps = p_sh[warp];
+  float m_run = kNegInf;
+  float l_run = 0.f;
+
+  for (int k0 = 0; k0 < M; k0 += kBK) {
+    __syncthreads();  // previous tile's bias fully read
+    for (int j = threadIdx.x; j < kBK; j += blockDim.x) {
+      const int key = k0 + j;
+      bias[j] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
+    }
+    __syncthreads();
+    if (!row_ok) continue;  // a whole warp: its shuffles stay full
+    const int nk = min(kBK, M - k0);
+    float cmax = -INFINITY;
+    for (int j = 0; j < nk; ++j) {
+      const T* kr = kb + (long long)(k0 + j) * ks.n;
+      float dot = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        dot = fmaf(to_f32(qp[c * qs.d]), to_f32(kr[c * ks.d]), dot);
+      }
+      const float s = warp_sum(dot) * scale_log2 + bias[j];
+      if ((j & 31) == lane) ps[j] = s;
+      cmax = fmaxf(cmax, s);
+    }
+    __syncwarp();
+    const float m_new = fmaxf(m_run, cmax);
+    const float corr = exp2f(m_run - m_new);
+    float lsum = 0.f;
+    for (int j = lane; j < nk; j += 32) {
+      const float p = exp2f(ps[j] - m_new);
+      lsum += p;
+      ps[j] = to_f32(from_f32<T>(p));  // P rounded to V's dtype before P V
+    }
+    l_run = l_run * corr + warp_sum(lsum);
+    __syncwarp();
+    for (int c = lane; c < D; c += 32) {
+      float a = k0 == 0 ? 0.f : wp[c] * corr;
+      for (int j = 0; j < nk; ++j) {
+        a = fmaf(ps[j], to_f32(vb[(long long)(k0 + j) * vs.n + c * vs.d]), a);
+      }
+      wp[c] = a;
+    }
+    m_run = m_new;
+  }
+
+  if (row_ok) {
+    const float den = fmaxf(l_run, 1e-30f);
+    T* op = out + b * os.b + (long long)row * os.n + h * os.h;
+    for (int c = lane; c < D; c += 32) op[c * os.d] = from_f32<T>(wp[c] / den);
+    if (stats != nullptr && lane == 0) {
       float* st = stats + (((long long)b * N + row) * H + h) * 2;
       st[0] = m_run;
       st[1] = l_run;
@@ -686,14 +800,33 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kBK>
+int launch_wide(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                float* work, int B, int N, int M, int H, int D, const Strides& qs,
+                const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
+                float scale_log2, float* stats, cudaStream_t stream) {
+  const dim3 grid((N + kWideRows - 1) / kWideRows, B * H);
+  attn_wide_kernel<T, kBK><<<grid, 32 * kWideRows, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_mask), static_cast<T*>(out), work, N, M, H, D, qs, ks,
+      vs, os, mask_sb, scale_log2, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int attention_fwd(const void* q, const void* k, const void* v, const void* key_mask, void* out,
-                  float* stats, int dtype, int B, int N, int M, int H, int D, const Strides& qs,
-                  const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
-                  float scale_log2, void* stream) {
-  if (D <= 0 || D > kMaxD || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535) {
+                  float* stats, float* work, int dtype, int B, int N, int M, int H, int D,
+                  const Strides& qs, const Strides& ks, const Strides& vs, const Strides& os,
+                  long long mask_sb, float scale_log2, void* stream) {
+  if (D <= 0 || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535 ||
+      (D > kMaxD) != (work != nullptr) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxD) {
+    auto launch = dtype == 0 ? launch_wide<float, 128> : launch_wide<__nv_bfloat16, 64>;
+    return launch(q, k, v, key_mask, out, work, B, N, M, H, D, qs, ks, vs, os, mask_sb,
+                  scale_log2, stats, st);
+  }
   const int blocks = (D + kBlockD - 1) / kBlockD;  // column blocks of 64
   if (dtype == 0) {
     auto launch = blocks == 1 ? launch_f32<kBlockD> : blocks == 2 ? launch_f32<2 * kBlockD>
@@ -716,7 +849,8 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_m
 
 // dtype: 0 = float32 (scalar kernel, any strides), 1 = bfloat16 (tensor-core
 // kernel: unit D stride, 16-byte aligned bases and strides, so D a multiple
-// of 8). D from 1 to 256. Returns a cudaError_t (0 = launched).
+// of 8). D from 1 to 256 (gims_attention_fwd_wide beyond). Returns a
+// cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int dtype, int B, int N, int M, int H, int D, long long qsb,
@@ -724,7 +858,7 @@ extern "C" int gims_attention_fwd(
     long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
-  return attention_fwd(q, k, v, key_mask, out, nullptr, dtype, B, N, M, H, D,
+  return attention_fwd(q, k, v, key_mask, out, nullptr, nullptr, dtype, B, N, M, H, D,
                        Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
                        Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
                        scale_log2, stream);
@@ -740,8 +874,26 @@ extern "C" int gims_attention_fwd_partial(
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
   if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats), dtype, B, N, M, H,
-                       D, Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
+  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats), nullptr, dtype, B, N,
+                       M, H, D, Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
+                       Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
+                       scale_log2, stream);
+}
+
+// Heads wider than 256, both dtypes (attn_wide_kernel): as
+// gims_attention_fwd_partial, with stats optional (null: none) and work a
+// (B, N, H, D) f32 contiguous workspace, the rows' accumulators.
+extern "C" int gims_attention_fwd_wide(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    void* out, void* stats, void* work, int dtype, int B, int N, int M, int H, int D,
+    long long qsb, long long qsn, long long qsh, long long qsd, long long ksb, long long ksn,
+    long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
+    long long vsd, long long osb, long long osn, long long osh, long long osd,
+    long long mask_sb, float scale_log2, void* stream) {
+  if (D <= kMaxD || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats),
+                       static_cast<float*>(work), dtype, B, N, M, H, D,
+                       Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
                        Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
                        scale_log2, stream);
 }

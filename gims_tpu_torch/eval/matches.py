@@ -6,11 +6,10 @@ per-stage timings and peak device memory, and write result.txt. Also
 carries the standalone NNDR / mutual-NN descriptor baselines (reference:
 eval_matches.py:13-67) as plain-numpy utilities.
 
-The JAX package counts inliers with OpenCV's USAC (``cv2.USAC_DEFAULT``);
-the port has no USAC and counts them with its own RANSAC
-(``eval/ransac.py``, OpenCV's ``cv2.RANSAC`` algorithm, reprojection
-threshold 3 px), so its counts are RANSAC's, not USAC's (``ROADMAP.md``
-§1, USAC), and ``save_match`` draws the inliers of that RANSAC. Images are
+Inliers are counted, as the JAX package counts them with
+``cv2.USAC_DEFAULT``, by the port's USAC (``eval/usac.py``: LO-RANSAC with
+MSAC scoring, reprojection threshold 3 px), and ``save_match`` draws
+them. Images are
 read with the port's PNG and JPEG reader (``core/image_io.py``); the
 drawings are ``eval/viz.py``'s.
 """
@@ -27,7 +26,7 @@ import numpy as np
 from gims_tpu_torch.core import image_io
 from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.core.profiling import device_peak_memory_gb
-from gims_tpu_torch.eval.ransac import find_homography
+from gims_tpu_torch.eval.usac import find_homography_usac
 from gims_tpu_torch.eval.viz import draw_matches
 
 
@@ -80,9 +79,9 @@ def run_match_eval(
     device=None,
 ):
     """Match `image0_path` against every image of the glob `image1s_path`
-    (PNG or JPEG); inliers of the port's RANSAC (in place of OpenCV's USAC)
-    per pair into ``result.txt``, and with `save_match` a drawing of them,
-    ``{name}.jpg``. `device` runs the default ``Matching`` and RANSAC."""
+    (PNG or JPEG); inliers of the port's USAC per pair into
+    ``result.txt``, and with `save_match` a drawing of them,
+    ``{name}.jpg``. `device` runs the default ``Matching`` and USAC."""
     dev = resolve_device(device)
     agc = dict(agc or {"radius": 15, "percentile": 2, "min_size": 7})
     if dgims:
@@ -117,7 +116,7 @@ def run_match_eval(
         mkpts0 = kpts0[valid]
         mkpts1 = kpts1[matches[valid]]
         t1 = time.time()
-        found = find_homography(np.float32(mkpts0), np.float32(mkpts1), 3.0, device=dev)
+        found = find_homography_usac(np.float32(mkpts0), np.float32(mkpts1), device=dev)
         if found is None:  # JAX: OpenCV raises or returns no matrix
             print("Too few points matched:", len(mkpts0))
             results_file.append(f"{name1} => 0")

@@ -43,6 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from gims_tpu_torch.core.device import resolve_device
+from gims_tpu_torch.core.segsum import segment_sum
 from gims_tpu_torch.frontend.pyramid import reflect101_index, upsample2x
 
 IMG_BORDER = 5            # SIFT_IMG_BORDER
@@ -653,8 +654,9 @@ class SIFT:
             k = len(sel)
             dst = (torch.arange(k, device=dev)[:, None, None] * (hl + 1) + 1
                    + idx[..., None] + torch.tensor(steps, device=dev))
-            flat = torch.zeros(k * (hl + 1), device=dev)
-            flat.index_add_(0, dst.reshape(-1), vals.reshape(-1))
+            # in sample order, as OpenCV adds: deterministic on the card too
+            flat = segment_sum(vals.reshape(-1), dst.reshape(-1), k * (hl + 1),
+                               tag="sift_descriptors")
             hist = flat.reshape(k, hl + 1)[:, 1:].reshape(k, d + 2, d + 2, nb + 2)
             inner = hist[:, 1:d + 1, 1:d + 1].clone()
             inner[..., 0] += inner[..., nb]

@@ -23,7 +23,7 @@ NEG_INF = -1e9
 LOG2E = 1.4426950408889634
 KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel, heads up to 128 wide
 KERNEL_WIDE_BLOCK_K = 64  # keys per tile of its bf16 kernel for wider heads
-KERNEL_MAX_HEAD_DIM = 256  # the widest head the CUDA kernel takes
+KERNEL_MAX_HEAD_DIM = 256  # the widest head of its column-block kernels; wide kernel beyond
 FLASH_THRESHOLD = 4096
 FLASH_BLOCK = 1024
 
@@ -136,13 +136,22 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def takes_kernel(device, impl: str = "auto", grad: bool = False) -> bool:
+    """Whether ``masked_attention`` hands a call to the CUDA kernel's wrapper:
+    always under "pallas" (its wrapper raises where the kernel cannot run);
+    under "auto" on a CUDA device without a gradient, at every head width,
+    as JAX's dispatch takes its TPU kernel at any width."""
+    if impl == "pallas":
+        return True
+    return impl == "auto" and torch.device(device).type == "cuda" and not grad
+
+
 def masked_attention(q, k, v, key_mask, impl: str = "auto"):
-    """Dispatch.
+    """Dispatch (``takes_kernel``).
 
     On a CUDA tensor "auto" and "pallas" launch the CUDA kernel, at every
-    key count and head width up to KERNEL_MAX_HEAD_DIM; the kernel's
-    wrapper raises at a wider head. "direct" and "flash" force the plain
-    versions. On the CPU "auto" takes
+    key count and head width (its wide-head kernel above
+    KERNEL_MAX_HEAD_DIM). "direct" and "flash" force the plain versions. On the CPU "auto" takes
     direct up to FLASH_THRESHOLD keys and flash above, as the JAX package
     does off the TPU. The kernel has no backward (nor has the TPU kernel):
     a call that needs a gradient (``needs_grad``) takes the plain versions
@@ -155,7 +164,7 @@ def masked_attention(q, k, v, key_mask, impl: str = "auto"):
         from gims_tpu_torch.matcher.ring_attention import get_ring_group, masked_attention_ring
 
         return masked_attention_ring(q, k, v, key_mask, get_ring_group())
-    if impl == "pallas" or (impl == "auto" and q.is_cuda and not needs_grad(q, k, v)):
+    if takes_kernel(q.device, impl, impl == "auto" and needs_grad(q, k, v)):
         from gims_tpu_torch.matcher.cuda_attention import masked_attention_cuda
 
         return masked_attention_cuda(q, k, v, key_mask)

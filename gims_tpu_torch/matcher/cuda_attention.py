@@ -4,10 +4,13 @@ Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
 (``csrc/attention.cu``) reads the (B, N, H, D) layout in place, so no
 transposed copies are made: bf16 on the tensor cores through TMA, f32 with
 scalar FMAs, both with f32 accumulation; the output has q's dtype. Head
-widths from 1 to 256. The bf16 kernel reads widths that are a multiple of 8
-(TMA's 16-byte strides); the wrapper zero-pads q, k and v along D to the
-next multiple of 8 for other widths (zeros add nothing to Q K^T, the extra
-output columns are dropped, and the scale stays that of the true D). On a
+widths from 1 to 256 take those kernels; wider heads take the wide-head
+kernel (both dtypes, the rows' f32 accumulators in a (B, N, H, D) f32
+workspace that the wrapper allocates). The bf16 kernels read widths that
+are a multiple of 8 (TMA's 16-byte strides); the wrapper zero-pads q, k
+and v along D to the next multiple of 8 for other widths (zeros add
+nothing to Q K^T, the extra output columns are dropped, and the scale
+stays that of the true D). On a
 CUDA tensor the wrapper launches the kernel or raises: q, k and v must have
 a unit D stride and, in bf16, 16-byte aligned bases and strides (what TMA
 reads), and are never copied to make them so, but for that padding. It takes the plain
@@ -28,7 +31,7 @@ import torch
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import attention
 
-MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one to four column blocks of 64
+MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one to four column blocks of 64; wide beyond
 BF16_D_STEP = 8  # the bf16 kernel's widths: multiples of 8 (16-byte rows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,8 +105,8 @@ def _launch(q, k, v, key_mask, stats):
     if tuple(k.shape) != (b, m, h, d) or tuple(v.shape) != (b, m, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} unsupported (the kernel takes 1 to {MAX_HEAD_DIM})")
+    if d < 1:
+        raise ValueError(f"head dim {d} unsupported")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
                         "of float32, bfloat16")
@@ -128,7 +131,11 @@ def _launch(q, k, v, key_mask, stats):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr())
-        if stats is None:
+        if d + pad > MAX_HEAD_DIM:
+            work = torch.empty(out.shape, dtype=torch.float32, device=q.device)
+            rc = lib.gims_attention_fwd_wide(*ptrs, None if stats is None else stats.data_ptr(),
+                                             work.data_ptr(), *args, stream)
+        elif stats is None:
             rc = lib.gims_attention_fwd(*ptrs, *args, stream)
         else:
             rc = lib.gims_attention_fwd_partial(*ptrs, stats.data_ptr(), *args, stream)

@@ -23,6 +23,11 @@ The patch warp on the card against the same warp on the CPU: 1e-3 on the
 round differently by an ulp). JPEG decoding on the card: bit-equal to the
 CPU's on the six photos of assets/photos. One HTTP round trip through
 ``serve_cli.make_server`` on the card, held to ``find_matches`` in-process.
+The segmented-sum kernel (``csrc/segsum.cu``): equal to the CPU's
+sequential ``index_add_`` to the bit on two runs, and its callers (SIFT
+descriptors, AGC's centroid sums, a loss and its gradient) equal on two
+runs. K1 past 256 columns (the wide-head kernel): "auto" and "pallas"
+launch it, within the same bars as the narrower heads.
 """
 
 import os
@@ -80,7 +85,7 @@ def test_attention_kernel_vs_plain(cuda, dtype, rtol, n, m):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 36])
+@pytest.mark.parametrize("d", [64, 36, 320])
 def test_attention_partial_mode_vs_plain(cuda, dtype, d):
     """The kernel's partial mode (ring attention's step): the output
     bit-equal to the default mode's, each row's base-2 max within 1e-4 and
@@ -169,8 +174,8 @@ def test_sinkhorn_kernel_vs_plain(cuda, nb, ms, ns, iters):
 def test_wrappers_refuse_what_they_do_not_take(cuda):
     q = torch.randn((1, 8, 4, 300), device=cuda)
     mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError):
-        cuda_attention.masked_attention_cuda(q, q, q, mask)  # head dim 300 > 256
+    with pytest.raises(TypeError):
+        cuda_attention.masked_attention_cuda(q.double(), q.double(), q.double(), mask)
     z = torch.randn((1, 9, 9), device=cuda)
     with pytest.raises(TypeError):
         cuda_sinkhorn.sinkhorn_uv_cuda(z.double(), z[:, :, 0].double(), z[:, 0].double(), 3)
@@ -200,13 +205,14 @@ def test_gmatcher_kernels_vs_plain(cuda):
     assert (outs[0][valid] - outs[1][valid]).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("d", [1, 8, 20, 24, 32, 40, 64, 96, 128, 160, 192, 250, 256])
+@pytest.mark.parametrize("d", [1, 8, 20, 24, 32, 40, 64, 96, 128, 160, 192, 250, 256,
+                               257, 300, 320, 513])
 def test_attention_auto_by_head_width(cuda, d):
-    """On the card "auto" launches the kernel at every head width up to 256
-    (one to four column blocks of 64; a width short of its last block reads
+    """On the card "auto" launches the kernel at every head width: up to 256
+    one to four column blocks of 64 (a width short of its last block reads
     zeros past its end, and in bf16 a width that is not a multiple of 8, as
-    1, 20 and 250, is zero-padded to one by the wrapper), in f32 and bf16;
-    the wrapper raises at a wider head. f32 against the direct
+    1, 20, 250, 257 and 513, is zero-padded to one by the wrapper), wider
+    heads the wide-head kernel, in f32 and bf16. f32 against the direct
     version, 1e-4. bf16 against the tiled version: every element within the
     output's rounding rule plus one bf16 ulp of every rounded P (2**-7 times
     the attention of |v|: where a p lies at a rounding boundary the kernel
@@ -238,11 +244,83 @@ def test_attention_auto_by_head_width(cuda, d):
             bf_direct = attention.masked_attention_direct(qd.float(), kd.float(), vd.float(), mask)
             err = out.float() - bf_direct
             assert err.pow(2).mean().sqrt() <= 2.0 ** -8 * bf_direct.pow(2).mean().sqrt()
-    wide = torch.randn((2, 300, 4, 300), generator=g, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_wide_head_kernel(cuda, dtype):
+    """At a head of 320 (past the column-block kernels' 256) "auto" and
+    "pallas" both launch the wide-head kernel, once each, with the same
+    bits on both calls (``test_attention_auto_by_head_width`` holds its
+    values to the plain versions)."""
+    g = torch.Generator(device=cuda).manual_seed(320)
+    q, k, v = (torch.randn((2, x, 2, 320), generator=g, device=cuda).to(dtype)
+               for x in (200, 333, 333))
+    mask = torch.rand((2, 333), generator=g, device=cuda) < 0.8
+    outs = []
     for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match="head dim"):
-            attention.masked_attention(wide, wide, wide, torch.ones_like(mask[:, :300]),
-                                       impl=impl)
+        before = cuda_attention.launches
+        outs.append(attention.masked_attention(q, k, v, mask, impl=impl))
+        torch.cuda.synchronize()
+        assert cuda_attention.launches == before + 1
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("n,num,dup", [(1, 1, 1), (1000, 37, 5), (300_000, 20_000, 8),
+                                       (2_000_000, 50, 1)])
+def test_segsum_kernel_vs_plain(cuda, n, num, dup):
+    """csrc/segsum.cu against the CPU's sequential index_add_ (its plain
+    version): equal to the bit, on two runs, in the callers' patterns
+    (runs of `dup` equal destinations as SIFT's votes give, long segments as
+    the loss's pairs give), with slots left empty."""
+    from gims_tpu_torch.core import segsum
+
+    rng = np.random.default_rng(n)
+    idx = np.repeat(rng.integers(0, num, size=(n + dup - 1) // dup), dup)[:n]
+    vals = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, size=n)).astype(np.float32)
+    iv, vv = torch.from_numpy(idx), torch.from_numpy(vals)
+    want = segsum.segment_sum_plain(vv, iv, num)
+    before = segsum.launches
+    runs = [segsum.segment_sum(vv.to(cuda), iv.to(cuda), num) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 2
+    for r in runs:
+        assert torch.equal(r.cpu(), want)
+
+
+def test_segsum_callers_repeat_on_card(cuda):
+    """The three callers on the card give the same bits on two runs: SIFT
+    descriptors of a synthetic image, AGC's centroid sums, the training
+    loss and its gradient through the segment sums."""
+    from gims_tpu_torch.agc.graph import _segment_sum
+    from gims_tpu_torch.core import segsum
+    from gims_tpu_torch.frontend import sift
+
+    img = synthetic_image_pair(3, (240, 320), colour=True)[0]
+    card = sift.SIFT(3, 0.001, 80, 1.6, device=cuda)
+    kp = sift.filter_top_responses(card.detect_raw(img)[0], 2048)
+    before = segsum.launches
+    d0, d1 = card.compute(img, kp), card.compute(img, kp)
+    assert segsum.launches > before
+    assert np.array_equal(d0, d1)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    data = torch.rand((2, 5000), generator=g, device=cuda) * 800
+    seg = torch.randint(0, 64, (2, 5000), generator=g, device=cuda)
+    a, b = _segment_sum(data, seg, 65), _segment_sum(data, seg, 65)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), _segment_sum(data.cpu(), seg.cpu(), 65))
+    x = torch.rand(40_000, generator=g, device=cuda, requires_grad=True)
+    rows = torch.sort(torch.randint(0, 4, (40_000,), generator=g, device=cuda))[0]
+    w = torch.rand(40_000, generator=g, device=cuda)
+    coef = torch.tensor([1.0, -2.0, 0.5, 3.0], device=cuda)
+    runs = []
+    for _ in range(2):
+        sums = segsum.segment_sum(x * w, rows, 4)
+        (grad,) = torch.autograd.grad((sums * coef).sum(), x)
+        runs.append((sums.detach(), grad))
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0].cpu(), segsum.segment_sum_plain((x * w).detach().cpu(),
+                                                                  rows.cpu(), 4))
+    assert torch.equal(runs[0][1], (coef[rows] * w))
 
 
 def test_kernels_refuse_autograd(cuda):
@@ -800,7 +878,8 @@ def test_host_sift_card_vs_cpu(cuda, seed, hw):
     the CPU to OpenCV with: 98% of each side's keypoints matched, 99% of the
     descriptor bytes within one level, every descriptor at cosine >= 0.99.
     The pyramids are the same to the bit (IEEE float64 sums); the
-    descriptors' histograms are summed with atomics on the card."""
+    descriptors' histograms are summed in source order on both
+    (``core/segsum.py``)."""
     from gims_tpu_torch.frontend import sift
 
     img = synthetic_image_pair(seed, hw, colour=True)[0]

@@ -1,7 +1,7 @@
 """Guards of the GPU run that can be checked on the CPU.
 
 The machine with the card has torch and numpy but no JAX, flax, OpenCV,
-PIL, PyYAML, networkx or scikit-learn, and the port must not import the JAX
+PIL, PyYAML, networkx, scikit-learn, matplotlib or pandas, and the port must not import the JAX
 package at all. A fresh interpreter with those imports refused must import
 every module of ``gims_tpu_torch`` and ``chip_smoke``, and run the port's
 host SIFT (OpenCV's algorithm, without OpenCV), a JPEG encode and decode,
@@ -17,7 +17,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "gims_tpu_torch")
-BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "networkx", "sklearn", "gims_tpu"]
+BLOCKED = ["jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "networkx", "sklearn", "gims_tpu",
+           "matplotlib", "pandas"]
 # modules the staged, fused, evaluation and training paths run, each imported with the
 # blocked packages refused
 REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_torch.agc.labels",
@@ -50,7 +51,12 @@ REQUIRED = ["gims_tpu_torch.agc.band", "gims_tpu_torch.agc.graph", "gims_tpu_tor
             "gims_tpu_torch.core.jpeg", "gims_tpu_torch.core.drawing",
             "gims_tpu_torch.core.text_glyphs", "gims_tpu_torch.core.profiling",
             "gims_tpu_torch.eval.viz", "gims_tpu_torch.cli.match_pair_cli",
-            "gims_tpu_torch.cli.serve_cli"]
+            "gims_tpu_torch.cli.serve_cli",
+            # deterministic sums, USAC, NMS, the native library and the tools
+            "gims_tpu_torch.core.segsum", "gims_tpu_torch.eval.usac",
+            "gims_tpu_torch.frontend.nms", "gims_tpu_torch.native.bridge",
+            "gims_tpu_torch.core.viridis", "gims_tpu_torch.tools.parameter_search",
+            "gims_tpu_torch.tools.image_viewer", "gims_tpu_torch.tools.parameter_visualize"]
 
 IMPORT_ALL = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -8,11 +8,16 @@ Phases, one line each with its seconds:
   1 build: the CUDA kernels under gims_tpu_torch/csrc/, one nvcc process
     per source, all at once; ptxas' registers, shared memory and spills per
     kernel; the count of wgmma (HGMMA) instructions in the attention
-    kernels' SASS, which must not be 0 for the bf16 kernel.
+    kernels' SASS, which must not be 0 for the bf16 kernel, and of mma.sync
+    (HMMA) instructions, which must not be 0 for the f32 kernel (its split
+    TF32 products).
   2 the attention kernel against its plain PyTorch versions on the card,
     at the paths' trunk shapes among others (head width 64), at a head
     width of 256 (a 512-d trunk of 2 heads; the column-block kernels'
-    widest) and at 320 (the wide-head kernel, which no path runs yet), timed.
+    widest) and at 320 (the wide-head kernel, which no path runs yet), timed
+    beside its bound (in f32 up to 256 columns the arithmetic it executes:
+    three TF32 products at the TF32 peak, with the f32 CUDA-core bound
+    beside it) and SDPA.
   3 the Sinkhorn kernels against their plain PyTorch version on the card:
     the fused kernel at Z of 2049, 8193, (8, 3073), (4, 6145), 6145 and
     3073 square, the streaming kernel at 24577 (the widest bucket) and at
@@ -259,7 +264,9 @@ Phases, one line each with its seconds:
     phase 23's four entry-point paths and phase 24's parameter sweep among
     them), the label rounds of phase 20's steps, K1's partial mode at
     the step shapes of phase 21's and phase 22's rings, and the
-    segmented-sum kernel at its three callers' shapes; the script's total
+    segmented-sum kernel at its three callers' rows, AGC's on the staged
+    host and the fused paths (each call one launch and no sort, checked by
+    the wrapper's count and the aten ops it ran); the script's total
     seconds.
   Then the last line: {"ok": true, "device": {...}}.
 
@@ -332,6 +339,9 @@ E2E_CAR_WEIGHTS = os.path.join(REPO, "weights", "gims_tpu_dense_gray_e2e_car.npz
 # SMs, 1.98 GHz boost clock)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# the TF32 tensor-core peak (dense), at which K1's f32 path runs its three
+# split products
+PEAK_TF32 = 495e12
 EXP_PER_S = 132 * 16 * 1.98e9
 # The attention kernel, element by element: |out - ref| <= atol + rtol * |ref|.
 # f32: against the direct version, 1e-4 flat. bf16: against
@@ -598,12 +608,17 @@ ENTRY_FUSED_CONFIG = {"sinkhorn_iterations": 20, "match_threshold": 0.02,
 TOOLS_PARAMS = ([15, 2, 7], [20, 5, 3], [10, 1, 10])
 TOOLS_CONFIG = {"weights_path": WEIGHTS, "sinkhorn_iterations": 20, "match_threshold": 0.02,
                 "max_keypoints": -1, "descriptor_source": "sift"}
-# the callers of the segmented sum (core/segsum.py), by their tags, and the
-# path whose run gives each one's row in the kernels line: its input,
-# recorded on the host in that path's untimed first call, and its launches
-SEGSUM_PATHS = {"sift_descriptors": "_host_sift_staged_path",
-                "agc_centroid_sums": "_host_sift_staged_path",
-                "train_loss_sums": "_train_path"}
+# the callers of the segmented sum (core/segsum.py), by their tags
+SEGSUM_TAGS = ("sift_descriptors", "agc_centroid_sums", "train_loss_sums")
+# the segmented sum's rows in the kernels line: (the caller's tag, the path
+# whose run gives the row its input, recorded on the host in that path's
+# untimed first call, and its launches). AGC's centroid sums twice: 4 rows
+# of 2049 slots on the staged host path (the kernel's by-lane way), 16 of
+# 3073 on the fused path (by group, each row's slots split over warps)
+SEGSUM_ROWS = {"sift_descriptors": ("sift_descriptors", "_host_sift_staged_path"),
+               "agc_centroid_sums": ("agc_centroid_sums", "_host_sift_staged_path"),
+               "agc_centroid_sums_fused": ("agc_centroid_sums", "_fused_path"),
+               "train_loss_sums": ("train_loss_sums", "_train_path")}
 # what every matching path launches: K1, K2, and per AGC build one
 # label-rounds and one centroid-sums launch
 MATCH_KERNELS = ("attention", "sinkhorn", "label_rounds", "segsum_agc_centroid_sums")
@@ -633,10 +648,49 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, flops, dtype):
+def graph_ms(fn, reps=20):
+    """Mean ms of one call of `fn` on the device: a CUDA graph of the call
+    replayed `reps` times between CUDA events, so the host's enqueue of each
+    op (tens of us, as long as a small kernel) is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes, flops, dtype, peak=None):
     t_bytes = nbytes / HBM_BPS
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(nbytes, flops, dtype, d):
+    """K1's bound as its kernel executes the work: bf16 products at the
+    bf16 tensor-core peak; f32 up to 256 columns as three TF32 products
+    (split f32, csrc/attention.cu) at the TF32 peak, printed beside the
+    same work as f32 FMAs on the CUDA cores; f32 past 256 columns (the
+    wide-head kernel's FMAs) at the f32 peak."""
+    if dtype != torch.float32 or d > attention.KERNEL_MAX_HEAD_DIM:
+        ms, by = bound_ms(nbytes, flops, dtype)
+        return {"bound_ms": ms, "bound_by": by}
+    ms, by = bound_ms(nbytes, 3 * flops, dtype, peak=PEAK_TF32)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_executes": "3 TF32 products (split f32) at 495 TFLOP/s",
+            "f32_cuda_core_bound_ms": bound_ms(nbytes, flops, dtype)[0]}
 
 
 # ---------------------------------------------------------------- phases
@@ -667,10 +721,13 @@ def kernel_name(line):
     (template arguments are integers), else None."""
     m = re.search(r"(attn_tc_kernel|attn_f32_kernel|sinkhorn_fused_kernel|"
                   r"sinkhorn_stream_kernel|label_rounds_kernel|label_cluster_kernel|"
-                  r"label_pack_kernel)(I(?:Li\d+E)+E)?", line)
+                  r"label_pack_kernel|segsum_rows_kernel)(I(?:Li\d+E)+E|I[si](?:Li\d+E)*E)?",
+                  line)
     if not m:
         return None
     args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    if (m.group(2) or "")[:2] in ("Is", "Ii"):  # the segmented sum's slot type first
+        args.insert(0, "int16" if m.group(2)[1] == "s" else "int32")
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -697,8 +754,9 @@ def ptxas_report(log):
     return out
 
 
-def hgmma_counts(lib_path):
-    """HGMMA (wgmma) instructions per attention kernel in the library's SASS."""
+def tensor_core_counts(lib_path, op):
+    """`op` instructions (HGMMA: wgmma; HMMA: mma.sync) per attention kernel
+    in the library's SASS."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -710,7 +768,7 @@ def hgmma_counts(lib_path):
                 counts[name] = 0
             else:
                 name = None
-        elif name and "HGMMA" in line:
+        elif name and re.search(rf"\b{op}\b", line):
             counts[name] += 1
     return counts
 
@@ -723,11 +781,17 @@ def build_phase():
     else:
         for kernel, info in ptxas_report(_build.build_log).items():
             print(f"  ptxas {kernel} {json.dumps(info)}", flush=True)
-    hgmma = hgmma_counts(lib._name)
+    hgmma = tensor_core_counts(lib._name, "HGMMA")
     print(f"  sass HGMMA {json.dumps(hgmma)}", flush=True)
     tc = [hgmma.get(f"attn_tc_kernel<{nb}>") for nb in (1, 2)]  # one or two column blocks
     if not all(tc):
         raise AssertionError(f"a bf16 attention kernel has no HGMMA instruction: {hgmma}")
+    # the f32 kernel's split products: mma.sync on TF32 (SASS HMMA.1688.F32.TF32)
+    hmma = tensor_core_counts(lib._name, "HMMA")
+    print(f"  sass HMMA {json.dumps(hmma)}", flush=True)
+    f32 = [hmma.get(f"attn_f32_kernel<{d}>") for d in (64, 128, 256)]
+    if not all(f32):
+        raise AssertionError(f"an f32 attention kernel has no HMMA instruction: {hmma}")
     phase("1 build", t0, nvcc_seconds=f"{_build.build_seconds}",
           library=os.path.relpath(lib._name, REPO))
 
@@ -782,7 +846,7 @@ def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
         esz = q.element_size()
         nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
         flops = 4 * b * h * n * m * d
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, dtype)
+        row.update(attention_bound(nbytes, flops, dtype, d))
         # one exp2 per score on the MUFU units, beside the matrix products
         row["exp_bound_ms"] = 1e3 * b * h * n * m / EXP_PER_S
         row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
@@ -796,6 +860,7 @@ def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=bias))
         row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        row["bound_share"] = row["bound_ms"] / row["ms"]
     print(f"  attention {json.dumps(row)}", flush=True)
     return row
 
@@ -1049,7 +1114,7 @@ def reset_counts():
 def counts():
     return {"attention": cuda_attention.launches, "sinkhorn": cuda_sinkhorn.launches,
             "label_rounds": labels.launches,
-            **{f"segsum_{tag}": segsum.launches_by_tag.get(tag, 0) for tag in SEGSUM_PATHS}}
+            **{f"segsum_{tag}": segsum.launches_by_tag.get(tag, 0) for tag in SEGSUM_TAGS}}
 
 
 def match_counts(attention, sinkhorn, builds, loss_steps=0):
@@ -1079,40 +1144,47 @@ def host_ms(fn, reps=5):
     return 1e3 * (time.perf_counter() - t) / reps
 
 
-# inputs of the segmented sum by tag: (values, index, slots) on the host
+# inputs of the segmented sum by tag: (values, slots, num, shared) on the
+# host; shared: one slot list for every row (row stride 0), kept as one row
 SEGSUM_INPUTS = {}
 
 
 @contextlib.contextmanager
-def record_segsum(tags):
-    """While active, keeps on the host (SEGSUM_INPUTS) the largest input
-    that the segmented-sum kernel got under each of `tags`. Each recording
-    copies to the host: use it only in a path's untimed first call."""
-    real = segsum.segment_sum_cuda
+def record_segsum(tags, suffix=""):
+    """While active, keeps on the host (SEGSUM_INPUTS, under the tag and
+    `suffix`) the largest input that the segmented-sum kernel got under each
+    of `tags`. Each recording copies to the host: use it only in a path's
+    untimed first call."""
+    real = segsum.segment_sum_rows_cuda
 
-    def recorded(values, index, num, tag="other"):
-        kept = SEGSUM_INPUTS.get(tag)
+    def recorded(values, slots, num, tag="other"):
+        kept = SEGSUM_INPUTS.get(tag + suffix)
         if tag in tags and (kept is None or values.numel() > kept[0].numel()):
-            SEGSUM_INPUTS[tag] = (values.detach().cpu(), index.cpu(), int(num))
-        return real(values, index, num, tag)
+            shared = slots.shape[0] > 1 and slots.stride(0) == 0
+            kept_slots = (slots[:1] if shared else slots).cpu()
+            SEGSUM_INPUTS[tag + suffix] = (values.detach().cpu(), kept_slots, int(num), shared)
+        return real(values, slots, num, tag)
 
-    segsum.segment_sum_cuda = recorded
+    segsum.segment_sum_rows_cuda = recorded
     try:
         yield
     finally:
-        segsum.segment_sum_cuda = real
+        segsum.segment_sum_rows_cuda = real
 
 
-def timed_dispatches(m, batches, name, min_share=0.5, chunks=1):
+def timed_dispatches(m, batches, name, min_share=0.5, chunks=1, record=None):
     """Timed dispatches of `m` (one per batch after the first, a warm-up):
     launches per dispatch, matches and the share within 3 px, pairs/s and
     peak memory. Fails on a launch count other than 18 attention, 1
     Sinkhorn, 1 label-rounds and 1 centroid-sums per dispatch and chunk
     (`chunks`: the devices of a split), a pair without matches, non-finite scores or a
     correct share under `min_share` (None: no bound, for descriptors of
-    untrained weights)."""
+    untrained weights). `record`: a suffix under which the warm-up's AGC
+    centroid sums are recorded (record_segsum)."""
     imgs0, imgs1, _ = batches[0]
-    m.collect_batch(m.dispatch_batch(imgs0, imgs1))  # warm-up
+    with (record_segsum(("agc_centroid_sums",), record) if record
+          else contextlib.nullcontext()):
+        m.collect_batch(m.dispatch_batch(imgs0, imgs1))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1200,9 +1272,10 @@ def fused_phase(variables, car_variables):
             raise AssertionError(f"FusedMatching {name} on {DEVICE}: {rc}")
     batches = [fused_pairs(FUSED_BATCH, 100 * (i + 1)) for i in range(FUSED_TIMED + 1)]
     total = zero_counts()
-    for name in ("A", "B", "B", "A"):
+    for i, name in enumerate(("A", "B", "B", "A")):
         with record_labels("fused_" + name):
-            launches = timed_dispatches(ms[name], batches, name)
+            launches = timed_dispatches(ms[name], batches, name,
+                                        record="_fused" if i == 0 else None)
         total = {k: total[k] + launches[k] for k in total}
     for name in ("A", "B"):
         profiled_dispatch(ms[name], batches[1], FUSED_STAGES, name)
@@ -2536,8 +2609,9 @@ def partial_row(b, n, dtype, seed):
     h = 4
     nbytes = 2 * b * n * h * HEAD_DIM * esz + 2 * b * n * h * HEAD_DIM * esz + b * n \
         + 8 * b * n * h
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * h * n * n * HEAD_DIM, dtype)
+    row.update(attention_bound(nbytes, 4 * b * h * n * n * HEAD_DIM, dtype, HEAD_DIM))
     row["ms"] = cuda_ms(lambda: cuda_attention.attention_partials_cuda(q, k, v, mask))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     row["default_mode_ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
     row["plain_ms"] = cuda_ms(lambda: attention.attention_partials_tiled(q, k, v, mask), 1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -2545,6 +2619,7 @@ def partial_row(b, n, dtype, seed):
     bias.masked_fill_(~mask[:, None, None, :], attention.NEG_INF)
     row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bias))
+    row["ratio_to_library"] = row["ms"] / row["library_ms"]
     print(f"  partial {json.dumps(row)}", flush=True)
     return row
 
@@ -3039,44 +3114,93 @@ def entry_phase(smi):
     return launches, shapes
 
 
+def segsum_call(values, slots, num):
+    """The aten ops and the kernel launches the wrapper counted of one
+    segment_sum_rows_cuda call. No profiler trace: in this script's process
+    a trace of one call holds no device event (PERF.md §6, PR 17);
+    tests/test_torch_cuda.py holds the call's trace to one kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    before = segsum.launches
+    with Record():
+        segsum.segment_sum_rows_cuda(values, slots, num)
+    torch.cuda.synchronize()
+    return ops, segsum.launches - before
+
+
 def segsum_rows(path_launches):
-    """The segmented-sum kernel at each caller's input on the path named in
-    SEGSUM_PATHS (recorded on the host in its untimed first call): equal to
+    """The segmented-sum kernel at each caller's rows on the path named in
+    SEGSUM_ROWS (recorded on the host in its untimed first call): equal to
     the CPU's sequential sum (index_add_ there, the plain version) on two
-    runs; its time (the stable sort of the destinations included) beside
-    the plain version's on the CPU and index_add_'s atomics on the card; its
-    bound: each key (8 B), value (4 B) and slot (4 B) moved once; the
-    launches of that path's run."""
+    runs; one call one launch and no sort: the only aten op it runs is the
+    output's allocation (no op that launches a kernel) and its wrapper
+    counts one launch of csrc/segsum.cu, whose C entry launches one kernel;
+    its time beside the plain version's on the
+    CPU and index_add_'s atomics on the card over the same flat slots (both
+    device times of a CUDA graph of the call, eager calls' times beside); its
+    bound: each value (4 B) and slot (the caller's 2 or 4 B; a shared slot
+    list once) read once and each out (4 B) written once, beside the bound
+    of the earlier sort route's definition (12 B a value: key, permutation
+    entry and value; 4 B a slot); the launches of that path's run."""
     rows = []
-    for tag, path in SEGSUM_PATHS.items():
-        if tag not in SEGSUM_INPUTS:
+    for key, (tag, path) in SEGSUM_ROWS.items():
+        if key not in SEGSUM_INPUTS:
             raise AssertionError(f"segsum: no input of {tag} was recorded on {path}")
-        values_h, index_h, num = SEGSUM_INPUTS[tag]
-        values, index = values_h.to(DEVICE), index_h.to(DEVICE)
-        want = segsum.segment_sum_plain(values_h, index_h, num)
-        runs = [segsum.segment_sum_cuda(values, index, num) for _ in range(2)]
+        values_h, slots_h, num, shared = SEGSUM_INPUTS[key]
+        r, w = values_h.shape
+        values, slots = values_h.to(DEVICE), slots_h.to(DEVICE)
+        if shared:
+            slots, slots_h = slots.expand(r, -1), slots_h.expand(r, -1)
+        want = segsum.segment_sum_rows_plain(values_h, slots_h, num)
+        runs = [segsum.segment_sum_rows_cuda(values, slots, num) for _ in range(2)]
         torch.cuda.synchronize()
-        err = max(float((r.cpu() - want).abs().max()) for r in runs)
-        if not all(torch.equal(r.cpu(), want) for r in runs):
-            raise AssertionError(f"segsum {tag}: differs from the CPU's sequential sum ({err})")
+        err = max(float((x.cpu() - want).abs().max()) for x in runs)
+        if not all(torch.equal(x.cpu(), want) for x in runs):
+            raise AssertionError(f"segsum {key}: differs from the CPU's sequential sum ({err})")
         launches = path_launches[path][f"segsum_{tag}"]
         if launches < 1:
-            raise AssertionError(f"segsum {tag}: {path} launched it {launches} times")
+            raise AssertionError(f"segsum {key}: {path} launched it {launches} times")
+        ops, launched = segsum_call(values, slots, num)
+        sorts = [o for o in ops if "sort" in o or "searchsorted" in o]
+        if ops != ["aten.empty.memory_format"] or launched != 1:
+            raise AssertionError(f"segsum {key}: one call ran ops {ops}, {launched} launches")
         n = values.numel()
-        bnd, by = bound_ms(12 * n + 4 * num, n, torch.float32)
-        rows.append({"name": f"segment_sum_{tag}", "route": "cuda",
+        slot_bytes = slots.element_size() * (w if shared else n)
+        bnd, by = bound_ms(4 * n + slot_bytes + 4 * r * num, n, torch.float32)
+        flat = (slots.long() + num * torch.arange(r, device=DEVICE)[:, None]).reshape(-1)
+        flat_values = values.reshape(-1)
+        call = lambda: segsum.segment_sum_rows_cuda(values, slots, num)  # noqa: E731
+        library = lambda: torch.zeros(r * num, device=DEVICE).index_add_(  # noqa: E731
+            0, flat, flat_values)
+        ms, lib_ms = graph_ms(call), graph_ms(library)
+        eager_ms, lib_eager_ms = cuda_ms(call), cuda_ms(library)
+        rows.append({"name": f"segment_sum_{key}", "route": "cuda",
                      "source": "gims_tpu_torch/csrc/segsum.cu",
                      "replaces": "none: index_add_/scatter_add_ atomics of the port where JAX's "
                                  "segment sums are deterministic (frontend/sift.py, "
                                  "agc/graph.py, matcher/pipeline.py)",
-                     "path": path, "shape": f"{n} values into {num} slots",
+                     "path": path, "shape": f"{r} rows of {w} values into {num} slots each",
+                     "slots": f"{slots.dtype}"[6:] + (", one list for every row" if shared
+                                                      else ""),
                      "launches": launches, "max_abs_err": err,
                      "two_runs_equal": torch.equal(runs[0], runs[1]),
-                     "ms": cuda_ms(lambda: segsum.segment_sum_cuda(values, index, num)),
-                     "plain_ms": host_ms(lambda: segsum.segment_sum_plain(values_h, index_h, num)),
-                     "plain_on": "cpu", "bound_ms": bnd, "bound_by": by,
-                     "library_ms": cuda_ms(lambda: torch.zeros(num, device=DEVICE)
-                                           .index_add_(0, index, values)),
+                     "launches_per_call": launched, "aten_ops_per_call": ops,
+                     "sort_ops_per_call": len(sorts),
+                     "ms": ms, "timed": "device, CUDA graph replays", "eager_ms": eager_ms,
+                     "plain_ms": host_ms(lambda: segsum.segment_sum_rows_plain(values_h, slots_h,
+                                                                               num)),
+                     "plain_on": "cpu", "bound_ms": bnd, "bound_by": by, "bound_share": bnd / ms,
+                     "sort_route_bound_ms": bound_ms(12 * n + 4 * r * num, n, torch.float32)[0],
+                     "library_ms": lib_ms, "ratio_to_library": ms / lib_ms,
+                     "library_eager_ms": lib_eager_ms,
                      "library": "torch.Tensor.index_add_ (atomics)"})
         print(f"  segsum {json.dumps(rows[-1])}", flush=True)
     return rows
@@ -3471,7 +3595,8 @@ def main():
                                        "_sharded_reference_path": shard[2]},
                       partial, dp_train_launches, ring_launches, shard[:2])
     rows += entry_rows(attn, sk, lab, entry_launches, entry_shapes)
-    rows += segsum_rows({"_host_sift_staged_path": host_launches, "_train_path": train_launches})
+    rows += segsum_rows({"_host_sift_staged_path": host_launches, "_train_path": train_launches,
+                         "_fused_path": fused_launches})
     print(json.dumps({"kernels": rows}), flush=True)
     phase("14 kernels", t0, total_seconds=f"{time.perf_counter() - _T0:.1f}",
           card=json.dumps(smi))

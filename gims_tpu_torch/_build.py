@@ -156,6 +156,8 @@ def _declare(lib):
         [i, p, p, p, p, p, p, p, i64]  # mode, edges, nbr_idx, valid, labels, rounds run,
                                        # listed, scratch, len
         + [i, i, i, i, p])          # B, N, W, rounds, stream
-    lib.gims_segsum.restype = i
-    lib.gims_segsum.argtypes = [p, p, p, p, p, i64, i64, p]  # keys, perm, offsets, values,
-                                                             # out, n, num, stream
+    lib.gims_segsum_rows.restype = i
+    lib.gims_segsum_rows.argtypes = (
+        [p, p, i, p]               # values, slots, slot bytes (2 or 4), out
+        + [i, i64, i64, i64, i]    # rows, width, row strides of values and slots, num
+        + [p])                     # stream

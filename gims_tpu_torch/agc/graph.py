@@ -195,8 +195,8 @@ def _first_min_index(values: torch.Tensor, mask: torch.Tensor, dim: int = -1):
 
 def _segment_sum(data: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
     """Per-batch segment sum: out[b, s] = sum of data[b, i] with seg[b, i] == s.
-    Integers add exactly in any order; floats add in ascending i
-    (``core/segsum.py``), so the card gives the same bits every run."""
+    Integers add exactly in any order; floats add in ascending i, a row of
+    ``core/segsum.py`` per b, so the card gives the same bits every run."""
     if data.is_floating_point():
         return batched_segment_sum(data, seg, num, tag="agc_centroid_sums")
     out = torch.zeros((data.shape[0], num), dtype=data.dtype, device=data.device)
@@ -243,11 +243,12 @@ def _component_links_head(kpts, labels, kept, C, nearest=_nearest_component):
     comp_ok = cnt > 0
     comp_ok[:, C] = False
     num_comps = comp_ok.sum(dim=1)
-    # x into slots [0, C], y into [C + 1, 2C + 1]: one launch, each slot in
-    # ascending node order
+    # a row per image and coordinate, x then y, into the C + 1 slots: one
+    # launch, each slot in ascending node order
     xy = torch.where(kept[..., None], kpts[..., :2], 0.0)
-    xy = xy.transpose(1, 2).reshape(b, 2 * n)
-    sums = _segment_sum(xy, torch.cat([lab, lab + C + 1], dim=1), 2 * (C + 1))
+    xy = xy.transpose(1, 2).contiguous().reshape(2 * b, n)
+    lab2 = lab.to(torch.int32)[:, None].expand(b, 2, n).reshape(2 * b, n)
+    sums = _segment_sum(xy, lab2, C + 1)
     cent = sums.reshape(b, 2, C + 1).transpose(1, 2) / torch.clamp(cnt, min=1.0)[..., None]
 
     comp_ids = torch.arange(C + 1, device=dev)

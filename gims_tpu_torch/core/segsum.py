@@ -1,21 +1,27 @@
 """Deterministic segmented sums: the hand-written kernel ``csrc/segsum.cu``.
 
-``segment_sum(values, index, num)`` returns ``out`` of ``num`` slots with
-``out[s] = 0 + values[i1] + values[i2] + ...`` over the ``i`` with
-``index[i] == s``, in ascending ``i``, in plain float32 adds: what
-``torch.zeros(num).index_add_(0, index, values)`` computes on the CPU, where
-it adds in index order. That sequential sum is the plain version
-(``segment_sum_plain``). On the card ``index_add_`` adds with atomics in an
-order that changes between runs; the kernel gives the sequential sum's bits
-on every run. It replaces no TPU kernel: the JAX package's segment sums are
+``segment_sum_rows(values, slots, num)`` takes values and slots (R, W) and
+returns out (R, num) with ``out[r, s] = 0 + values[r, i1] + values[r, i2]
++ ...`` over the ``i`` with ``slots[r, i] == s``, in ascending ``i``, in
+plain float32 adds: row r's values land only in row r's slots. That is
+what ``index_add_`` into zeros computes on the CPU, where it adds in index
+order, over the flat slots ``r * num + s``. That sequential sum is the plain
+version (``segment_sum_plain``, ``segment_sum_rows_plain``). On the card
+``index_add_`` adds with atomics in an order that changes between runs; the
+kernel gives the sequential sum's bits on every run, in one launch, with no
+sort. It replaces no TPU kernel: the JAX package's segment sums are
 deterministic, and this makes the port's so.
 
-On a CPU tensor the wrapper takes the plain version; on a CUDA tensor it
-sorts the destinations (a stable ``torch.sort``, deterministic), finds
-each slot's run (``torch.searchsorted``) and launches the kernel, or
-raises. Under autograd the gradient of each value
-is the gradient of its slot (a gather, no sum). Each caller names itself
-with a `tag`, under which the launches are also counted.
+``segment_sum(values, index, num)`` is the flat form: any index, taken as
+one row (int64 indices are cast to int32 first). ``batched_segment_sum`` is
+the rows form under the name ``scatter_add_`` along dim 1 would have.
+
+On a CPU tensor the wrappers take the plain version; on a CUDA tensor they
+launch the kernel or raise. The kernel reads int16 or int32 slots with a
+unit stride along W (a row stride of 0 gives every row one slot list) and
+never copies to make them so. Under autograd the gradient of each value is
+the gradient of its slot (a gather, no sum). Each caller names itself with
+a `tag`, under which the launches are also counted.
 """
 
 from __future__ import annotations
@@ -24,15 +30,25 @@ import torch
 
 from gims_tpu_torch import _build
 
-# calls of segment_sum that launched the kernel, in all and by the caller's tag
+# calls that launched the kernel, in all and by the caller's tag
 launches = 0
 launches_by_tag: dict = {}
+
+_SLOT_BYTES = {torch.int16: 2, torch.int32: 4}
 
 
 def segment_sum_plain(values: torch.Tensor, index: torch.Tensor, num: int) -> torch.Tensor:
     """The sequential sum: index_add_ into zeros (in index order on the CPU)."""
     out = torch.zeros(num, dtype=values.dtype, device=values.device)
     return out.index_add_(0, index, values)
+
+
+def segment_sum_rows_plain(values: torch.Tensor, slots: torch.Tensor, num: int) -> torch.Tensor:
+    """(R, num): each row's sequential sum, as one index_add_ over the flat
+    slots r * num + s."""
+    r = values.shape[0]
+    keys = slots.long() + torch.arange(r, device=slots.device)[:, None] * num
+    return segment_sum_plain(values.reshape(-1), keys.reshape(-1), r * num).reshape(r, num)
 
 
 def _check(values, index):
@@ -45,63 +61,108 @@ def _check(values, index):
         raise ValueError(f"index is on {index.device}, values on {values.device}")
 
 
-def segment_sum_cuda(values: torch.Tensor, index: torch.Tensor, num: int,
-                     tag: str = "other") -> torch.Tensor:
-    """The kernel on a CUDA tensor (no autograd)."""
+def _check_rows(values, slots):
+    if values.dim() != 2 or tuple(slots.shape) != tuple(values.shape):
+        raise ValueError(f"segment_sum_rows takes (R, W) values and slots, got "
+                         f"{tuple(values.shape)} and {tuple(slots.shape)}")
+    if values.dtype != torch.float32:
+        raise TypeError(f"segment_sum_rows sums float32 values, got {values.dtype}")
+    if slots.dtype not in (torch.int16, torch.int32, torch.int64):
+        raise TypeError(f"slots must be integers, got {slots.dtype}")
+    if slots.device != values.device:
+        raise ValueError(f"slots are on {slots.device}, values on {values.device}")
+
+
+def segment_sum_rows_cuda(values: torch.Tensor, slots: torch.Tensor, num: int,
+                          tag: str = "other") -> torch.Tensor:
+    """The kernel on CUDA tensors (no autograd): values (R, W) float32 and
+    slots (R, W) int16 or int32, both with a unit stride along W."""
     global launches
-    _check(values, index)
+    _check_rows(values, slots)
     if values.device.type != "cuda":
-        raise ValueError(f"segment_sum_cuda: unsupported device {values.device}")
+        raise ValueError(f"segment_sum_rows_cuda: unsupported device {values.device}")
+    if slots.dtype not in _SLOT_BYTES:
+        raise TypeError(f"the kernel reads int16 or int32 slots, got {slots.dtype}")
     num = int(num)
     if not 0 <= num < 2 ** 31:
-        raise ValueError(f"segment_sum_cuda takes up to 2^31 - 1 slots, got {num}")
-    keys, perm = torch.sort(index.to(torch.int32), stable=True)
-    # each slot's run of the sorted keys: offsets[s] .. offsets[s + 1]
-    offsets = torch.searchsorted(keys, torch.arange(num + 1, dtype=torch.int32,
-                                                    device=keys.device))
-    values = values.contiguous()
-    out = torch.empty(num, dtype=torch.float32, device=values.device)
+        raise ValueError(f"segment_sum_rows_cuda takes up to 2^31 - 1 slots, got {num}")
+    r, w = values.shape
+    if w > 1 and (values.stride(1) != 1 or slots.stride(1) != 1):
+        raise ValueError(f"values and slots need a unit stride along W, got strides "
+                         f"{values.stride()} and {slots.stride()}")
+    dev = values.device
+    out = torch.empty((r, num), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
     lib = _build.load()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = lib.gims_segsum(keys.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-                             values.data_ptr(), out.data_ptr(), values.shape[0], num, stream)
+    args = (values.data_ptr(), slots.data_ptr(), _SLOT_BYTES[slots.dtype], out.data_ptr(), r, w,
+            values.stride(0), slots.stride(0), num, torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = lib.gims_segsum_rows(*args)
+    else:  # the launch goes to the current device
+        with torch.cuda.device(dev):
+            rc = lib.gims_segsum_rows(*args)
     if rc != 0:
-        raise RuntimeError(f"gims_segsum failed: cudaError {rc}")
+        raise RuntimeError(f"gims_segsum_rows failed: cudaError {rc}")
     launches += 1
     launches_by_tag[tag] = launches_by_tag.get(tag, 0) + 1
     return out
 
 
-class _SegmentSum(torch.autograd.Function):
+def segment_sum_cuda(values: torch.Tensor, index: torch.Tensor, num: int,
+                     tag: str = "other") -> torch.Tensor:
+    """The flat sum on a CUDA tensor (no autograd): the whole index as one
+    row of the kernel."""
+    _check(values, index)
+    if values.device.type != "cuda":
+        raise ValueError(f"segment_sum_cuda: unsupported device {values.device}")
+    if index.dtype not in _SLOT_BYTES:
+        index = index.to(torch.int32)
+    return segment_sum_rows_cuda(values[None], index[None], num, tag)[0]
+
+
+class _SegmentSumRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, index, num, tag):
-        ctx.save_for_backward(index)
-        return segment_sum_cuda(values.detach(), index, num, tag)
+    def forward(ctx, values, slots, num, tag):
+        ctx.save_for_backward(slots)
+        return segment_sum_rows_cuda(values.detach(), slots, num, tag)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (index,) = ctx.saved_tensors
-        return grad_out[index], None, None, None
+        (slots,) = ctx.saved_tensors
+        return grad_out.gather(1, slots.long()), None, None, None
+
+
+def segment_sum_rows(values: torch.Tensor, slots: torch.Tensor, num: int,
+                     tag: str = "other") -> torch.Tensor:
+    """(R, num) float32 sums of each row of `values` into that row's slots
+    `slots`, in source order. A CPU tensor takes the plain version; a CUDA
+    tensor the kernel (int16 or int32 slots)."""
+    _check_rows(values, slots)
+    if values.device.type == "cpu":
+        return segment_sum_rows_plain(values, slots, num)
+    if torch.is_grad_enabled() and values.requires_grad:
+        return _SegmentSumRows.apply(values, slots, num, tag)
+    return segment_sum_rows_cuda(values, slots, num, tag)
 
 
 def segment_sum(values: torch.Tensor, index: torch.Tensor, num: int,
                 tag: str = "other") -> torch.Tensor:
     """(num,) float32 sums of `values` into the slots `index`, in source
-    order. A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    order: one row of ``segment_sum_rows``."""
     _check(values, index)
     if values.device.type == "cpu":
         return segment_sum_plain(values, index, num)
-    if torch.is_grad_enabled() and values.requires_grad:
-        return _SegmentSum.apply(values, index, num, tag)
-    return segment_sum_cuda(values, index, num, tag)
+    if index.dtype not in _SLOT_BYTES:
+        index = index.to(torch.int32)
+    return segment_sum_rows(values[None], index[None], num, tag)[0]
 
 
 def batched_segment_sum(data: torch.Tensor, seg: torch.Tensor, num: int,
                         tag: str = "other") -> torch.Tensor:
     """out[b, s] = sum of data[b, i] with seg[b, i] == s, in ascending i:
-    ``zeros((B, num)).scatter_add_(1, seg, data)`` on the CPU, as one
-    segment_sum over the flattened slots b * num + s."""
-    b = data.shape[0]
-    keys = seg.long() + torch.arange(b, device=seg.device)[:, None] * num
-    return segment_sum(data.reshape(-1), keys.reshape(-1), b * num, tag).reshape(b, num)
+    ``zeros((B, num)).scatter_add_(1, seg, data)`` on the CPU, as
+    ``segment_sum_rows`` (int64 slots cast to int32 on the card)."""
+    if data.device.type != "cpu" and seg.dtype not in _SLOT_BYTES:
+        seg = seg.to(torch.int32)
+    return segment_sum_rows(data, seg, num, tag)

@@ -23,12 +23,13 @@
 //
 // Head widths: any D. Up to 256 both kernels below work on column blocks of 64:
 // one block for D <= 64, two for D <= 128, three for D <= 192, four for
-// D <= 256. Columns from D up to the block's end are read as zeros (TMA's
-// out-of-bounds fill, or a bounds test in the f32 kernel), which add nothing
-// to Q K^T and give output columns that are not stored. So D = 32 does the
-// work of D = 64. The bf16 kernel needs D a multiple of 8 (TMA's 16-byte
-// strides): the wrapper zero-pads other widths and passes the scale of the
-// true D.
+// D <= 256 (the f32 kernel takes three as four). Columns from D up to the
+// block's end are read as zeros (TMA's out-of-bounds fill, or the f32
+// kernel's zero-filling copies), which add nothing to Q K^T and give output
+// columns that are not stored. So D = 32 does the work of D = 64 in bf16
+// (the f32 kernel skips 8-column steps past D). The bf16 kernel needs D a
+// multiple of 8 (TMA's 16-byte strides): the wrapper zero-pads other widths
+// and passes the scale of the true D.
 //
 // What bounds it on the H100: 4*B*H*N*M*D operations (QK^T and PV, a
 // multiply and an add each) against 4*B*N*H*D + 2*(B*M*H*D) elements moved,
@@ -83,12 +84,36 @@
 // 1e-30) rounded to the output dtype. Not tuned: K and V are read from
 // global memory (L1 and L2 serve the block's four rows) and q once per key.
 //
-// f32: attn_f32_kernel, scalar FMAs (the tensor cores would round to TF32,
-// which the port keeps off). One block per (b*h, tile of 64 query rows), one
-// thread per query row holding q and its f32 accumulator in registers (at
-// 128 and 256 columns they spill); key tiles of 64 (32 at 128 columns, 16 at
-// 256) staged in shared memory, scores 16 keys at a time. It reads any
-// strides.
+// f32: attn_f32_kernel, split f32 on the tensor cores (3xTF32). A single
+// TF32 product keeps 11 bits of each operand, which moves the f32 result
+// past its 1e-4 check, so every operand x is split into hi = tf32(x) and
+// lo = x - hi (a TF32 value too) and each product is lo*hi + hi*lo + hi*hi
+// in f32 accumulators: f32's precision but for terms below 2^-21 of the
+// product. Both products run so, Q K^T and P V, with P kept in f32 (split
+// like the inputs), never rounded to a narrower type. Bound: 3 TF32 products
+// of 2*B*H*N*M*D operations each at the TF32 tensor-core peak (495 TFLOP/s
+// dense), 0.83 ms at the 8192 bucket against 2.05 ms for the same work in
+// f32 FMAs on the CUDA cores.
+//   * mma.sync m16n8k8 (warp-level), not wgmma: wgmma's TF32 takes neither
+//     operand transposed, so V (keys x columns in memory) would need a
+//     transposed copy per tile, and hi and lo in shared memory would double
+//     the tiles; with mma.sync each thread reads its fragments from the
+//     tiles as they arrived and splits them in registers.
+//   * One block of 4 warps per (b*h, 128 query rows at D <= 64, else 64):
+//     each warp owns 32 (or 16) rows, Q's and P's fragments in registers, S
+//     and O as f32 accumulators (the mma's C layout). Q is staged once in
+//     shared memory; K and V tiles of 64 keys (32 at D > 64) arrive through
+//     cp.async (16-byte copies where rows are 16-byte aligned, else 4-byte),
+//     double-buffered, the next tile in flight while this one is used. Rows
+//     are padded to D + 4 floats, so the fragment reads hit 32 banks.
+//   * P's accumulator layout gives a thread keys 2t and 2t + 1 of each 8,
+//     where the A fragment of P V wants k-indices t and t + 4: reading V's
+//     rows in that order permutes keys within each 8, which the sum over
+//     keys does not see, so P goes from S's registers to P V's directly.
+//   * The online softmax in base 2 in f32 registers, the row max across the
+//     4 lanes that share a row, as the bf16 kernel.
+// It needs a unit D stride (the wrapper refuses others) and reads any other
+// strides and alignment.
 
 #include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -106,120 +131,6 @@ constexpr int kMaxDevices = 64;
 struct Strides {
   long long b, n, h, d;
 };
-
-// ------------------------------------------------------------ f32 kernel
-
-constexpr int kBQ = 64;   // query rows per block (one thread each)
-constexpr int kCH = 16;   // keys per online-softmax update
-
-// kD: the head dim rounded up to a column block; columns from D on are zeros.
-template <int kD>
-__global__ void __launch_bounds__(kBQ) attn_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint8_t* __restrict__ key_mask,
-    float* __restrict__ out, int N, int M, int H, int D, Strides qs, Strides ks,
-    Strides vs, Strides os, long long mask_sb, float scale_log2, float* __restrict__ stats) {
-  constexpr int kBK = 64 * 64 / kD;  // keys per shared-memory tile (32 KB of K and V)
-  __shared__ __align__(16) float k_tile[kBK][kD];
-  __shared__ __align__(16) float v_tile[kBK][kD];
-  __shared__ float bias[kBK];
-
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int row = blockIdx.x * kBQ + threadIdx.x;
-  const bool row_ok = row < N;
-
-  float qr[kD];
-  float acc[kD];
-  const float* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = row_ok && d < D ? qp[d * qs.d] * scale_log2 : 0.f;
-    acc[d] = 0.f;
-  }
-  float m_run = kNegInf;
-  float l_run = 0.f;
-
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  const uint8_t* mb = key_mask + b * mask_sb;
-
-  for (int k0 = 0; k0 < M; k0 += kBK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < kBK * kD; idx += kBQ) {
-      const int j = idx / kD;
-      const int d = idx % kD;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < M && d < D) {
-        kv = kb[key * ks.n + d * ks.d];
-        vv = vb[key * vs.n + d * vs.d];
-      }
-      k_tile[j][d] = kv;
-      v_tile[j][d] = vv;
-    }
-    if (threadIdx.x < kBK) {
-      const int key = k0 + threadIdx.x;
-      bias[threadIdx.x] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
-    }
-    __syncthreads();
-
-    const int nk = min(kBK, M - k0);
-    for (int c = 0; c < nk; c += kCH) {
-      float s[kCH];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kCH; ++jj) {
-        const float4* kr = reinterpret_cast<const float4*>(k_tile[c + jj]);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < kD / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-        }
-        s[jj] = dot + bias[c + jj];  // keys past M: -inf, p = 0 below
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      const float m_new = fmaxf(m_run, cmax);
-      const float corr = exp2f(m_run - m_new);
-      l_run *= corr;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < kCH; ++jj) {
-        const float p = exp2f(s[jj] - m_new);
-        l_run += p;
-        const float4* vr = reinterpret_cast<const float4*>(v_tile[c + jj]);
-#pragma unroll
-        for (int d4 = 0; d4 < kD / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m_run = m_new;
-    }
-  }
-
-  if (row_ok) {
-    const float inv = 1.f / fmaxf(l_run, 1e-30f);
-    float* op = out + b * os.b + (long long)row * os.n + h * os.h;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      if (d < D) op[d * os.d] = acc[d] * inv;
-    }
-    if (stats != nullptr) {
-      float* st = stats + (((long long)b * N + row) * H + h) * 2;
-      st[0] = m_run;
-      st[1] = l_run;
-    }
-  }
-}
 
 // ---------------------------------------------------- wide-head kernel
 
@@ -711,6 +622,302 @@ __global__ void __launch_bounds__(kTcThreads, 1) attn_tc_kernel(
   }
 }
 
+// --------------------------------------- f32 kernel: split f32 on the tensor cores
+
+constexpr int kF32Warps = 4;  // warps per block, each 16 * kMT query rows
+constexpr int kF32Threads = 32 * kF32Warps;
+
+// Per padded width kD (64, 128, 256): 16-row tiles per warp, keys per tile,
+// and the floats of one shared-memory row (kD + 4: a warp's fragment reads
+// of Q, K and V then fall in 32 different banks).
+template <int kD>
+struct F32Cfg {
+  static constexpr int kMT = kD == 64 ? 2 : 1;
+  static constexpr int kRows = kF32Warps * 16 * kMT;  // query rows per block: 128, 64
+  static constexpr int kKeys = kD == 64 ? 64 : 32;
+  static constexpr int kStride = kD + 4;
+  // Q, then two stages of K, V and the key bias
+  static constexpr int kSmemBytes = 4 * (kRows * kStride + 2 * 2 * kKeys * kStride + 2 * kKeys);
+};
+
+// x = hi + lo with hi = x rounded to TF32 (nearest, ties away) and lo the
+// exact rest with its low 13 bits cleared (a valid TF32 operand): the
+// products hi*hi + hi*lo + lo*hi carry f32's precision but for lo*lo and
+// lo's truncation, each below 2^-21 of the product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d (16 x 8, f32) += a (16 x 8, TF32, row major) * b (8 x 8, TF32, column major)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in split f32, the small terms first
+__device__ __forceinline__ void mma_f32x3(float (&d)[4], const uint32_t (&a_hi)[4],
+                                          const uint32_t (&a_lo)[4], uint32_t b_hi0,
+                                          uint32_t b_hi1, uint32_t b_lo0, uint32_t b_lo1) {
+  mma_tf32(d, a_lo, b_hi0, b_hi1);
+  mma_tf32(d, a_hi, b_lo0, b_lo1);
+  mma_tf32(d, a_hi, b_hi0, b_hi1);
+}
+
+// Asynchronous copies into shared memory; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows row0 .. row0 + R of one (b, h) slice (base, row stride sn, unit
+// column stride) into a tile of R rows of kD + 4 floats; rows at or past
+// nrows and columns at or past D read as zeros. vec: 16-byte copies (D a
+// multiple of 4, 16-byte aligned rows), else 4-byte copies.
+template <int R, int kD>
+__device__ __forceinline__ void load_rows_f32(float* tile, const float* base, long long sn,
+                                              int row0, int nrows, int D, bool vec) {
+  constexpr int kS = kD + 4;
+  if (vec) {
+    constexpr int kChunks = kD / 4;
+    for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+      const int r = i / kChunks;
+      const int c = 4 * (i % kChunks);
+      const bool in = row0 + r < nrows && c < D;
+      cp_async16(tile + r * kS + c, in ? base + (long long)(row0 + r) * sn + c : base, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * kD; i += kF32Threads) {
+      const int r = i / kD;
+      const int c = i % kD;
+      const bool in = row0 + r < nrows && c < D;
+      cp_async4(tile + r * kS + c, in ? base + (long long)(row0 + r) * sn + c : base, in);
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kF32Threads, kD == 256 ? 1 : 2) attn_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ key_mask, float* __restrict__ out, int N, int M, int H, int D,
+    Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb, float scale_log2,
+    float* __restrict__ stats, int vec) {
+  using Cfg = F32Cfg<kD>;
+  constexpr int kMT = Cfg::kMT;
+  constexpr int kKeys = Cfg::kKeys;
+  constexpr int kS = Cfg::kStride;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* q_sm = f32_smem;                      // kRows x kS
+  float* k_sm = q_sm + Cfg::kRows * kS;        // 2 stages of kKeys x kS
+  float* v_sm = k_sm + 2 * kKeys * kS;         // 2 stages of kKeys x kS
+  float* bias_sm = v_sm + 2 * kKeys * kS;      // 2 stages of kKeys
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // this thread's rows g, g + 8 of each 16-row tile
+  const int t = lane % 4;  // and its fragment columns
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * Cfg::kRows;
+  const int n_tiles = (M + kKeys - 1) / kKeys;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const uint8_t* mb = key_mask + b * mask_sb;
+  const int steps = (D + 7) / 8;  // 8-column steps below D: Q K^T's k-steps, O's n-tiles
+
+  auto load_tile = [&](int tile, int stage) {
+    const int key0 = tile * kKeys;
+    load_rows_f32<kKeys, kD>(k_sm + stage * kKeys * kS, kb, ks.n, key0, M, D, vec);
+    load_rows_f32<kKeys, kD>(v_sm + stage * kKeys * kS, vb, vs.n, key0, M, D, vec);
+    for (int j = threadIdx.x; j < kKeys; j += kF32Threads) {
+      const int key = key0 + j;
+      bias_sm[stage * kKeys + j] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
+    }
+  };
+  load_rows_f32<Cfg::kRows, kD>(q_sm, q + b * qs.b + h * qs.h, qs.n, q0, N, D, vec);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float o[kMT][kD / 8][4];  // O: rows g, g + 8; columns 8j + 2t, + 1
+  float m_run[kMT][2], l_run[kMT][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
+    }
+    m_run[mt][0] = m_run[mt][1] = kNegInf;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
+  const float* q_warp = q_sm + warp * 16 * kMT * kS;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile & 1;
+    if (tile + 1 < n_tiles) load_tile(tile + 1, stage ^ 1);
+    cp_async_commit();  // empty on the last tile
+    cp_async_wait1();   // Q and this tile landed
+    __syncthreads();
+    const float* kt = k_sm + stage * kKeys * kS;
+    const float* vt = v_sm + stage * kKeys * kS;
+    const float* bt = bias_sm + stage * kKeys;
+
+    // S = Q K^T (16 x 8 tiles: rows g, g + 8; keys 8j + 2t, + 1)
+    float s[kMT][kKeys / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk) {
+      if (kk >= steps) break;
+      uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float* qr = q_warp + (16 * mt + g) * kS + 8 * kk + t;
+        split_tf32(qr[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(qr[8 * kS], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(qr[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(qr[8 * kS + 4], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKeys / 8; ++nt) {
+        const float* kr = kt + (8 * nt + g) * kS + 8 * kk + t;
+        uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+        split_tf32(kr[0], b_hi0, b_lo0);
+        split_tf32(kr[4], b_hi1, b_lo1);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_f32x3(s[mt][nt], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+        }
+      }
+    }
+
+    // online softmax, base 2, per row: the row's max across the 4 lanes that share it
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      float mx0 = m_run[mt][0], mx1 = m_run[mt][1];
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const float2 bj = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t);
+        s[mt][j][0] = fmaf(s[mt][j][0], scale_log2, bj.x);
+        s[mt][j][1] = fmaf(s[mt][j][1], scale_log2, bj.y);
+        s[mt][j][2] = fmaf(s[mt][j][2], scale_log2, bj.x);
+        s[mt][j][3] = fmaf(s[mt][j][3], scale_log2, bj.y);
+        mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float corr0 = exp2f(m_run[mt][0] - mx0);
+      const float corr1 = exp2f(m_run[mt][1] - mx1);
+      m_run[mt][0] = mx0;
+      m_run[mt][1] = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        s[mt][j][0] = exp2f(s[mt][j][0] - mx0);
+        s[mt][j][1] = exp2f(s[mt][j][1] - mx0);
+        s[mt][j][2] = exp2f(s[mt][j][2] - mx1);
+        s[mt][j][3] = exp2f(s[mt][j][3] - mx1);
+        sum0 += s[mt][j][0] + s[mt][j][1];
+        sum1 += s[mt][j][2] + s[mt][j][3];
+      }
+      l_run[mt][0] = l_run[mt][0] * corr0 + sum0;
+      l_run[mt][1] = l_run[mt][1] * corr1 + sum1;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        o[mt][j][0] *= corr0;
+        o[mt][j][1] *= corr0;
+        o[mt][j][2] *= corr1;
+        o[mt][j][3] *= corr1;
+      }
+    }
+
+    // O += P V, P kept in f32 (split like the inputs). A thread's P holds keys
+    // 2t and 2t + 1 of each 8; taken as the A fragment's k-indices t and
+    // t + 4, with V's rows read in the same order, the keys are permuted
+    // within each 8, which the sum over keys does not see.
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      uint32_t a_hi[kMT][4], a_lo[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        split_tf32(s[mt][kk][0], a_hi[mt][0], a_lo[mt][0]);  // row g,     key 2t
+        split_tf32(s[mt][kk][2], a_hi[mt][1], a_lo[mt][1]);  // row g + 8, key 2t
+        split_tf32(s[mt][kk][1], a_hi[mt][2], a_lo[mt][2]);  // row g,     key 2t + 1
+        split_tf32(s[mt][kk][3], a_hi[mt][3], a_lo[mt][3]);  // row g + 8, key 2t + 1
+      }
+#pragma unroll
+      for (int nt = 0; nt < kD / 8; ++nt) {
+        if (nt >= steps) break;
+        const float* vr = vt + (8 * kk + 2 * t) * kS + 8 * nt + g;
+        uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+        split_tf32(vr[0], b_hi0, b_lo0);   // k-index t:     key 2t
+        split_tf32(vr[kS], b_hi1, b_lo1);  // k-index t + 4: key 2t + 1
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_f32x3(o[mt][nt], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read before the next tile's copies land in it
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const float sum0 = quad_sum(l_run[mt][0]);  // the row's l; m_run is the row's already
+    const float sum1 = quad_sum(l_run[mt][1]);
+    const float den0 = fmaxf(sum0, 1e-30f);
+    const float den1 = fmaxf(sum1, 1e-30f);
+    const int row0 = q0 + warp * 16 * kMT + 16 * mt + g;
+    const int row1 = row0 + 8;
+    if (stats != nullptr && t == 0) {
+      if (row0 < N) {
+        float* st = stats + (((long long)b * N + row0) * H + h) * 2;
+        st[0] = m_run[mt][0];
+        st[1] = sum0;
+      }
+      if (row1 < N) {
+        float* st = stats + (((long long)b * N + row1) * H + h) * 2;
+        st[0] = m_run[mt][1];
+        st[1] = sum1;
+      }
+    }
+    float* op0 = out + b * os.b + (long long)row0 * os.n + h * os.h;
+    float* op1 = op0 + 8 * os.n;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < N) {
+        if (col < D) op0[col * os.d] = o[mt][j][0] / den0;
+        if (col + 1 < D) op0[(col + 1) * os.d] = o[mt][j][1] / den0;
+      }
+      if (row1 < N) {
+        if (col < D) op1[col * os.d] = o[mt][j][2] / den1;
+        if (col + 1 < D) op1[(col + 1) * os.d] = o[mt][j][3] / den1;
+      }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (no -lcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -792,11 +999,29 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
                int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
                const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
                float* stats, cudaStream_t stream) {
-  const dim3 grid((N + kBQ - 1) / kBQ, B * H);
-  attn_f32_kernel<kD><<<grid, kBQ, 0, stream>>>(
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = F32Cfg<kD>::kSmemBytes;
+  // the shared-memory limit is raised once per device, not on every call
+  static bool raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= kMaxDevices || !raised[dev])) {
+    err = cudaFuncSetAttribute(attn_f32_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte copies where every row of q, k and v starts 16-byte aligned
+  const auto aligned = [](const void* p, const Strides& st) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.n % 4 == 0 &&
+           st.h % 4 == 0;
+  };
+  const int vec = D % 4 == 0 && aligned(q, qs) && aligned(k, ks) && aligned(v, vs);
+  const dim3 grid((N + F32Cfg<kD>::kRows - 1) / F32Cfg<kD>::kRows, B * H);
+  attn_f32_kernel<kD><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(key_mask), static_cast<float*>(out), N, M, H, D, qs, ks, vs,
-      os, mask_sb, scale_log2, stats);
+      os, mask_sb, scale_log2, stats, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -847,9 +1072,9 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_m
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel, any strides), 1 = bfloat16 (tensor-core
-// kernel: unit D stride, 16-byte aligned bases and strides, so D a multiple
-// of 8). D from 1 to 256 (gims_attention_fwd_wide beyond). Returns a
+// dtype: 0 = float32 (split-f32 kernel: unit D stride, any other strides),
+// 1 = bfloat16 (tensor-core kernel: unit D stride, 16-byte aligned bases and
+// strides, so D a multiple of 8). D from 1 to 256 (gims_attention_fwd_wide beyond). Returns a
 // cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,

@@ -43,7 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from gims_tpu_torch.core.device import resolve_device
-from gims_tpu_torch.core.segsum import segment_sum
+from gims_tpu_torch.core.segsum import segment_sum_rows
 from gims_tpu_torch.frontend.pyramid import reflect101_index, upsample2x
 
 IMG_BORDER = 5            # SIFT_IMG_BORDER
@@ -652,12 +652,13 @@ class SIFT:
                                 v_rco100, v_rco101, v_rco110, v_rco111], -1)
             # one slot before each histogram: an angle of 361 can vote at o0 = -1
             k = len(sel)
-            dst = (torch.arange(k, device=dev)[:, None, None] * (hl + 1) + 1
-                   + idx[..., None] + torch.tensor(steps, device=dev))
-            # in sample order, as OpenCV adds: deterministic on the card too
-            flat = segment_sum(vals.reshape(-1), dst.reshape(-1), k * (hl + 1),
-                               tag="sift_descriptors")
-            hist = flat.reshape(k, hl + 1)[:, 1:].reshape(k, d + 2, d + 2, nb + 2)
+            slots = (1 + idx).to(torch.int16)[..., None] + torch.tensor(
+                steps, dtype=torch.int16, device=dev)
+            # a row per keypoint, in sample order, as OpenCV adds:
+            # deterministic on the card too
+            hist = segment_sum_rows(vals.reshape(k, -1), slots.reshape(k, -1), hl + 1,
+                                    tag="sift_descriptors")
+            hist = hist[:, 1:].reshape(k, d + 2, d + 2, nb + 2)
             inner = hist[:, 1:d + 1, 1:d + 1].clone()
             inner[..., 0] += inner[..., nb]
             inner[..., 1] += inner[..., nb + 1]

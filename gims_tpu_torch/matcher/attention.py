@@ -74,9 +74,30 @@ def kernel_block_k(d: int, dtype) -> int:
     return KERNEL_WIDE_BLOCK_K if dtype == torch.bfloat16 and d > 128 else KERNEL_BLOCK_K
 
 
-def _tiled_state(q, k, v, key_mask, block_k):
+def split_tf32(x: torch.Tensor):
+    """x = hi + lo as the CUDA kernel's f32 path splits an f32 operand: hi is
+    x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero:
+    PTX's cvt.rna.tf32.f32), lo the rest x - hi (exact in f32) with its low
+    13 bits cleared."""
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def einsum_split_f32(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 kernel's product on the tensor cores: a and b split by
+    ``split_tf32``, then lo*hi + hi*lo + hi*hi, each an exact product of
+    TF32 values summed in f32 (the kernel sums in another order)."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.einsum(equation, a_lo, b_hi) + torch.einsum(equation, a_hi, b_lo)
+            + torch.einsum(equation, a_hi, b_hi))
+
+
+def _tiled_state(q, k, v, key_mask, block_k, split_f32=False):
     """The kernel's online softmax over key tiles: (acc, l, mx), (B, H, N, D)
-    and (B, H, N), f32, before the division."""
+    and (B, H, N), f32, before the division. split_f32: both products as
+    the f32 kernel computes them (``einsum_split_f32``)."""
     b, n, h, d = q.shape
     m = k.shape[1]
     c = LOG2E / math.sqrt(d)
@@ -88,18 +109,19 @@ def _tiled_state(q, k, v, key_mask, block_k):
         kc = k[:, start:start + block_k].permute(0, 2, 1, 3).float()
         vc = v[:, start:start + block_k].permute(0, 2, 1, 3)
         bias = torch.where(key_mask[:, start:start + block_k], 0.0, NEG_INF)
-        s = torch.einsum("bhnd,bhcd->bhnc", qt, kc) * c + bias[:, None, None, :]
+        product = einsum_split_f32 if split_f32 else torch.einsum
+        s = product("bhnd,bhcd->bhnc", qt, kc) * c + bias[:, None, None, :]
         mx_new = torch.maximum(mx, s.amax(dim=-1))
         corr = torch.exp2(mx - mx_new)
         p = torch.exp2(s - mx_new[..., None])
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bhnc,bhcd->bhnd", p.to(v.dtype).float(), vc.float())
+        pv = product("bhnc,bhcd->bhnd", p.to(v.dtype).float(), vc.float())
         acc = acc * corr[..., None] + pv
         mx = mx_new
     return acc, l, mx
 
 
-def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
+def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None, split_f32=False):
     """The arithmetic of ``gims_tpu/matcher/pallas_attention.py::_attn_kernel``
     and of the CUDA kernel, one key tile of ``block_k`` at a time.
 
@@ -110,9 +132,12 @@ def masked_attention_tiled(q, k, v, key_mask, block_k=None, out_dtype=None):
     output is acc / max(l, 1e-30). Keys past M are absent (p = 0). Returns
     (B, N, H, D) in ``out_dtype`` (q's dtype by default): pass float32 to
     get the result before its one rounding. ``block_k`` defaults to the
-    kernel's tile at this width and dtype (``kernel_block_k``).
+    kernel's tile at this width and dtype (``kernel_block_k``). ``split_f32``
+    computes both products as the kernel's f32 path does on the tensor cores
+    (``einsum_split_f32``, f32 inputs).
     """
-    acc, l, _ = _tiled_state(q, k, v, key_mask, block_k or kernel_block_k(q.shape[-1], v.dtype))
+    acc, l, _ = _tiled_state(q, k, v, key_mask, block_k or kernel_block_k(q.shape[-1], v.dtype),
+                             split_f32)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(out_dtype or q.dtype)
 

@@ -2,8 +2,10 @@
 
 Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
 (``csrc/attention.cu``) reads the (B, N, H, D) layout in place, so no
-transposed copies are made: bf16 on the tensor cores through TMA, f32 with
-scalar FMAs, both with f32 accumulation; the output has q's dtype. Head
+transposed copies are made: bf16 on the tensor cores through TMA, f32 on
+the tensor cores as split f32 (each operand two TF32 values, three
+products: ``attention.einsum_split_f32`` is its arithmetic), both with f32
+accumulation; the output has q's dtype. Head
 widths from 1 to 256 take those kernels; wider heads take the wide-head
 kernel (both dtypes, the rows' f32 accumulators in a (B, N, H, D) f32
 workspace that the wrapper allocates). The bf16 kernels read widths that

@@ -18,7 +18,7 @@ from torch.profiler import record_function
 
 from gims_tpu_torch.agc.graph import build_graph, build_graph_band, check_impls
 from gims_tpu_torch.config import AGCConfig
-from gims_tpu_torch.core.segsum import segment_sum
+from gims_tpu_torch.core.segsum import segment_sum_rows
 from gims_tpu_torch.matcher import sinkhorn
 from gims_tpu_torch.matcher.gmatcher import GMatcher, normalize_keypoints
 from gims_tpu_torch.matcher.layers import batch_stat_updates
@@ -293,11 +293,11 @@ def training_forward(model: GMatcher, acfg: AGCConfig,
     pos_w = (row_valid & ~neg_flag).float()
     neg_w = (row_valid & neg_flag).float()
 
-    # the four per-pair sums in one launch, each in row order: the same bits
-    # on every run of the card
-    sums = segment_sum(torch.cat([loss_vec * pos_w, pos_w, loss_vec * neg_w, neg_w]),
-                       torch.cat([b + j * batch for j in range(4)]), 4 * batch,
-                       tag="train_loss_sums").reshape(4, batch)
+    # the four per-pair sums in one launch, a row each over one slot list,
+    # each in row order: the same bits on every run of the card
+    sums = segment_sum_rows(torch.stack([loss_vec * pos_w, pos_w, loss_vec * neg_w, neg_w]),
+                            b.to(torch.int32)[None].expand(4, -1), batch,
+                            tag="train_loss_sums")
     batched_pos = sums[0] / torch.clamp(sums[1], min=1.0)
     batched_neg = sums[2] / torch.clamp(sums[3], min=1.0)
     pos_loss = mcfg.pos_loss_weight * batched_pos.mean()

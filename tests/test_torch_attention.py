@@ -120,6 +120,27 @@ def test_tiled_matches_pallas_interpret(dtype):
         assert np.mean(np.abs(got - want) <= 1e-4 + 2.0 ** -8 * np.abs(got)) > 0.999
 
 
+@pytest.mark.parametrize("d,block_k", [(64, 64), (128, 32)])
+def test_split_f32_matches_pallas_interpret(d, block_k):
+    """The arithmetic of the CUDA kernel's f32 path on the tensor cores
+    (each operand of Q K^T and P V split into two TF32 values, three
+    products summed in f32: masked_attention_tiled(split_f32=True)) at its
+    key tile (64 keys at D = 64, 32 above) against the Pallas kernel in
+    interpret mode in f32: within 2e-5, as the plain f32 product is. One
+    TF32 product (hi*hi alone) is far outside that bar, which is why the
+    kernel computes three."""
+    q, k, v, mask = kernel_inputs(5, d=d)
+    want = np.asarray(masked_attention_pallas(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask), block_k=block_k,
+        interpret=True))
+    args = torch_args(q, k, v, mask)
+    got = attention.masked_attention_tiled(*args, block_k=block_k, split_f32=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    hi = [attention.split_tf32(x)[0] if x.is_floating_point() else x for x in args]
+    one_pass = attention.masked_attention_tiled(*hi, block_k=block_k).numpy()
+    assert np.abs(one_pass - want).max() > 10 * 2e-5
+
+
 def test_tiled_equals_direct_f32():
     """In f32 the tiled version is the direct one up to summation order,
     with a fully masked item (the mean of its V) and a ragged key tile."""

@@ -24,9 +24,15 @@ round differently by an ulp). JPEG decoding on the card: bit-equal to the
 CPU's on the six photos of assets/photos. One HTTP round trip through
 ``serve_cli.make_server`` on the card, held to ``find_matches`` in-process.
 The segmented-sum kernel (``csrc/segsum.cu``): equal to the CPU's
-sequential ``index_add_`` to the bit on two runs, and its callers (SIFT
+sequential ``index_add_`` to the bit on two runs, flat (one row) and by
+rows at its three callers' layouts (SIFT's keypoint rows into 361 int16
+slots, AGC's image-and-coordinate rows, the loss's four rows over one slot
+list), one kernel and no sort per call, and its callers (SIFT
 descriptors, AGC's centroid sums, a loss and its gradient) equal on two
-runs. K1 past 256 columns (the wide-head kernel): "auto" and "pallas"
+runs. The f32 attention kernel (split f32 on the tensor cores) against the
+direct version at D = 32, 64, 100, 128 and 256, 1e-4, with a key count off
+its tiles, a fully masked item, its partial mode and rows that are not
+16-byte aligned. K1 past 256 columns (the wide-head kernel): "auto" and "pallas"
 launch it, within the same bars as the narrower heads.
 """
 
@@ -265,13 +271,90 @@ def test_attention_wide_head_kernel(cuda, dtype):
     assert torch.equal(outs[0], outs[1])
 
 
+@pytest.mark.parametrize("d", [32, 64, 100, 128, 256])
+def test_attention_f32_split_kernel(cuda, d):
+    """The f32 kernel at the widths of its three instantiations (64, 128,
+    256 padded columns) against the direct version, 1e-4 (chip_smoke's
+    ATTN_TOL): 333 keys (off its 64- and 32-key tiles), masked keys, item 1
+    fully masked (the mean of its V). Its partial mode: the output
+    bit-equal, the row max within 1e-4 and the row sum within 1e-4
+    relative of attention_partials_tiled's. q, k and v at an offset of one
+    float (rows not 16-byte aligned: the kernel's 4-byte copies) give the
+    same bits as the aligned call."""
+    g = torch.Generator(device=cuda).manual_seed(d + 1)
+    q, k, v = (torch.randn((2, x, 4, d), generator=g, device=cuda) for x in (300, 333, 333))
+    mask = torch.rand((2, 333), generator=g, device=cuda) < 0.7
+    mask[1] = False
+    before = cuda_attention.launches
+    out = cuda_attention.masked_attention_cuda(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1
+    direct = attention.masked_attention_direct(q, k, v, mask)
+    assert (out - direct).abs().max().item() <= 1e-4
+    assert (out[1] - v[1].mean(dim=0)).abs().max().item() <= 1e-4
+    part, stats = cuda_attention.attention_partials_cuda(q, k, v, mask)
+    assert torch.equal(part, out)
+    _, want = attention.attention_partials_tiled(q, k, v, mask)
+    assert (stats[..., 0] - want[..., 0]).abs().max().item() <= 1e-4
+    assert ((stats[..., 1] - want[..., 1]).abs() / want[..., 1]).max().item() <= 1e-4
+    shifted = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        shifted.append(view)
+    assert torch.equal(cuda_attention.masked_attention_cuda(*shifted, mask), out)
+
+
+@pytest.mark.parametrize("layout", ["sift", "agc", "agc_fused", "loss"])
+def test_segsum_rows_kernel_vs_cpu(cuda, layout):
+    """segment_sum_rows on the card at each caller's row layout (the
+    layouts of tests/test_torch_segsum_rows.py at the callers' sizes: 300
+    keypoints of 4500 samples; 2 images of 4096 nodes into 4098 slots, by
+    lane; the fused paths' 8 images of 3072 nodes into 3073 slots, labels
+    spread over all of them, by group with each row's slots split over
+    warps; four rows of 12288 entries over one slot list) equal to the CPU's
+    sequential sum on two runs; one call, one kernel and no sort."""
+    import test_torch_segsum_rows as layouts  # this directory: pytest puts it on sys.path
+    from gims_tpu_torch.core import segsum
+
+    rng = np.random.default_rng(17)
+    kind, size = {"sift": ("sift", dict(k=300, samples=4500)),
+                  "agc": ("agc", dict(b=2, n=4096, c=4097)),
+                  "agc_fused": ("agc", dict(b=8, n=3072, c=3072, labels=3000)),
+                  "loss": ("loss", dict(rows=12288, batch=3))}[layout]
+    vals, slots, num = layouts.LAYOUTS[kind](rng, **size)
+    slots = np.ascontiguousarray(slots)
+    want = segsum.segment_sum_rows_plain(torch.from_numpy(vals), torch.from_numpy(slots), num)
+    v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(slots).to(cuda)
+    if layout == "loss":
+        s = s[:1].expand(4, -1)
+    before = segsum.launches
+    runs = [segsum.segment_sum_rows(v, s, num) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert segsum.launches == before + 2
+    for r in runs:
+        assert torch.equal(r.cpu(), want)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        segsum.segment_sum_rows(v, s, num)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "segsum_rows_kernel" in kernels[0], kernels
+    assert not [n for n in names if "sort" in n or "searchsorted" in n]
+
+
 @pytest.mark.parametrize("n,num,dup", [(1, 1, 1), (1000, 37, 5), (300_000, 20_000, 8),
-                                       (2_000_000, 50, 1)])
+                                       (2_000_000, 50, 1), (400_000, 100_000, 3)])
 def test_segsum_kernel_vs_plain(cuda, n, num, dup):
     """csrc/segsum.cu against the CPU's sequential index_add_ (its plain
     version): equal to the bit, on two runs, in the callers' patterns
     (runs of `dup` equal destinations as SIFT's votes give, long segments as
-    the loss's pairs give), with slots left empty."""
+    the loss's pairs give), with slots left empty. The flat form is one
+    row: up to 33,792 slots by lane, beyond by group with the row's slots
+    split over warps of at most 1280 slots each (100,000 slots)."""
     from gims_tpu_torch.core import segsum
 
     rng = np.random.default_rng(n)

@@ -10,7 +10,8 @@
 - The training loss's per-pair sums: the value and the gradient through
   ``segment_sum`` (each value's gradient is its slot's).
 - The SIFT descriptors on the CPU are unchanged when their histograms are
-  summed by numpy's sequential ``np.add.at`` in place of ``segment_sum``:
+  summed by numpy's sequential ``np.add.at`` in place of
+  ``segment_sum_rows`` (a row per keypoint):
   the sum the card now computes is the one ``tests/test_torch_sift.py``
   holds to ``cv2.SIFT``.
 - The wrapper refuses what the kernel does not take, and a CPU tensor never
@@ -84,11 +85,12 @@ def test_sift_descriptors_use_the_sequential_sum(monkeypatch):
 
     calls = []
 
-    def sequential(values, index, num, tag):
-        calls.append(len(values))
-        return torch.from_numpy(numpy_sum(values.numpy(), index.numpy(), num))
+    def sequential(values, slots, num, tag):
+        calls.append(values.numel())
+        return torch.from_numpy(np.stack([numpy_sum(v, s, num)
+                                          for v, s in zip(values.numpy(), slots.numpy())]))
 
-    monkeypatch.setattr(sift, "segment_sum", sequential)
+    monkeypatch.setattr(sift, "segment_sum_rows", sequential)
     assert np.array_equal(cpu.compute(img, kp), got) and got.shape == (300, 128)
     assert calls and sum(calls) >= 300 * 8
 

@@ -8,16 +8,17 @@ Phases, one line each with its seconds:
   1 build: the CUDA kernels under gims_tpu_torch/csrc/, one nvcc process
     per source, all at once; ptxas' registers, shared memory and spills per
     kernel; the count of wgmma (HGMMA) instructions in the attention
-    kernels' SASS, which must not be 0 for the bf16 kernel, and of mma.sync
-    (HMMA) instructions, which must not be 0 for the f32 kernel (its split
-    TF32 products).
+    kernels' SASS, which must not be 0 for any bf16 kernel, and of mma.sync
+    (HMMA) instructions, which must not be 0 for any f32 kernel (its split
+    TF32 products); a spill in a wide-head kernel fails the run.
   2 the attention kernel against its plain PyTorch versions on the card,
     at the paths' trunk shapes among others (head width 64), at a head
     width of 256 (a 512-d trunk of 2 heads; the column-block kernels'
-    widest) and at 320 (the wide-head kernel, which no path runs yet), timed
-    beside its bound (in f32 up to 256 columns the arithmetic it executes:
-    three TF32 products at the TF32 peak, with the f32 CUDA-core bound
-    beside it) and SDPA.
+    widest) and past 256 (the wide-head kernels: 320 at 2048 and 8192, a
+    head of 512 at 4096), timed beside its bound (in f32 the arithmetic it
+    executes: three TF32 products at the TF32 peak, with the f32 CUDA-core
+    bound beside it) and SDPA; the phase line carries the wide rows' ratio
+    to SDPA.
   3 the Sinkhorn kernels against their plain PyTorch version on the card:
     the fused kernel at Z of 2049, 8193, (8, 3073), (4, 6145), 6145 and
     3073 square, the streaming kernel at 24577 (the widest bucket) and at
@@ -28,6 +29,10 @@ Phases, one line each with its seconds:
     8192); the kernels' launch counters must rise on this path.
   5 one 2048 request in f32 through the kernels and through the plain
     versions: kept equal, matches and scores agree.
+  25 the wide-head path (run after phase 5): Matching with a 640-d trunk
+    of 2 heads (head width 320, random weights) serves one 2048 request in
+    bf16 and in f32, 18 wide-head K1 launches each; f32 scores within 1e-3
+    of the plain versions'.
   6 the fused image path: gims_tpu_torch.fused.FusedMatching with the joint
     end-to-end weights (weights/gims_tpu_dense_gray_e2e.npz and _car.npz)
     matches batches of 8 synthetic 800x600 gray pairs (6144 keypoints,
@@ -260,7 +265,8 @@ Phases, one line each with its seconds:
     label rounds are), each image described by SIFT on the card the
     histograms at least once (checked in phase 17).
   14 one JSON line with every kernel's launches, error and times, on the
-    eighteen paths' shapes (phase 22's unsharded reference at 16384 and
+    nineteen paths' shapes (phase 25's wide heads, phase 22's unsharded
+    reference at 16384 and
     phase 23's four entry-point paths and phase 24's parameter sweep among
     them), the label rounds of phase 20's steps, K1's partial mode at
     the step shapes of phase 21's and phase 22's rings, and the
@@ -310,7 +316,7 @@ from gims_tpu_torch.agc import graph, labels  # noqa: E402
 from gims_tpu_torch.api import Matching, init_gmatcher_variables  # noqa: E402
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint  # noqa: E402
 from gims_tpu_torch.cli import eval_homography_cli  # noqa: E402
-from gims_tpu_torch.config import (AGCConfig, FrontendConfig, MatcherConfig,  # noqa: E402
+from gims_tpu_torch.config import (AGCConfig, FrontendConfig, GIMSConfig, MatcherConfig,  # noqa: E402
                                    load_config)
 from gims_tpu_torch.core import checkpoint as ckpt_io  # noqa: E402
 from gims_tpu_torch.core import segsum  # noqa: E402
@@ -387,9 +393,15 @@ ATTN_CASES = ((2, 2048, 2048, 248), (2, 8192, 8192, 1192), (2, 1000, 2017, 300),
 # trunk of 2 heads) at the staged image path's bucket: the kernel's widest
 WIDE_ATTN_CASE = (2, 6144, 6144, 900)
 WIDE_HEAD_DIM = 256
-# the wide-head kernel (heads past 256): a 640-d trunk of 2 heads at 2048
-WIDER_ATTN_CASE = (2, 2048, 2048, 248)
-WIDER_HEAD_DIM = 320
+# the wide-head kernels (heads past 256), each row ((B, N, M, masked key
+# tail), H, D): a 640-d trunk of 2 heads at 2048 and at 8192 (the Matching
+# path's bucket), a 512-d trunk of one head at 4096
+WIDER_ATTN_CASES = (((2, 2048, 2048, 248), 2, 320), ((2, 8192, 8192, 1192), 2, 320),
+                    ((2, 4096, 4096, 600), 1, 512))
+# the wide-head kernels' instantiations (csrc/attention.cu): bf16 <blocks of
+# 64 a warpgroup, keys per tile>, f32 one
+WIDE_KERNELS_BF16 = ("attn_wide_tc_kernel<3,48>", "attn_wide_tc_kernel<4,32>")
+WIDE_KERNELS_F32 = ("attn_wide_f32_kernel",)
 # (bucket, valid rows, valid cols, iterations) of the Sinkhorn input Z
 # (bucket+1 square), one entry per batch item: the fused kernel (Z read once
 # per iteration) at 2049 and 8193, the streaming kernel (twice) at 24577,
@@ -624,6 +636,10 @@ SEGSUM_ROWS = {"sift_descriptors": ("sift_descriptors", "_host_sift_staged_path"
 MATCH_KERNELS = ("attention", "sinkhorn", "label_rounds", "segsum_agc_centroid_sums")
 REQUESTS = ((11, 1800), (12, 1850), (13, 7000), (14, 6900))
 WHOLE_PATH_REQUEST = (21, 1800)
+# the wide-head path: Matching with a 640-d trunk of 2 heads (head width
+# 320), random weights from the seed, one request at bucket 2048 in each dtype
+WIDE_PATH_REQUEST = (22, 1800)
+WIDE_PATH_DIM = 640
 
 _T0 = time.perf_counter()
 
@@ -678,13 +694,12 @@ def bound_ms(nbytes, flops, dtype, peak=None):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bound(nbytes, flops, dtype, d):
-    """K1's bound as its kernel executes the work: bf16 products at the
-    bf16 tensor-core peak; f32 up to 256 columns as three TF32 products
-    (split f32, csrc/attention.cu) at the TF32 peak, printed beside the
-    same work as f32 FMAs on the CUDA cores; f32 past 256 columns (the
-    wide-head kernel's FMAs) at the f32 peak."""
-    if dtype != torch.float32 or d > attention.KERNEL_MAX_HEAD_DIM:
+def attention_bound(nbytes, flops, dtype):
+    """K1's bound as its kernels execute the work: bf16 products at the
+    bf16 tensor-core peak; f32 at every width as three TF32 products (split
+    f32, csrc/attention.cu) at the TF32 peak, printed beside the same work
+    as f32 FMAs on the CUDA cores."""
+    if dtype != torch.float32:
         ms, by = bound_ms(nbytes, flops, dtype)
         return {"bound_ms": ms, "bound_by": by}
     ms, by = bound_ms(nbytes, 3 * flops, dtype, peak=PEAK_TF32)
@@ -719,7 +734,8 @@ def device_phase():
 def kernel_name(line):
     """`kernel<a,b>` of the port's kernel whose mangled name is in `line`
     (template arguments are integers), else None."""
-    m = re.search(r"(attn_tc_kernel|attn_f32_kernel|sinkhorn_fused_kernel|"
+    m = re.search(r"(attn_tc_kernel|attn_f32_kernel|attn_wide_tc_kernel|attn_wide_f32_kernel|"
+                  r"sinkhorn_fused_kernel|"
                   r"sinkhorn_stream_kernel|label_rounds_kernel|label_cluster_kernel|"
                   r"label_pack_kernel|segsum_rows_kernel)(I(?:Li\d+E)+E|I[si](?:Li\d+E)*E)?",
                   line)
@@ -781,15 +797,22 @@ def build_phase():
     else:
         for kernel, info in ptxas_report(_build.build_log).items():
             print(f"  ptxas {kernel} {json.dumps(info)}", flush=True)
+        spilled = [k for k, info in ptxas_report(_build.build_log).items()
+                   if k in WIDE_KERNELS_BF16 + WIDE_KERNELS_F32
+                   and (info.get("spill_stores") or info.get("spill_loads"))]
+        if spilled:
+            raise AssertionError(f"a wide-head attention kernel spills registers: {spilled}")
     hgmma = tensor_core_counts(lib._name, "HGMMA")
     print(f"  sass HGMMA {json.dumps(hgmma)}", flush=True)
-    tc = [hgmma.get(f"attn_tc_kernel<{nb}>") for nb in (1, 2)]  # one or two column blocks
+    tc = [hgmma.get(k) for k in [f"attn_tc_kernel<{nb}>" for nb in (1, 2, 3, 4)]
+          + list(WIDE_KERNELS_BF16)]
     if not all(tc):
         raise AssertionError(f"a bf16 attention kernel has no HGMMA instruction: {hgmma}")
-    # the f32 kernel's split products: mma.sync on TF32 (SASS HMMA.1688.F32.TF32)
+    # the f32 kernels' split products: mma.sync on TF32 (SASS HMMA.1688.F32.TF32)
     hmma = tensor_core_counts(lib._name, "HMMA")
     print(f"  sass HMMA {json.dumps(hmma)}", flush=True)
-    f32 = [hmma.get(f"attn_f32_kernel<{d}>") for d in (64, 128, 256)]
+    f32 = [hmma.get(k) for k in [f"attn_f32_kernel<{d}>" for d in (64, 128, 256)]
+           + list(WIDE_KERNELS_F32)]
     if not all(f32):
         raise AssertionError(f"an f32 attention kernel has no HMMA instruction: {hmma}")
     phase("1 build", t0, nvcc_seconds=f"{_build.build_seconds}",
@@ -846,7 +869,7 @@ def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
         esz = q.element_size()
         nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
         flops = 4 * b * h * n * m * d
-        row.update(attention_bound(nbytes, flops, dtype, d))
+        row.update(attention_bound(nbytes, flops, dtype))
         # one exp2 per score on the MUFU units, beside the matrix products
         row["exp_bound_ms"] = 1e3 * b * h * n * m / EXP_PER_S
         row["ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
@@ -868,20 +891,22 @@ def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
 def attention_phase():
     t0 = time.perf_counter()
     rows = {}
-    cases = [(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM),
-                                                      (WIDER_ATTN_CASE, 2, WIDER_HEAD_DIM)]
+    cases = ([(c, 4, HEAD_DIM) for c in ATTN_CASES] + [(WIDE_ATTN_CASE, 2, WIDE_HEAD_DIM)]
+             + list(WIDER_ATTN_CASES))
     for (b, n, m, tail), h, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
             row = attention_row(b, n, m, tail, dtype, h, d)
             rows[(b, n, m, row["dtype"]) if d == HEAD_DIM else (b, n, m, row["dtype"], d)] = row
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     wide = rows[WIDE_ATTN_CASE[:3] + ("bfloat16", WIDE_HEAD_DIM)]
-    wider = rows[WIDER_ATTN_CASE[:3] + ("bfloat16", WIDER_HEAD_DIM)]
+    # the wide-head kernels' rows: ms against SDPA's in both dtypes
+    wider = {f"{b}x{n} H={h} D={d} {dt}": rows[(b, n, m, dt, d)]["ratio_to_library"]
+             for (b, n, m, _), h, d in WIDER_ATTN_CASES for dt in ("float32", "bfloat16")}
     phase("2 attention kernel vs plain", t0,
           max_err_f32=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "float32"),
           max_err_bf16=max(r["max_abs_err"] for r in rows.values() if r["dtype"] == "bfloat16"),
           wide_head_bf16_ms=wide["ms"], wide_head_bound_ms=wide["bound_ms"],
-          head_320_bf16_ms=wider["ms"], head_320_bound_ms=wider["bound_ms"])
+          wider_head_ratio_to_library=json.dumps(wider, separators=(",", ":")))
     return rows
 
 
@@ -1042,6 +1067,61 @@ def whole_path_phase(variables):
     if not dscore <= 1e-3:
         raise AssertionError(f"matching_scores differ by {dscore} > 1e-3")
     phase("5 whole path kernels vs plain (f32, 2048)", t0)
+
+
+def wide_path_phase():
+    """Matching with a 640-d trunk of 2 heads (the default 18 layers, random
+    weights from the seed; no checkpoint has heads past 256) serves one
+    keypoint request at bucket 2048 in bf16 and in f32: each of its 18 K1
+    launches takes a wide-head kernel (head width 320). Its scores must be
+    finite, and in f32 within 1e-3 of the same request through the plain
+    versions (the whole path's bar)."""
+    t0 = time.perf_counter()
+    req, _ = synthetic_request(*WIDE_PATH_REQUEST)
+    launches, preds = {}, {}
+    for dtype, impl, pallas in (("bfloat16", "auto", True), ("float32", "auto", True),
+                                ("plain", "flash", False)):
+        mcfg = MatcherConfig(descriptor_dim=WIDE_PATH_DIM, num_heads=2,
+                             attention_dtype="float32" if dtype == "plain" else dtype,
+                             attention_impl=impl, use_pallas_sinkhorn=pallas)
+        m = Matching(GIMSConfig(matcher=mcfg), device=DEVICE)
+        reset_counts()
+        preds[dtype] = m(req)
+        torch.cuda.synchronize()
+        launches[dtype] = counts()
+        for side in "01":
+            if not np.all(np.isfinite(preds[dtype][f"matching_scores{side}"])):
+                raise AssertionError(f"wide-head path {dtype}: non-finite scores")
+    for dtype in ("bfloat16", "float32"):
+        if differs(launches[dtype], match_counts(NUM_LAYERS, 1, 1)):
+            raise AssertionError(f"wide-head path {dtype}: launches {launches[dtype]}")
+    if differs(launches["plain"], match_counts(0, 0, 1)):
+        raise AssertionError(f"wide-head path, plain versions: launches {launches['plain']}")
+    dscore = max(np.abs(preds["float32"][f"matching_scores{s}"]
+                        - preds["plain"][f"matching_scores{s}"]).max() for s in "01")
+    if not dscore <= 1e-3:
+        raise AssertionError(f"wide-head path: f32 scores differ from the plain versions' "
+                             f"by {dscore} > 1e-3")
+    phase("25 wide-head path (Matching, 640-d trunk of 2 heads)", t0,
+          launches=json.dumps(launches), f32_max_score_diff=f"{dscore}",
+          kept=json.dumps([int(preds["bfloat16"][f"keypoints{s}"].shape[1]) for s in "01"]))
+    return {dtype: launches[dtype] for dtype in ("bfloat16", "float32")}
+
+
+def wide_rows(attn, launches):
+    """The `kernels` line's rows of the wide-head kernels: K1 at the
+    wide-head path's shape (B=2, 2048, H=2, D=320) with that path's
+    launches, one row a dtype."""
+    b, n, m, _ = WIDER_ATTN_CASES[0][0]
+    d = WIDER_ATTN_CASES[0][2]
+    rows = []
+    for dtype, kernel in (("bfloat16", "attn_wide_tc_kernel"), ("float32", "attn_wide_f32_kernel")):
+        a = attn[(b, n, m, dtype, d)]
+        rows.append({"name": f"masked_attention_wide_head_path_{dtype}", "route": "cuda",
+                     "kernel": kernel, "source": "gims_tpu_torch/csrc/attention.cu",
+                     "replaces": "gims_tpu/matcher/pallas_attention.py:42",
+                     **a, "launches": launches[dtype]["attention"], "kernel_ms": a["ms"]})
+    return rows
 
 
 def fused_pairs(batch, seed0, colour=False):
@@ -2609,7 +2689,7 @@ def partial_row(b, n, dtype, seed):
     h = 4
     nbytes = 2 * b * n * h * HEAD_DIM * esz + 2 * b * n * h * HEAD_DIM * esz + b * n \
         + 8 * b * n * h
-    row.update(attention_bound(nbytes, 4 * b * h * n * n * HEAD_DIM, dtype, HEAD_DIM))
+    row.update(attention_bound(nbytes, 4 * b * h * n * n * HEAD_DIM, dtype))
     row["ms"] = cuda_ms(lambda: cuda_attention.attention_partials_cuda(q, k, v, mask))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["default_mode_ms"] = cuda_ms(lambda: cuda_attention.masked_attention_cuda(q, k, v, mask))
@@ -3538,6 +3618,7 @@ def main():
     sk = sinkhorn_phase()
     launches = slice_phase()
     whole_path_phase(load_gims_checkpoint(WEIGHTS))
+    wide_launches = wide_path_phase()
     fused_launches, fms = fused_phase(load_gims_checkpoint(E2E_WEIGHTS),
                                       load_car_checkpoint(E2E_CAR_WEIGHTS))
     kp, de, va = fused_vs_plain_phase(fms["A"])
@@ -3594,6 +3675,7 @@ def main():
                                        "_dp_serving_path": dp_serving_launches,
                                        "_sharded_reference_path": shard[2]},
                       partial, dp_train_launches, ring_launches, shard[:2])
+    rows += wide_rows(attn, wide_launches)
     rows += entry_rows(attn, sk, lab, entry_launches, entry_shapes)
     rows += segsum_rows({"_host_sift_staged_path": host_launches, "_train_path": train_launches,
                          "_fused_path": fused_launches})

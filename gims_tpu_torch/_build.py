@@ -133,13 +133,8 @@ def _declare(lib):
         + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
         + [i64]                    # key_mask batch stride
         + [f, p])                  # scale * log2(e), stream
-    lib.gims_attention_fwd_wide.restype = i
-    lib.gims_attention_fwd_wide.argtypes = (
-        [p, p, p, p, p, p, p]      # q, k, v, key_mask, out, stats (or null), workspace
-        + [i] * 6                  # dtype, B, N, M, H, D
-        + [i64] * 4 * 4            # strides of q, k, v, out (b, n, h, d)
-        + [i64]                    # key_mask batch stride
-        + [f, p])                  # scale * log2(e), stream
+    lib.gims_attention_key_tile.restype = i
+    lib.gims_attention_key_tile.argtypes = [i, i]  # dtype, D
     lib.gims_sinkhorn_z_reads.restype = i
     lib.gims_sinkhorn_z_reads.argtypes = [i, i, i]      # B, M1, N1
     lib.gims_sinkhorn_scratch_len.restype = i64

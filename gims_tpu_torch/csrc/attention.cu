@@ -21,7 +21,8 @@
 // out' = (out_a w_a + out_b w_b) / (w_a + w_b). Without stats (a null
 // pointer) the kernels do and store what they did before.
 //
-// Head widths: any D. Up to 256 both kernels below work on column blocks of 64:
+// Head widths: any D up to 8192 (bf16) and 5120 (f32). Up to 256 the two
+// column-block kernels below work on column blocks of 64:
 // one block for D <= 64, two for D <= 128, three for D <= 192, four for
 // D <= 256 (the f32 kernel takes three as four). Columns from D up to the
 // block's end are read as zeros (TMA's out-of-bounds fill, or the f32
@@ -71,18 +72,54 @@
 //   library needs no -lcuda. The wrapper guarantees a unit D stride and
 //   16-byte aligned bases and strides, as TMA requires.
 //
-// Wider heads (D > 256, no path of the port runs one yet): attn_wide_kernel,
-// for both dtypes, the same arithmetic in tiles of the keys per tile of the
-// kernels above at D > 128 (64 keys in bf16, 128 in f32: where P is rounded
-// against the running max). One warp per query row, four rows per block; the
-// lanes split the columns. Each key's score is the warp's sum of the lanes'
-// f32 products, times scale*log2(e), plus the bias; the tile's p go through
-// shared memory, are rounded to the input dtype there, and each lane adds
-// p * v to its columns of the row's f32 accumulator, which lives in a
-// (B, N, H, D) f32 workspace in device memory (no width fits registers or
-// shared memory), rescaled once per tile. The epilogue writes acc / max(l,
-// 1e-30) rounded to the output dtype. Not tuned: K and V are read from
-// global memory (L1 and L2 serve the block's four rows) and q once per key.
+// Wider heads (D > 256): attn_wide_tc_kernel (bf16) and attn_wide_f32_kernel
+// (f32), below the two column-block kernels. No CTA can hold O for 64 rows
+// of a wide head in one warpgroup's registers (32 f32 a thread per column
+// block of 64) beside Q, two stages of K and V in shared memory, so the
+// wide kernels split a head's columns, for both products:
+//   * over the warps of a CTA of 64 query rows: two warpgroups in bf16
+//     (each up to four column blocks: D <= 512 in one CTA), eight warps in
+//     f32 (two row groups of 32 rows by four column quarters, up to 40
+//     tiles of 8 columns: D <= 320 in one CTA);
+//   * past that, over the CTAs of a thread-block cluster, which share the
+//     query rows and split the column blocks evenly. A cluster holds at
+//     most 16 CTAs, so D <= 8192 in bf16 and 5120 in f32; wider heads, which
+//     JAX's kernel takes, are refused (they would need Q K^T over more
+//     columns than a cluster holds, recomputed by several clusters).
+//   Each warp (warpgroup) computes its partial S = Q K^T over its own
+//   columns; the partials go through shared memory (distributed shared
+//   memory across the cluster), and every warp of the row sums all of them
+//   in one fixed order (CTA, then warp), so all hold the same bits of S and
+//   two calls give the same bits. Each then runs the online softmax as the
+//   kernels above (redundantly: the exponentials are a small share at these
+//   widths) and O += P V on its own columns only, P from registers. No
+//   product is computed twice and no accumulator leaves registers: nothing
+//   is allocated beside the output.
+//   * bf16: wgmma (Q K^T m64n{48|32}k16 with Q and K in shared memory, P V
+//     m64n64k16 with P from registers and V read with the transpose flag),
+//     Q and the K and V tiles through TMA (the tensor maps of attn_tc_kernel)
+//     into two stages, each warpgroup loading only its own column blocks
+//     (its thread 0 issues the copies; mbarriers per warpgroup and stage).
+//     Key tiles of 48 keys where a CTA holds five column blocks (D <= 320,
+//     and 513-640 over two CTAs), 32 where it holds six to eight: Q, two
+//     stages of K and V and the double-buffered partial scores fit 227 KB
+//     (attn_wide_tc_kernel<3, 48> and <4, 32>, at most 3 or 4 blocks a
+//     warpgroup). wide_plan makes the split, and gims_attention_key_tile
+//     gives its key tile to Python's plain version.
+//   * f32: split f32 on mma.sync as attn_f32_kernel, tiles of 32 keys by
+//     cp.async, one tile of K and one of V (V(t) lands during Q K^T(t), K(t +
+//     1) during P V(t)); a warp's rows are two 16-row tiles, so each split K
+//     or V fragment feeds two products.
+//   Bound: the same operations as the narrow heads (bf16 tensor cores; f32
+//   as three TF32 products at the TF32 peak). The exchange of the partial S
+//   sits between the two products of a tile, and the warps of a row wait
+//   for each other there once a tile. On the H100 bf16 reaches 14-17% of
+//   its bound and f32 20-22% (PERF.md §6): the f32 kernel runs mma.sync at
+//   about the rate attn_f32_kernel reaches at D = 64 (28% of its bound);
+//   what holds bf16 back is not known: K and V multicast to two CTAs made
+//   it 18% slower, and a longer prefetch of them or the next tile's Q K^T
+//   issued before this tile's softmax moved it by 6% or less either way
+//   (PERF.md §6, PR 18).
 //
 // f32: attn_f32_kernel, split f32 on the tensor cores (3xTF32). A single
 // TF32 product keeps 11 bits of each operand, which moves the f32 result
@@ -117,11 +154,14 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kBlockD = 64;   // columns per block of the head dim
 constexpr int kMaxD = 256;    // widest head dim of the block kernels: four blocks
@@ -131,107 +171,6 @@ constexpr int kMaxDevices = 64;
 struct Strides {
   long long b, n, h, d;
 };
-
-// ---------------------------------------------------- wide-head kernel
-
-constexpr int kWideRows = 4;  // query rows per block, one warp each
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// kBK keys per tile; work: (B, N, H, D) f32, contiguous.
-template <typename T, int kBK>
-__global__ void __launch_bounds__(32 * kWideRows) attn_wide_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ key_mask, T* __restrict__ out, float* __restrict__ work, int N,
-    int M, int H, int D, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb,
-    float scale_log2, float* __restrict__ stats) {
-  __shared__ float bias[kBK];
-  __shared__ float p_sh[kWideRows][kBK];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int row = blockIdx.x * kWideRows + warp;
-  const bool row_ok = row < N;
-
-  const T* qp = q + b * qs.b + (long long)(row_ok ? row : 0) * qs.n + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const uint8_t* mb = key_mask + b * mask_sb;
-  float* wp = work + (((long long)b * N + (row_ok ? row : 0)) * H + h) * D;
-  float* ps = p_sh[warp];
-  float m_run = kNegInf;
-  float l_run = 0.f;
-
-  for (int k0 = 0; k0 < M; k0 += kBK) {
-    __syncthreads();  // previous tile's bias fully read
-    for (int j = threadIdx.x; j < kBK; j += blockDim.x) {
-      const int key = k0 + j;
-      bias[j] = key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
-    }
-    __syncthreads();
-    if (!row_ok) continue;  // a whole warp: its shuffles stay full
-    const int nk = min(kBK, M - k0);
-    float cmax = -INFINITY;
-    for (int j = 0; j < nk; ++j) {
-      const T* kr = kb + (long long)(k0 + j) * ks.n;
-      float dot = 0.f;
-      for (int c = lane; c < D; c += 32) {
-        dot = fmaf(to_f32(qp[c * qs.d]), to_f32(kr[c * ks.d]), dot);
-      }
-      const float s = warp_sum(dot) * scale_log2 + bias[j];
-      if ((j & 31) == lane) ps[j] = s;
-      cmax = fmaxf(cmax, s);
-    }
-    __syncwarp();
-    const float m_new = fmaxf(m_run, cmax);
-    const float corr = exp2f(m_run - m_new);
-    float lsum = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float p = exp2f(ps[j] - m_new);
-      lsum += p;
-      ps[j] = to_f32(from_f32<T>(p));  // P rounded to V's dtype before P V
-    }
-    l_run = l_run * corr + warp_sum(lsum);
-    __syncwarp();
-    for (int c = lane; c < D; c += 32) {
-      float a = k0 == 0 ? 0.f : wp[c] * corr;
-      for (int j = 0; j < nk; ++j) {
-        a = fmaf(ps[j], to_f32(vb[(long long)(k0 + j) * vs.n + c * vs.d]), a);
-      }
-      wp[c] = a;
-    }
-    m_run = m_new;
-  }
-
-  if (row_ok) {
-    const float den = fmaxf(l_run, 1e-30f);
-    T* op = out + b * os.b + (long long)row * os.n + h * os.h;
-    for (int c = lane; c < D; c += 32) op[c * os.d] = from_f32<T>(wp[c] / den);
-    if (stats != nullptr && lane == 0) {
-      float* st = stats + (((long long)b * N + row) * H + h) * 2;
-      st[0] = m_run;
-      st[1] = l_run;
-    }
-  }
-}
 
 // ------------------------------------------------ bf16 tensor-core kernel
 
@@ -379,15 +318,50 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// S (64 x kKeys) = Q K^T over one k-step of 16 columns: m64n128k16 for tiles
-// of 128 keys, m64n64k16 for tiles of 64.
+// D (64 x 48, f32) = A (64 x 16) * B (16 x 48) (+ D where scale_d != 0); A and B
+// K-major in shared memory, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_m64n48k16_ss(float (&d)[24], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, f32) = A (64 x 16) * B (16 x 32) (+ D where scale_d != 0); A and B
+// K-major in shared memory, 128-byte swizzled.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// S (64 x kKeys) = Q K^T over one k-step of 16 columns: m64n{kKeys}k16 for
+// tiles of 128, 64, 48 or 32 keys.
 template <int kKeys>
 __device__ __forceinline__ void wgmma_qk(float (&d)[kKeys / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
   if constexpr (kKeys == 128) {
     wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
-  } else {
+  } else if constexpr (kKeys == 64) {
     wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  } else if constexpr (kKeys == 48) {
+    wgmma_m64n48k16_ss(d, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(kKeys == 32, "key tiles of 128, 64, 48 or 32");
+    wgmma_m64n32k16_ss(d, desc_a, desc_b, scale_d);
   }
 }
 
@@ -918,6 +892,613 @@ __global__ void __launch_bounds__(kF32Threads, kD == 256 ? 1 : 2) attn_f32_kerne
   }
 }
 
+// ------------------------------------------------- wide heads (D > 256)
+
+constexpr int kWideThreads = 256;  // two warpgroups (bf16) or 8 warps (f32) per CTA
+constexpr int kWideRows = 64;      // query rows per CTA
+constexpr int kWideBlocks = 8;     // bf16: column blocks of 64 a CTA, at most
+constexpr int kWideTiles = 40;     // f32: 8-column tiles a CTA, at most (320 columns)
+constexpr int kWideF32Keys = 32;   // f32: keys per tile
+constexpr int kMaxCluster = 16;    // CTAs that share one head's columns, at most
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The partial scores' exchange barrier: the CTA's, or, where a head's
+// columns span the CTAs of a cluster, the cluster's (release and acquire).
+__device__ __forceinline__ void exchange_sync(int nz) {
+  if (nz == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+__device__ __forceinline__ float key_bias(const uint8_t* mb, int key, int M) {
+  return key < M ? (mb[key] ? 0.f : kNegInf) : -INFINITY;
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared memory of attn_wide_tc_kernel<C, kKeys> at cb column blocks a CTA,
+// after its 1024-byte alignment: Q (64 rows), two stages of K and V (kKeys
+// rows), the two warpgroups' partial scores (double-buffered), 6 mbarriers.
+template <int kKeys>
+struct WideTcSmem {
+  int cb;
+  __host__ __device__ size_t k() const { return size_t(cb) * kWideRows * kBlockD * 2; }
+  __host__ __device__ size_t v() const { return k() + size_t(2) * cb * kKeys * kBlockD * 2; }
+  __host__ __device__ size_t xs() const { return v() + size_t(2) * cb * kKeys * kBlockD * 2; }
+  __host__ __device__ size_t bars() const { return xs() + size_t(2) * 2 * kWideRows * kKeys * 4; }
+  __host__ __device__ size_t bytes() const { return bars() + 6 * 8; }
+};
+
+// bf16, heads past 256: one CTA per (64 query rows, b*h, column chunk z). The
+// CTA's chunk is nbz <= cb column blocks of 64; its first warpgroup owns the
+// first half (rounded up), its second the rest, for both products. Per key
+// tile each warpgroup computes its partial S over its own column blocks on
+// wgmma (Q and K from shared memory), the partials go through shared memory
+// (distributed shared memory across the cluster when the head spans CTAs) and
+// every warpgroup sums all of them in one fixed order (chunk, then
+// warpgroup), so all hold the same bits of S. Each then runs the online
+// softmax (as attn_tc_kernel) and O += P V on its own column blocks, P from
+// registers. Each warpgroup loads its own Q blocks once and its own K and V
+// blocks per tile through TMA into two stages, the next tile in flight
+// while this one is used; its thread 0 issues the copies.
+template <int C, int kKeys>
+__global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ key_mask,
+    __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, int cb, long long osb,
+    long long osn, long long osh, long long mask_sb, float scale_log2,
+    float* __restrict__ stats) {
+  constexpr uint32_t kQBytes = kWideRows * kBlockD * 2;
+  constexpr uint32_t kTileBytes = kKeys * kBlockD * 2;
+  constexpr int kPairs = kKeys / 4;  // a thread's score pairs per tile
+  extern __shared__ uint8_t wide_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(wide_raw) + 1023) & ~uintptr_t(1023));
+  const WideTcSmem<kKeys> lay{cb};
+  __nv_bfloat16* q_sm = reinterpret_cast<__nv_bfloat16*>(sm);
+  __nv_bfloat16* k_sm = reinterpret_cast<__nv_bfloat16*>(sm + lay.k());
+  __nv_bfloat16* v_sm = reinterpret_cast<__nv_bfloat16*>(sm + lay.v());
+  float2* xs = reinterpret_cast<float2*>(sm + lay.xs());     // [buffer][warpgroup][pair][thread]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + lay.bars());  // [warpgroup][stage]
+  uint64_t* q_full = full + 4;                                    // [warpgroup]
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * kWideRows;
+  const int z = blockIdx.z;
+  const int nz = gridDim.z;
+  const int blk0 = z * cb;  // the CTA's first column block
+  const int nbz = min(cb, (D + kBlockD - 1) / kBlockD - blk0);
+  const int half = (nbz + 1) / 2;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int wb0 = wg == 0 ? 0 : half;  // the warpgroup's first block in the CTA
+  const int nbw = wg == 0 ? half : nbz - half;
+  const int n_tiles = (M + kKeys - 1) / kKeys;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r_lo = 16 * warp + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+  const int cq = lane % 4;                // its column pairs: 8j + 2cq, +1
+  uint64_t* my_full = full + 2 * wg;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 6; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the barriers are set up, and every CTA of the cluster has started
+  // before any reads a peer's shared memory
+  exchange_sync(nz);
+
+  auto load_tile = [&](int t, int s) {
+    mbar_arrive_expect_tx(&my_full[s], 2 * nbw * kTileBytes);
+    for (int i = 0; i < nbw; ++i) {
+      const int c = wb0 + i;
+      const int col = kBlockD * (blk0 + c);
+      tma_load(k_sm + (s * cb + c) * kKeys * kBlockD, &k_map, &my_full[s], col, h, t * kKeys, b);
+      tma_load(v_sm + (s * cb + c) * kKeys * kBlockD, &v_map, &my_full[s], col, h, t * kKeys, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&q_full[wg], nbw * kQBytes);
+    for (int i = 0; i < nbw; ++i) {
+      tma_load(q_sm + (wb0 + i) * kWideRows * kBlockD, &q_map, &q_full[wg],
+               kBlockD * (blk0 + wb0 + i), h, q0, b);
+    }
+    load_tile(0, 0);
+  }
+
+  float o[C][32];  // O's block i of this warpgroup: columns 8j + 2cq, +1
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o[i][r] = 0.f;
+  }
+  float m_lo = kNegInf, m_hi = kNegInf;  // running max (base 2)
+  float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sum
+  const uint8_t* mb = key_mask + b * mask_sb;
+  mbar_wait(&q_full[wg], 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t & 1;
+    // the warpgroup is done with tile t - 1, so its stage s ^ 1 is free
+    named_sync(1 + wg, 128);
+    if (tid == 0 && t + 1 < n_tiles) load_tile(t + 1, s ^ 1);
+    mbar_wait(&my_full[s], (t >> 1) & 1);
+
+    // the partial S over this warpgroup's column blocks
+    float sc[kKeys / 2];
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (i < nbw) {
+        const uint64_t q_desc = sw128_desc(q_sm + (wb0 + i) * kWideRows * kBlockD);
+        const uint64_t k_desc = sw128_desc(k_sm + (s * cb + wb0 + i) * kKeys * kBlockD);
+#pragma unroll
+        for (int kk = 0; kk < kBlockD / 16; ++kk) {  // +32 bytes per step
+          wgmma_qk<kKeys>(sc, q_desc + 2 * kk, k_desc + 2 * kk, 1);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // S: every partial of the head, summed in the order (chunk, warpgroup);
+    // a thread's pairs are those of the same thread of every warpgroup
+    float2* buf = xs + (t & 1) * 2 * kPairs * 128;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      buf[(wg * kPairs + j) * 128 + tid] = make_float2(sc[2 * j], sc[2 * j + 1]);
+    }
+    exchange_sync(nz);
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+    auto add_partials = [&](const float2* src) {
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+#pragma unroll
+        for (int j = 0; j < kPairs; ++j) {
+          const float2 x = src[(w * kPairs + j) * 128 + tid];
+          sc[2 * j] += x.x;
+          sc[2 * j + 1] += x.y;
+        }
+      }
+    };
+    if (nz == 1) {
+      add_partials(buf);
+    } else {
+      for (int zz = 0; zz < nz; ++zz) add_partials(cg::this_cluster().map_shared_rank(buf, zz));
+    }
+
+    // online softmax, base 2, as attn_tc_kernel; sc[4j + 0/1] are row r_lo,
+    // sc[4j + 2/3] row r_lo + 8, at keys 8j + 2cq and 8j + 2cq + 1
+    const int key0 = t * kKeys;
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const int key = key0 + 8 * j + 2 * cq;
+      const float b0 = key_bias(mb, key, M);
+      const float b1 = key_bias(mb, key + 1, M);
+      sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale_log2, b0);
+      sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale_log2, b1);
+      sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale_log2, b0);
+      sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale_log2, b1);
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    const float corr_lo = exp2f(m_lo - mx_lo);
+    const float corr_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    uint32_t p[kKeys / 4];  // P in bf16 pairs: the A fragments of P V
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      const float p0 = exp2f(sc[4 * j + 0] - m_lo);
+      const float p1 = exp2f(sc[4 * j + 1] - m_lo);
+      const float p2 = exp2f(sc[4 * j + 2] - m_hi);
+      const float p3 = exp2f(sc[4 * j + 3] - m_hi);
+      sum_lo += p0 + p1;
+      sum_hi += p2 + p3;
+      p[2 * j + 0] = pack_bf16(p0, p1);
+      p[2 * j + 1] = pack_bf16(p2, p3);
+    }
+    l_lo = l_lo * corr_lo + sum_lo;
+    l_hi = l_hi * corr_hi + sum_hi;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[i][4 * j + 0] *= corr_lo;
+        o[i][4 * j + 1] *= corr_lo;
+        o[i][4 * j + 2] *= corr_hi;
+        o[i][4 * j + 3] *= corr_hi;
+      }
+      fence_regs(o[i]);
+    }
+
+    // O += P V on this warpgroup's blocks: kKeys / 16 k-steps of 16 keys
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (i < nbw) {
+        const uint64_t v_desc = sw128_desc(v_sm + (s * cb + wb0 + i) * kKeys * kBlockD);
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          wgmma_m64n64k16_rs(o[i], p[4 * kk + 0], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                             v_desc + 128 * kk);
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < C; ++i) fence_regs(o[i]);
+  }
+  // no CTA leaves while a peer may still read its last scores
+  if (nz > 1) cg::this_cluster().sync();
+
+  const float sum_lo = quad_sum(l_lo);  // the row's l; m_lo is the row's already
+  const float sum_hi = quad_sum(l_hi);
+  const float den_lo = fmaxf(sum_lo, 1e-30f);
+  const float den_hi = fmaxf(sum_hi, 1e-30f);
+  const int row_lo = q0 + r_lo;
+  const int row_hi = row_lo + 8;
+  if (stats != nullptr && z == 0 && wg == 0 && cq == 0) {  // every warpgroup holds the same
+    if (row_lo < N) {
+      float* st = stats + (((long long)b * N + row_lo) * H + h) * 2;
+      st[0] = m_lo;
+      st[1] = sum_lo;
+    }
+    if (row_hi < N) {
+      float* st = stats + (((long long)b * N + row_hi) * H + h) * 2;
+      st[0] = m_hi;
+      st[1] = sum_hi;
+    }
+  }
+  __nv_bfloat16* ob = out + b * osb + h * osh + 2 * cq;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    if (i >= nbw) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = kBlockD * (blk0 + wb0 + i) + 8 * j;  // + 2cq; D is a multiple of 8
+      if (col >= D) continue;
+      if (row_lo < N) {
+        *reinterpret_cast<uint32_t*>(ob + row_lo * osn + col) =
+            pack_bf16(o[i][4 * j + 0] / den_lo, o[i][4 * j + 1] / den_lo);
+      }
+      if (row_hi < N) {
+        *reinterpret_cast<uint32_t*>(ob + row_hi * osn + col) =
+            pack_bf16(o[i][4 * j + 2] / den_hi, o[i][4 * j + 3] / den_hi);
+      }
+    }
+  }
+}
+
+// Rows row0 .. row0 + R and columns col0 .. col0 + w of one (b, h) slice
+// (base, row stride sn, unit column stride) into a tile of R rows of kS
+// floats; rows at or past nrows and columns at or past D read as zeros. A
+// warp copies a row at a time. vec: 16-byte copies (D and w multiples of 4,
+// 16-byte aligned rows).
+template <int R>
+__device__ __forceinline__ void load_rows_wide(float* tile, int kS, const float* base,
+                                               long long sn, int row0, int nrows, int col0, int w,
+                                               int D, bool vec) {
+  const int lane = threadIdx.x % 32;
+  const int step = vec ? 4 : 1;
+  for (int r = threadIdx.x / 32; r < R; r += kWideThreads / 32) {
+    const bool row_in = row0 + r < nrows;
+    const float* src_row = base + (long long)(row_in ? row0 + r : 0) * sn + col0;
+    float* dst_row = tile + r * kS;
+    for (int c = step * lane; c < w; c += 32 * step) {
+      const bool in = row_in && col0 + c < D;
+      if (vec) {
+        cp_async16(dst_row + c, in ? src_row + c : base, in);
+      } else {
+        cp_async4(dst_row + c, in ? src_row + c : base, in);
+      }
+    }
+  }
+}
+
+// Shared memory of attn_wide_f32_kernel at ntc 8-column tiles a CTA: Q (64
+// rows), one tile of K and one of V (rows of 8 ntc + 4 floats), the tile's
+// key bias, the partial scores of its 8 warps (one buffer, two where the
+// head spans a cluster).
+__host__ __device__ inline size_t wide_f32_smem(int ntc, int nz) {
+  return size_t(4) * ((kWideRows + 2 * kWideF32Keys) * (8 * ntc + 4) + kWideF32Keys) +
+         size_t(nz > 1 ? 2 : 1) * kWideThreads * 2 * (kWideF32Keys / 8) * 16;
+}
+
+// f32, heads past 256: split f32 on the tensor cores, as attn_f32_kernel, with
+// the columns split as in attn_wide_tc_kernel. One CTA of 8 warps per (64
+// query rows, b*h, column chunk z); the chunk is ntz <= ntc tiles of 8
+// columns. Warp (r, w) = (warp % 2, warp / 2) owns rows 32r .. 32r + 31 (two
+// 16-row tiles, so each split K or V fragment feeds two products) and the
+// w-th quarter of the chunk's column tiles, for both products: its partial S
+// over its columns goes through shared memory (distributed across the
+// cluster when the head spans CTAs), and the four warps of row group r sum
+// all of the head's partials in the order (chunk, w), so they hold the same
+// bits of S; each runs the online softmax and O += P V on its own columns, P
+// kept in f32. Q is staged once; one tile of 32 keys of K and one of V
+// arrive through cp.async, V(t) during Q K^T(t), K(t + 1) during P V(t),
+// and the key bias a tile ahead.
+// Rows are padded to 8 ntc + 4 floats (an odd multiple of 4), so the
+// fragment reads hit 32 banks.
+__global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ key_mask, float* __restrict__ out, int N, int M, int H, int D,
+    int ntc, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb, float scale_log2,
+    float* __restrict__ stats, int vec) {
+  constexpr int kKeys = kWideF32Keys;
+  constexpr int kCT = kWideTiles / 4;  // a warp's column tiles, at most
+  constexpr int kNT = kKeys / 8;       // a tile's key groups of 8
+  constexpr int kXs = 4 * 2 * 2 * kNT * 32;  // float4 of one exchange buffer
+  extern __shared__ __align__(16) float wide_f32_raw[];
+  const int kS = 8 * ntc + 4;
+  float* q_sm = wide_f32_raw;              // 64 x kS
+  float* k_sm = q_sm + kWideRows * kS;     // kKeys x kS
+  float* v_sm = k_sm + kKeys * kS;         // kKeys x kS
+  float* bias_sm = v_sm + kKeys * kS;      // the tile's key bias
+  float4* xs = reinterpret_cast<float4*>(bias_sm + kKeys);  // [buffer][w][r][mt][j][lane]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = warp % 2;
+  const int w = warp / 2;
+  const int g = lane / 4;  // this thread's rows g, g + 8 of each 16-row tile
+  const int t = lane % 4;  // and its fragment columns
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * kWideRows;
+  const int z = blockIdx.z;
+  const int nz = gridDim.z;
+  const int nt0 = z * ntc;  // the CTA's first column tile
+  const int ntz = min(ntc, (D + 7) / 8 - nt0);
+  const int quarter = (ntz + 3) / 4;
+  const int gw0 = min(w * quarter, ntz);  // the warp's first column tile in the CTA
+  const int ntw = min(ntz, gw0 + quarter) - gw0;
+  const int col0 = 8 * nt0;
+  const int n_tiles = (M + kKeys - 1) / kKeys;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  const uint8_t* mb = key_mask + b * mask_sb;
+
+  load_rows_wide<kWideRows>(q_sm, kS, q + b * qs.b + h * qs.h, qs.n, q0, N, col0, 8 * ntz, D,
+                            vec);
+  load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, 0, M, col0, 8 * ntz, D, vec);
+  cp_async_commit();
+  // every CTA of the cluster has started before any reads a peer's shared memory
+  if (nz > 1) cg::this_cluster().sync();
+
+  float o[2][kCT][4];  // O: rows g, g + 8 of tile mt; columns 8i + 2t, + 1 of the warp's tile i
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int i = 0; i < kCT; ++i) o[mt][i][0] = o[mt][i][1] = o[mt][i][2] = o[mt][i][3] = 0.f;
+  }
+  float m_run[2][2], l_run[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    m_run[mt][0] = m_run[mt][1] = kNegInf;
+    l_run[mt][0] = l_run[mt][1] = 0.f;
+  }
+  const float* q_warp = q_sm + 32 * r * kS;
+  // thread i < kKeys reads the mask byte of key i of the next tile a tile
+  // ahead (2: past M) and stores its bias for every warp
+  auto mask_byte = [&](int key) { return key < M ? int(mb[key]) : 2; };
+  int mk = threadIdx.x < kKeys ? mask_byte(threadIdx.x) : 0;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int key0 = tile * kKeys;
+    cp_async_wait0();  // K(tile) landed
+    __syncthreads();   // for every thread; P V(tile - 1) is done, so V's tile is free
+    load_rows_wide<kKeys>(v_sm, kS, vb, vs.n, key0, M, col0, 8 * ntz, D, vec);
+    cp_async_commit();
+    if (threadIdx.x < kKeys) {  // read after the exchange barrier below
+      bias_sm[threadIdx.x] = mk == 2 ? -INFINITY : (mk ? 0.f : kNegInf);
+      mk = mask_byte(key0 + kKeys + threadIdx.x);
+    }
+
+    // the partial S over this warp's column tiles (16 x 8 tiles: rows g, g + 8;
+    // keys 8j + 2t, + 1)
+    float s[2][kNT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kCT; ++i) {
+      if (i >= ntw) break;
+      const int c = 8 * (gw0 + i) + t;
+      uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* qr = q_warp + (16 * mt + g) * kS + c;
+        split_tf32(qr[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(qr[8 * kS], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(qr[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(qr[8 * kS + 4], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* kr = k_sm + (8 * j + g) * kS + c;
+        uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+        split_tf32(kr[0], b_hi0, b_lo0);
+        split_tf32(kr[4], b_hi1, b_lo1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_f32x3(s[mt][j], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+        }
+      }
+    }
+
+    // S: every partial of the row group, summed in the order (chunk, w)
+    float4* buf = xs + (nz > 1 ? (tile & 1) * kXs : 0);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        buf[(((w * 2 + r) * 2 + mt) * kNT + j) * 32 + lane] =
+            make_float4(s[mt][j][0], s[mt][j][1], s[mt][j][2], s[mt][j][3]);
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+      }
+    }
+    exchange_sync(nz);  // also: every warp is done with K's tile
+    if (tile + 1 < n_tiles) {
+      load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, key0 + kKeys, M, col0, 8 * ntz, D, vec);
+    }
+    cp_async_commit();  // empty on the last tile
+    auto add_partials = [&](const float4* src) {
+#pragma unroll
+      for (int ww = 0; ww < 4; ++ww) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            const float4 x = src[(((ww * 2 + r) * 2 + mt) * kNT + j) * 32 + lane];
+            s[mt][j][0] += x.x;
+            s[mt][j][1] += x.y;
+            s[mt][j][2] += x.z;
+            s[mt][j][3] += x.w;
+          }
+        }
+      }
+    };
+    if (nz == 1) {
+      add_partials(buf);
+    } else {
+      for (int zz = 0; zz < nz; ++zz) add_partials(cg::this_cluster().map_shared_rank(buf, zz));
+    }
+
+    // online softmax, base 2, as attn_f32_kernel
+    float2 bias[kNT];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      bias[j] = *reinterpret_cast<const float2*>(bias_sm + 8 * j + 2 * t);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float mx0 = m_run[mt][0], mx1 = m_run[mt][1];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[mt][j][0] = fmaf(s[mt][j][0], scale_log2, bias[j].x);
+        s[mt][j][1] = fmaf(s[mt][j][1], scale_log2, bias[j].y);
+        s[mt][j][2] = fmaf(s[mt][j][2], scale_log2, bias[j].x);
+        s[mt][j][3] = fmaf(s[mt][j][3], scale_log2, bias[j].y);
+        mx0 = fmaxf(mx0, fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float corr0 = exp2f(m_run[mt][0] - mx0);
+      const float corr1 = exp2f(m_run[mt][1] - mx1);
+      m_run[mt][0] = mx0;
+      m_run[mt][1] = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        s[mt][j][0] = exp2f(s[mt][j][0] - mx0);
+        s[mt][j][1] = exp2f(s[mt][j][1] - mx0);
+        s[mt][j][2] = exp2f(s[mt][j][2] - mx1);
+        s[mt][j][3] = exp2f(s[mt][j][3] - mx1);
+        sum0 += s[mt][j][0] + s[mt][j][1];
+        sum1 += s[mt][j][2] + s[mt][j][3];
+      }
+      l_run[mt][0] = l_run[mt][0] * corr0 + sum0;
+      l_run[mt][1] = l_run[mt][1] * corr1 + sum1;
+#pragma unroll
+      for (int i = 0; i < kCT; ++i) {
+        o[mt][i][0] *= corr0;
+        o[mt][i][1] *= corr0;
+        o[mt][i][2] *= corr1;
+        o[mt][i][3] *= corr1;
+      }
+    }
+
+    cp_async_wait1();  // V(tile) landed (K(tile + 1) may be in flight)
+    __syncthreads();
+    // O += P V on this warp's column tiles, P kept in f32; keys permuted
+    // within each 8 as in attn_f32_kernel
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        split_tf32(s[mt][kk][0], a_hi[mt][0], a_lo[mt][0]);  // row g,     key 2t
+        split_tf32(s[mt][kk][2], a_hi[mt][1], a_lo[mt][1]);  // row g + 8, key 2t
+        split_tf32(s[mt][kk][1], a_hi[mt][2], a_lo[mt][2]);  // row g,     key 2t + 1
+        split_tf32(s[mt][kk][3], a_hi[mt][3], a_lo[mt][3]);  // row g + 8, key 2t + 1
+      }
+#pragma unroll
+      for (int i = 0; i < kCT; ++i) {
+        if (i >= ntw) break;
+        const float* vr = v_sm + (8 * kk + 2 * t) * kS + 8 * (gw0 + i) + g;
+        uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+        split_tf32(vr[0], b_hi0, b_lo0);   // k-index t:     key 2t
+        split_tf32(vr[kS], b_hi1, b_lo1);  // k-index t + 4: key 2t + 1
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_f32x3(o[mt][i], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+        }
+      }
+    }
+  }
+  // no CTA leaves while a peer may still read its last scores
+  if (nz > 1) cg::this_cluster().sync();
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float sum0 = quad_sum(l_run[mt][0]);  // the row's l; m_run is the row's already
+    const float sum1 = quad_sum(l_run[mt][1]);
+    const float den0 = fmaxf(sum0, 1e-30f);
+    const float den1 = fmaxf(sum1, 1e-30f);
+    const int row0 = q0 + 32 * r + 16 * mt + g;
+    const int row1 = row0 + 8;
+    if (stats != nullptr && z == 0 && w == 0 && t == 0) {  // a row group's warps hold the same
+      if (row0 < N) {
+        float* st = stats + (((long long)b * N + row0) * H + h) * 2;
+        st[0] = m_run[mt][0];
+        st[1] = sum0;
+      }
+      if (row1 < N) {
+        float* st = stats + (((long long)b * N + row1) * H + h) * 2;
+        st[0] = m_run[mt][1];
+        st[1] = sum1;
+      }
+    }
+    float* op0 = out + b * os.b + (long long)row0 * os.n + h * os.h;
+    float* op1 = op0 + 8 * os.n;
+#pragma unroll
+    for (int i = 0; i < kCT; ++i) {
+      if (i >= ntw) break;
+      const int col = col0 + 8 * (gw0 + i) + 2 * t;
+      if (row0 < N) {
+        if (col < D) op0[col * os.d] = o[mt][i][0] / den0;
+        if (col + 1 < D) op0[(col + 1) * os.d] = o[mt][i][1] / den0;
+      }
+      if (row1 < N) {
+        if (col < D) op1[col * os.d] = o[mt][i][2] / den1;
+        if (col + 1 < D) op1[(col + 1) * os.d] = o[mt][i][3] / den1;
+      }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (no -lcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -994,6 +1575,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* key_mas
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every (b, n, h) row of an f32 tensor starts 16-byte aligned.
+bool rows_aligned(const void* p, const Strides& st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.n % 4 == 0 &&
+         st.h % 4 == 0;
+}
+
 template <int kD>
 int launch_f32(const void* q, const void* k, const void* v, const void* key_mask, void* out,
                int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
@@ -1012,11 +1599,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte copies where every row of q, k and v starts 16-byte aligned
-  const auto aligned = [](const void* p, const Strides& st) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 && st.n % 4 == 0 &&
-           st.h % 4 == 0;
-  };
-  const int vec = D % 4 == 0 && aligned(q, qs) && aligned(k, ks) && aligned(v, vs);
+  const int vec = D % 4 == 0 && rows_aligned(q, qs) && rows_aligned(k, ks) && rows_aligned(v, vs);
   const dim3 grid((N + F32Cfg<kD>::kRows - 1) / F32Cfg<kD>::kRows, B * H);
   attn_f32_kernel<kD><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1025,32 +1608,156 @@ int launch_f32(const void* q, const void* k, const void* v, const void* key_mask
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kBK>
-int launch_wide(const void* q, const void* k, const void* v, const void* key_mask, void* out,
-                float* work, int B, int N, int M, int H, int D, const Strides& qs,
-                const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
-                float scale_log2, float* stats, cudaStream_t stream) {
-  const dim3 grid((N + kWideRows - 1) / kWideRows, B * H);
-  attn_wide_kernel<T, kBK><<<grid, 32 * kWideRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_mask), static_cast<T*>(out), work, N, M, H, D, qs, ks,
-      vs, os, mask_sb, scale_log2, stats);
-  return static_cast<int>(cudaGetLastError());
+// Raises `fn`'s shared-memory limit to `smem` where it is lower (per
+// device) and allows clusters of up to 16 CTAs.
+cudaError_t prepare_wide(const void* fn, size_t smem, int (&raised)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && raised[dev] >= static_cast<int>(smem))) {
+    return err;
+  }
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = static_cast<int>(smem);
+  return err;
+}
+
+// A wide kernel over (64-row tiles of N, B*H, nz column chunks), the nz CTAs
+// of one (row tile, b*h) in one cluster.
+template <typename... Exp, typename... Act>
+int launch_wide(void (*kernel)(Exp...), int N, int BH, int nz, size_t smem, cudaStream_t stream,
+                Act... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kWideRows - 1) / kWideRows, BH, nz);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = nz;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <int C, int kKeys>
+int launch_wide_bf16(const void* q, const void* k, const void* v, const void* key_mask,
+                     void* out, int B, int N, int M, int H, int D, const Strides& qs,
+                     const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
+                     float scale_log2, float* stats, cudaStream_t stream, int nz, int cb) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_bnhd(encode, &q_map, q, B, N, H, D, qs, kWideRows) ||
+      !encode_bnhd(encode, &k_map, k, B, M, H, D, ks, kKeys) ||
+      !encode_bnhd(encode, &v_map, v, B, M, H, D, vs, kKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = WideTcSmem<kKeys>{cb}.bytes() + 1024;  // + alignment slack
+  static int raised[kMaxDevices] = {};
+  const cudaError_t err =
+      prepare_wide(reinterpret_cast<const void*>(attn_wide_tc_kernel<C, kKeys>), smem, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_wide(attn_wide_tc_kernel<C, kKeys>, N, B * H, nz, smem, stream, q_map, k_map,
+                     v_map, static_cast<const uint8_t*>(key_mask),
+                     static_cast<__nv_bfloat16*>(out), N, M, H, D, cb, os.b, os.n, os.h, mask_sb,
+                     scale_log2, stats);
+}
+
+// How the wide-head kernels split a head of D columns: nz CTAs of one
+// cluster, each of at most `per` column blocks of 64 (bf16) or tiles of 8
+// (f32), as even as they go, and the keys per tile. bf16 takes the largest
+// tile that fits a CTA's shared memory with two stages: 48 keys at five
+// blocks (the fewest a CTA holds past 256 columns), 32 at six to eight.
+struct WidePlan {
+  int nz, per, keys;
+};
+
+WidePlan wide_plan(int dtype, int D) {
+  const int unit = dtype == 0 ? 8 : kBlockD;
+  const int cap = dtype == 0 ? kWideTiles : kWideBlocks;
+  const int n = (D + unit - 1) / unit;
+  const int nz = (n + cap - 1) / cap;
+  const int per = (n + nz - 1) / nz;
+  return {nz, per, dtype == 0 ? kWideF32Keys : per <= 5 ? 48 : 32};
+}
+
+// bf16 past 256 columns: <3, 48> (at most three blocks a warpgroup) at five
+// blocks a CTA, <4, 32> at six to eight.
+int launch_wide_bf16_any(const void* q, const void* k, const void* v, const void* key_mask,
+                         void* out, int B, int N, int M, int H, int D, const Strides& qs,
+                         const Strides& ks, const Strides& vs, const Strides& os,
+                         long long mask_sb, float scale_log2, float* stats, cudaStream_t stream) {
+  const WidePlan p = wide_plan(1, D);
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1 || D % 8 != 0 || p.nz > kMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto launch = p.keys == 48 ? launch_wide_bf16<3, 48> : launch_wide_bf16<4, 32>;
+  return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, stats,
+                stream, p.nz, p.per);
+}
+
+// f32 past 256 columns: 8-column tiles over the plan's CTAs.
+int launch_wide_f32(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                    int B, int N, int M, int H, int D, const Strides& qs, const Strides& ks,
+                    const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
+                    float* stats, cudaStream_t stream) {
+  const WidePlan p = wide_plan(0, D);
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || p.nz > kMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = wide_f32_smem(p.per, p.nz);
+  static int raised[kMaxDevices] = {};
+  const cudaError_t err =
+      prepare_wide(reinterpret_cast<const void*>(attn_wide_f32_kernel), smem, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = D % 4 == 0 && rows_aligned(q, qs) && rows_aligned(k, ks) && rows_aligned(v, vs);
+  return launch_wide(attn_wide_f32_kernel, N, B * H, p.nz, smem, stream,
+                     static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const uint8_t*>(key_mask),
+                     static_cast<float*>(out), N, M, H, D, p.per, qs, ks, vs, os, mask_sb,
+                     scale_log2, stats, vec);
+}
+
+// Keys per tile of the kernel that takes a head of D columns in `dtype`
+// (where bf16 rounds P against the running max), 0 where none takes it.
+int key_tile(int dtype, int D) {
+  if (D < 1 || (dtype != 0 && dtype != 1)) return 0;
+  if (D > kMaxD) {
+    const WidePlan p = wide_plan(dtype, D);
+    return p.nz > kMaxCluster ? 0 : p.keys;
+  }
+  const int blocks = (D + kBlockD - 1) / kBlockD;
+  if (dtype == 0) {
+    return blocks == 1 ? F32Cfg<kBlockD>::kKeys : blocks == 2 ? F32Cfg<2 * kBlockD>::kKeys
+                                                              : F32Cfg<kMaxD>::kKeys;
+  }
+  return blocks == 1   ? Ring<1>::kKeys
+         : blocks == 2 ? Ring<2>::kKeys
+         : blocks == 3 ? Ring<3>::kKeys
+                       : Ring<4>::kKeys;
 }
 
 int attention_fwd(const void* q, const void* k, const void* v, const void* key_mask, void* out,
-                  float* stats, float* work, int dtype, int B, int N, int M, int H, int D,
-                  const Strides& qs, const Strides& ks, const Strides& vs, const Strides& os,
-                  long long mask_sb, float scale_log2, void* stream) {
+                  float* stats, int dtype, int B, int N, int M, int H, int D, const Strides& qs,
+                  const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
+                  float scale_log2, void* stream) {
   if (D <= 0 || B <= 0 || N <= 0 || M <= 0 || H <= 0 || B * H > 65535 ||
-      (D > kMaxD) != (work != nullptr) || (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > kMaxD) {
-    auto launch = dtype == 0 ? launch_wide<float, 128> : launch_wide<__nv_bfloat16, 64>;
-    return launch(q, k, v, key_mask, out, work, B, N, M, H, D, qs, ks, vs, os, mask_sb,
-                  scale_log2, stats, st);
+    auto launch = dtype == 0 ? launch_wide_f32 : launch_wide_bf16_any;
+    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2,
+                  stats, st);
   }
   const int blocks = (D + kBlockD - 1) / kBlockD;  // column blocks of 64
   if (dtype == 0) {
@@ -1059,22 +1766,21 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_m
     return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2,
                   stats, st);
   }
-  if (dtype == 1) {
-    auto launch = blocks == 1   ? launch_bf16<1>
-                  : blocks == 2 ? launch_bf16<2>
-                  : blocks == 3 ? launch_bf16<3>
-                                : launch_bf16<4>;
-    return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2,
-                  stats, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = blocks == 1   ? launch_bf16<1>
+                : blocks == 2 ? launch_bf16<2>
+                : blocks == 3 ? launch_bf16<3>
+                              : launch_bf16<4>;
+  return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, stats,
+                st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (split-f32 kernel: unit D stride, any other strides),
 // 1 = bfloat16 (tensor-core kernel: unit D stride, 16-byte aligned bases and
-// strides, so D a multiple of 8). D from 1 to 256 (gims_attention_fwd_wide beyond). Returns a
+// strides, so D a multiple of 8). Any D from 1: up to 256 the column-block
+// kernels, beyond the wide-head kernels (D up to 5120 in f32 and 8192 in
+// bf16: a head's columns span at most a cluster of 16 CTAs). Returns a
 // cudaError_t (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
@@ -1083,7 +1789,7 @@ extern "C" int gims_attention_fwd(
     long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
-  return attention_fwd(q, k, v, key_mask, out, nullptr, nullptr, dtype, B, N, M, H, D,
+  return attention_fwd(q, k, v, key_mask, out, nullptr, dtype, B, N, M, H, D,
                        Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
                        Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
                        scale_log2, stream);
@@ -1099,26 +1805,15 @@ extern "C" int gims_attention_fwd_partial(
     long long vsd, long long osb, long long osn, long long osh, long long osd,
     long long mask_sb, float scale_log2, void* stream) {
   if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats), nullptr, dtype, B, N,
-                       M, H, D, Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
+  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats), dtype, B, N, M,
+                       H, D, Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
                        Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
                        scale_log2, stream);
 }
 
-// Heads wider than 256, both dtypes (attn_wide_kernel): as
-// gims_attention_fwd_partial, with stats optional (null: none) and work a
-// (B, N, H, D) f32 contiguous workspace, the rows' accumulators.
-extern "C" int gims_attention_fwd_wide(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    void* out, void* stats, void* work, int dtype, int B, int N, int M, int H, int D,
-    long long qsb, long long qsn, long long qsh, long long qsd, long long ksb, long long ksn,
-    long long ksh, long long ksd, long long vsb, long long vsn, long long vsh,
-    long long vsd, long long osb, long long osn, long long osh, long long osd,
-    long long mask_sb, float scale_log2, void* stream) {
-  if (D <= kMaxD || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return attention_fwd(q, k, v, key_mask, out, static_cast<float*>(stats),
-                       static_cast<float*>(work), dtype, B, N, M, H, D,
-                       Strides{qsb, qsn, qsh, qsd}, Strides{ksb, ksn, ksh, ksd},
-                       Strides{vsb, vsn, vsh, vsd}, Strides{osb, osn, osh, osd}, mask_sb,
-                       scale_log2, stream);
-}
+// The keys per tile of the kernel that gims_attention_fwd launches at head
+// width D in dtype (0 = float32, 1 = bfloat16), 0 past the widest head it
+// takes. attention.kernel_block_k and KERNEL_WIDEST_HEAD are its copies in
+// Python (the plain version needs them without a card); a card test holds
+// them to it.
+extern "C" int gims_attention_key_tile(int dtype, int D) { return key_tile(dtype, D); }

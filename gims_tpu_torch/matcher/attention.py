@@ -22,8 +22,16 @@ import torch
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
 KERNEL_BLOCK_K = 128  # keys per tile of the CUDA kernel, heads up to 128 wide
-KERNEL_WIDE_BLOCK_K = 64  # keys per tile of its bf16 kernel for wider heads
-KERNEL_MAX_HEAD_DIM = 256  # the widest head of its column-block kernels; wide kernel beyond
+KERNEL_WIDE_BLOCK_K = 64  # keys per tile of its bf16 kernel for heads of 129-256
+KERNEL_MAX_HEAD_DIM = 256  # the widest head of its column-block kernels; wide kernels beyond
+# the wide-head kernels (csrc/attention.cu, wide_plan): a CTA takes at most 8
+# column blocks of 64 (bf16) or 40 tiles of 8 columns (f32), a head at most a
+# cluster of 16 CTAs. These copy the C code's choice, which the plain version
+# needs without a card; gims_attention_key_tile is the C side, and a card test
+# holds the two equal.
+KERNEL_WIDE_BLOCKS = 8
+KERNEL_WIDE_F32_BLOCK_K = 32  # keys per tile of the f32 wide-head kernel
+KERNEL_WIDEST_HEAD = {torch.bfloat16: 16 * 8 * 64, torch.float32: 16 * 40 * 8}
 FLASH_THRESHOLD = 4096
 FLASH_BLOCK = 1024
 
@@ -70,7 +78,18 @@ def masked_attention_flash(q, k, v, key_mask, block_size=FLASH_BLOCK):
 def kernel_block_k(d: int, dtype) -> int:
     """Keys per tile of the CUDA kernel at head width `d`: its bf16 kernel
     takes tiles of 64 keys above 128 columns (shared memory and registers);
-    the tile sets where P is rounded against the running max."""
+    past 256 columns the wide-head kernels take 32 keys in f32 and, in bf16,
+    48 where a CTA holds five column blocks of 64 and 32 where it holds six
+    to eight (a head's nb blocks over ceil(nb / 8) CTAs, as even as they
+    go). The tile sets where P is rounded against the running max. In f32
+    up to 256 columns it is 128, not the CUDA kernel's 64 or 32: P stays f32
+    there, and the tile moves only the order of the rescaling."""
+    if d > KERNEL_MAX_HEAD_DIM:
+        if dtype != torch.bfloat16:
+            return KERNEL_WIDE_F32_BLOCK_K
+        nb = -(-d // 64)
+        nz = -(-nb // KERNEL_WIDE_BLOCKS)
+        return 48 if -(-nb // nz) == 5 else 32
     return KERNEL_WIDE_BLOCK_K if dtype == torch.bfloat16 and d > 128 else KERNEL_BLOCK_K
 
 
@@ -175,8 +194,9 @@ def masked_attention(q, k, v, key_mask, impl: str = "auto"):
     """Dispatch (``takes_kernel``).
 
     On a CUDA tensor "auto" and "pallas" launch the CUDA kernel, at every
-    key count and head width (its wide-head kernel above
-    KERNEL_MAX_HEAD_DIM). "direct" and "flash" force the plain versions. On the CPU "auto" takes
+    key count and head width (its wide-head kernels above
+    KERNEL_MAX_HEAD_DIM, up to KERNEL_WIDEST_HEAD). "direct" and "flash"
+    force the plain versions. On the CPU "auto" takes
     direct up to FLASH_THRESHOLD keys and flash above, as the JAX package
     does off the TPU. The kernel has no backward (nor has the TPU kernel):
     a call that needs a gradient (``needs_grad``) takes the plain versions

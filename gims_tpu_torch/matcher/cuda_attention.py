@@ -5,11 +5,13 @@ Port of ``gims_tpu/matcher/pallas_attention.py``. The kernel
 transposed copies are made: bf16 on the tensor cores through TMA, f32 on
 the tensor cores as split f32 (each operand two TF32 values, three
 products: ``attention.einsum_split_f32`` is its arithmetic), both with f32
-accumulation; the output has q's dtype. Head
-widths from 1 to 256 take those kernels; wider heads take the wide-head
-kernel (both dtypes, the rows' f32 accumulators in a (B, N, H, D) f32
-workspace that the wrapper allocates). The bf16 kernels read widths that
-are a multiple of 8 (TMA's 16-byte strides); the wrapper zero-pads q, k
+accumulation; the output has q's dtype. Head widths from 1 to 256 take the
+column-block kernels; wider heads the wide-head kernels (bf16 on wgmma, f32
+as split TF32), which split a head's columns over warps and, past 512
+(bf16) or 320 (f32) columns, over the CTAs of a cluster, and exchange the
+partial scores in shared memory: nothing is allocated beside the output.
+The widest heads: ``attention.KERNEL_WIDEST_HEAD``. The bf16 kernels read
+widths that are a multiple of 8 (TMA's 16-byte strides); the wrapper zero-pads q, k
 and v along D to the next multiple of 8 for other widths (zeros add
 nothing to Q K^T, the extra output columns are dropped, and the scale
 stays that of the true D). On a
@@ -33,7 +35,6 @@ import torch
 from gims_tpu_torch import _build
 from gims_tpu_torch.matcher import attention
 
-MAX_HEAD_DIM = attention.KERNEL_MAX_HEAD_DIM  # one to four column blocks of 64; wide beyond
 BF16_D_STEP = 8  # the bf16 kernel's widths: multiples of 8 (16-byte rows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,11 +108,13 @@ def _launch(q, k, v, key_mask, stats):
     if tuple(k.shape) != (b, m, h, d) or tuple(v.shape) != (b, m, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if d < 1:
-        raise ValueError(f"head dim {d} unsupported")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
                         "of float32, bfloat16")
+    if d < 1 or d > attention.KERNEL_WIDEST_HEAD[q.dtype]:
+        raise ValueError(f"head dim {d} unsupported: the {q.dtype} kernel takes 1 to "
+                         f"{attention.KERNEL_WIDEST_HEAD[q.dtype]} (a head's columns span at "
+                         "most a cluster of 16 CTAs)")
     if key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, m):
         raise ValueError(f"key_mask must be ({b}, {m}) bool")
     if key_mask.stride(1) != 1:
@@ -133,11 +136,7 @@ def _launch(q, k, v, key_mask, stats):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr())
-        if d + pad > MAX_HEAD_DIM:
-            work = torch.empty(out.shape, dtype=torch.float32, device=q.device)
-            rc = lib.gims_attention_fwd_wide(*ptrs, None if stats is None else stats.data_ptr(),
-                                             work.data_ptr(), *args, stream)
-        elif stats is None:
+        if stats is None:
             rc = lib.gims_attention_fwd(*ptrs, *args, stream)
         else:
             rc = lib.gims_attention_fwd_partial(*ptrs, stats.data_ptr(), *args, stream)

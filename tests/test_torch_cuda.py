@@ -32,8 +32,15 @@ descriptors, AGC's centroid sums, a loss and its gradient) equal on two
 runs. The f32 attention kernel (split f32 on the tensor cores) against the
 direct version at D = 32, 64, 100, 128 and 256, 1e-4, with a key count off
 its tiles, a fully masked item, its partial mode and rows that are not
-16-byte aligned. K1 past 256 columns (the wide-head kernel): "auto" and "pallas"
-launch it, within the same bars as the narrower heads.
+16-byte aligned. K1 past 256 columns (the wide-head kernels: bf16 on wgmma,
+f32 as split TF32, a head's columns split over warps and, past 512 bf16 or
+320 f32 columns, over the CTAs of a cluster): "auto" and "pallas" launch
+them, within the same bars as the narrower heads, up to the widest head of
+each dtype (8192 bf16, 5120 f32; the plain version's key tile equal to the
+launcher's at every width); their
+partial mode against attention_partials_tiled; two calls give the same bits
+(the partial scores are summed in one fixed order), and unaligned f32 rows
+the same bits as aligned ones; a 640-d GMatcher of 2 heads through them.
 """
 
 import os
@@ -42,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from gims_tpu_torch import _build
 from gims_tpu_torch.carhynet.convert import load_car_checkpoint, load_variables
 from gims_tpu_torch.carhynet.model import CARHyNet
 from gims_tpu_torch.config import FrontendConfig, MatcherConfig
@@ -182,6 +190,10 @@ def test_wrappers_refuse_what_they_do_not_take(cuda):
     mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
         cuda_attention.masked_attention_cuda(q.double(), q.double(), q.double(), mask)
+    for dtype, widest in attention.KERNEL_WIDEST_HEAD.items():  # a cluster of 16 CTAs
+        wide = torch.zeros((1, 8, 1, widest + 8), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            cuda_attention.masked_attention_cuda(wide, wide, wide, mask)
     z = torch.randn((1, 9, 9), device=cuda)
     with pytest.raises(TypeError):
         cuda_sinkhorn.sinkhorn_uv_cuda(z.double(), z[:, :, 0].double(), z[:, 0].double(), 3)
@@ -212,13 +224,18 @@ def test_gmatcher_kernels_vs_plain(cuda):
 
 
 @pytest.mark.parametrize("d", [1, 8, 20, 24, 32, 40, 64, 96, 128, 160, 192, 250, 256,
-                               257, 300, 320, 513])
+                               257, 300, 320, 384, 513, 640, 1024, 2304, 5120, 8192])
 def test_attention_auto_by_head_width(cuda, d):
     """On the card "auto" launches the kernel at every head width: up to 256
     one to four column blocks of 64 (a width short of its last block reads
     zeros past its end, and in bf16 a width that is not a multiple of 8, as
     1, 20, 250, 257 and 513, is zero-padded to one by the wrapper), wider
-    heads the wide-head kernel, in f32 and bf16. f32 against the direct
+    heads the wide-head kernels, in f32 and bf16 (384: six blocks of 64 in
+    one CTA; 513 and up split a head over the CTAs of a cluster in both
+    dtypes: 2304 over 5 (bf16) and 8, 5120 over 10 and 16, the widest f32
+    head, and 8192 over 16, the widest bf16 head; f32 at 8192 raises
+    ValueError and launches nothing, as past KERNEL_WIDEST_HEAD in either
+    dtype). f32 against the direct
     version, 1e-4. bf16 against the tiled version: every element within the
     output's rounding rule plus one bf16 ulp of every rounded P (2**-7 times
     the attention of |v|: where a p lies at a rounding boundary the kernel
@@ -233,6 +250,11 @@ def test_attention_auto_by_head_width(cuda, d):
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         before = cuda_attention.launches
+        if d > attention.KERNEL_WIDEST_HEAD[dtype]:
+            with pytest.raises(ValueError, match="head dim"):
+                attention.masked_attention(qd, kd, vd, mask, impl="auto")
+            assert cuda_attention.launches == before
+            continue
         out = attention.masked_attention(qd, kd, vd, mask, impl="auto")
         torch.cuda.synchronize()
         assert cuda_attention.launches == before + 1
@@ -252,6 +274,23 @@ def test_attention_auto_by_head_width(cuda, d):
             assert err.pow(2).mean().sqrt() <= 2.0 ** -8 * bf_direct.pow(2).mean().sqrt()
 
 
+def test_plain_key_tile_is_the_kernels(cuda):
+    """attention.kernel_block_k and KERNEL_WIDEST_HEAD copy the launcher's
+    choice, which the plain version needs without a card: equal to
+    gims_attention_key_tile (csrc/attention.cu) at every bf16 width and at
+    every f32 width past 256 (below, P stays f32 and the tile only orders
+    the rescaling), and no kernel takes a head one column past the widest."""
+    lib = _build.load()
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        widest = attention.KERNEL_WIDEST_HEAD[dtype]
+        first = 1 if dtype == torch.bfloat16 else attention.KERNEL_MAX_HEAD_DIM + 1
+        widths = range(first, widest + 1)
+        got = [lib.gims_attention_key_tile(code, d) for d in widths]
+        want = [attention.kernel_block_k(d, dtype) for d in widths]
+        assert got == want, [(d, a, b) for d, a, b in zip(widths, got, want) if a != b][:5]
+        assert lib.gims_attention_key_tile(code, widest + 1) == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_wide_head_kernel(cuda, dtype):
     """At a head of 320 (past the column-block kernels' 256) "auto" and
@@ -269,6 +308,59 @@ def test_attention_wide_head_kernel(cuda, dtype):
         torch.cuda.synchronize()
         assert cuda_attention.launches == before + 1
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 512, 640])
+def test_attention_wide_partial_mode_vs_plain(cuda, dtype, d):
+    """The wide-head kernels' partial mode (640: a cluster of CTAs per head
+    in both dtypes): the output bit-equal to the default mode's, each row's
+    base-2 max within 1e-4 and sum within 1e-4 relative of
+    attention_partials_tiled's, 333 keys (off every key tile) with masked
+    keys and item 1 fully masked (its stats: the max of the masked scores,
+    the count of its keys)."""
+    g = torch.Generator(device=cuda).manual_seed(d + 7)
+    q, k, v = (torch.randn((2, x, 2, d), generator=g, device=cuda).to(dtype)
+               for x in (200, 333, 333))
+    mask = torch.rand((2, 333), generator=g, device=cuda) < 0.7
+    mask[1] = False
+    before = cuda_attention.partial_launches
+    out, stats = cuda_attention.attention_partials_cuda(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert cuda_attention.partial_launches == before + 1
+    assert torch.equal(out, cuda_attention.masked_attention_cuda(q, k, v, mask))
+    _, want = attention.attention_partials_tiled(q, k, v, mask)
+    assert stats.shape == (2, 200, 2, 2) and stats.dtype == torch.float32
+    assert (stats[..., 0] - want[..., 0]).abs().max().item() <= 1e-4
+    assert ((stats[..., 1] - want[..., 1]).abs() / want[..., 1]).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [320, 640])
+def test_attention_wide_head_same_bits(cuda, dtype, d):
+    """Two calls of the wide-head kernels give the same bits, output and
+    partial stats (each partial score sum runs in one fixed order, across
+    the cluster's CTAs at 640 too); in f32, q, k and v at an offset of one
+    float (rows not 16-byte aligned: the kernel's 4-byte copies) give the
+    same bits as the aligned call."""
+    g = torch.Generator(device=cuda).manual_seed(d + 11)
+    q, k, v = (torch.randn((2, x, 2, d), generator=g, device=cuda).to(dtype)
+               for x in (300, 517, 517))
+    mask = torch.rand((2, 517), generator=g, device=cuda) < 0.8
+    runs = [cuda_attention.attention_partials_cuda(q, k, v, mask) for _ in range(2)]
+    runs += [(cuda_attention.masked_attention_cuda(q, k, v, mask), None) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[2][0], runs[3][0]) and torch.equal(runs[0][0], runs[2][0])
+    if dtype == torch.float32:
+        shifted = []
+        for t in (q, k, v):
+            buf = torch.empty(t.numel() + 1, device=cuda)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            assert view.data_ptr() % 16
+            shifted.append(view)
+        assert torch.equal(cuda_attention.masked_attention_cuda(*shifted, mask), runs[2][0])
 
 
 @pytest.mark.parametrize("d", [32, 64, 100, 128, 256])
@@ -454,25 +546,27 @@ def test_kernels_refuse_autograd(cuda):
     assert cuda_attention.launches == before  # the trunk took the plain versions
 
 
-def test_wide_head_gmatcher_kernel_vs_plain(cuda, monkeypatch):
-    """A 512-d GMatcher of 2 heads (head width 256), 4 GNN layers, random
-    weights, 300 keypoints per side in a 384 bucket: the trunk through K1
-    against the same trunk through the kernel's plain version
-    (masked_attention_tiled), Z on the valid block within 5e-2 in bf16 (the
-    bf16 bar of tests/test_torch_gmatcher.py) and 1e-3 in f32 (its f32
-    bar)."""
+@pytest.mark.parametrize("dim", [512, 640])
+def test_wide_head_gmatcher_kernel_vs_plain(cuda, monkeypatch, dim):
+    """A GMatcher of 2 heads, 512-d (head width 256, the column-block
+    kernels' widest) and 640-d (head width 320, the wide-head kernels), 4
+    GNN layers, random weights, 300 keypoints per side in a 384 bucket: the
+    trunk through K1 against the same trunk through the kernel's plain
+    version (masked_attention_tiled), Z on the valid block within 5e-2 in
+    bf16 (the bf16 bar of tests/test_torch_gmatcher.py) and 1e-3 in f32 (its
+    f32 bar)."""
     from gims_tpu_torch.matcher import layers
 
     rng = np.random.RandomState(1)
     nb = 384
     kpts = torch.from_numpy(rng.rand(1, nb, 2).astype(np.float32) - 0.5).to(cuda)
-    desc = torch.from_numpy(rng.rand(1, nb, 512).astype(np.float32)).to(cuda)
+    desc = torch.from_numpy(rng.rand(1, nb, dim).astype(np.float32)).to(cuda)
     adj = torch.from_numpy(rng.rand(1, nb, nb) < 0.02).to(cuda)
     adj = adj | adj.transpose(1, 2)
     kept = torch.arange(nb, device=cuda)[None] < 300
     for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
         torch.manual_seed(0)
-        cfg = MatcherConfig(descriptor_dim=512, input_dim=512, num_heads=2, num_gnn_layers=4,
+        cfg = MatcherConfig(descriptor_dim=dim, input_dim=dim, num_heads=2, num_gnn_layers=4,
                             attention_dtype=dtype, sinkhorn_iterations=20)
         model = GMatcher(cfg).to(cuda).eval()
         outs = []

@@ -32,7 +32,22 @@ Phases, one line each with its seconds:
   25 the wide-head path (run after phase 5): Matching with a 640-d trunk
     of 2 heads (head width 320, random weights) serves one 2048 request in
     bf16 and in f32, 18 wide-head K1 launches each; f32 scores within 1e-3
-    of the plain versions'.
+    of the plain versions'. Then K1 past one cluster of 16 CTAs a head
+    (WIDEST_ATTN_CASES: B=2, N=M=2048, H=1, D=12288 bf16 and 8192 f32, a
+    head over several clusters) against the plain versions at phase 2's
+    bars, timed beside its bound, the plain version and SDPA; two more
+    calls must give the same bits.
+  26 estimate_pose and the structured style (run after phase 25):
+    geometry.estimate_pose on the card (eval/essential.py) on
+    POSE_SCENES scenes of tests/test_utils_extra.py at POSE_POINTS points,
+    POSE_OUTLIERS of the second view uniform noise: ms a call and of its
+    find_essential_mat, the host's waits for the card in a call (reads of
+    device values: 3 numbers a RANSAC chunk, the results), R and t
+    errors (median within 1 and 2 degrees), inlier shares (over 0.9 of the
+    true correspondences, under 0.1 of the noise); then STRUCTURED_PAIRS
+    800x600 pairs of generate_benchmark(style="structured") evaluated by
+    run_benchmark with staged Matching at the JAX defaults (host SIFT):
+    AUC, ms per image made and per pair, launches as phase 15's staged row.
   6 the fused image path: gims_tpu_torch.fused.FusedMatching with the joint
     end-to-end weights (weights/gims_tpu_dense_gray_e2e.npz and _car.npz)
     matches batches of 8 synthetic 800x600 gray pairs (6144 keypoints,
@@ -212,7 +227,15 @@ Phases, one line each with its seconds:
     what it held before) is at most SHARD_MEMORY_SHARE of the unsharded
     run's. Prints ms per call of each run, peaks and their shares; then
     K1's partial mode at the ring steps' shapes (P=2: f32 (2, 2048), bf16
-    (2, 8192); P=1: bf16 (2, 16384)).
+    (2, 8192); P=1: bf16 (2, 16384)). The other configurations
+    (SHARD_CONFIGS: the band build at the card's defaults, the sparse
+    labels, the trunk compacted to half the bucket) run at 4096 over the
+    same two gloo ranks and at 16384 on the one-rank NCCL group, each
+    against its own unsharded run, the band run against the unsharded band
+    build with cc_impl "dense" and with "band" (the sharded band build
+    takes no cc_impl): the same bars, the P=2 peak share at 4096 too, and
+    the AGC's adjacency rows and kept equal to the unsharded build's. One
+    "shard_config" line each, the unsharded band_cc's beside them.
   23 the entry points (run after phase 22, before 13), on JPEG files of a
     synthetic 800x600 colour pair with a known homography: (a) the port's
     encode_jpeg writes them and decode_jpeg reads them on the card and on
@@ -302,6 +325,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -321,7 +345,7 @@ from gims_tpu_torch.config import (AGCConfig, FrontendConfig, GIMSConfig, Matche
 from gims_tpu_torch.core import checkpoint as ckpt_io  # noqa: E402
 from gims_tpu_torch.core import segsum  # noqa: E402
 from gims_tpu_torch.core.imgproc import bgr_to_gray  # noqa: E402
-from gims_tpu_torch.eval import homography  # noqa: E402
+from gims_tpu_torch.eval import essential, geometry, homography  # noqa: E402
 from gims_tpu_torch.eval import metrics as eval_metrics  # noqa: E402
 from gims_tpu_torch.carhynet import train as car_train  # noqa: E402
 from gims_tpu_torch.frontend import sift  # noqa: E402
@@ -398,6 +422,24 @@ WIDE_HEAD_DIM = 256
 # path's bucket), a 512-d trunk of one head at 4096
 WIDER_ATTN_CASES = (((2, 2048, 2048, 248), 2, 320), ((2, 8192, 8192, 1192), 2, 320),
                     ((2, 4096, 4096, 600), 1, 512))
+# phase 25: K1 past one cluster of 16 CTAs a head (8192 columns in bf16,
+# 5120 in f32), where a head spans several clusters: ((B, N, M, masked key
+# tail), H, D, dtype), against the plain versions, two calls bit-equal
+WIDEST_ATTN_CASES = (((2, 2048, 2048, 248), 1, 12288, torch.bfloat16),
+                     ((2, 2048, 2048, 248), 1, 8192, torch.float32))
+# phase 26: estimate_pose on the JAX test's scene (tests/test_utils_extra.py)
+# at POSE_POINTS points, a share POSE_OUTLIERS of the second view's replaced
+# by uniform pixels, POSE_SCENES scenes; its bars on the median of the
+# scenes' pose errors (one scene can miss them at 30% outliers in OpenCV
+# too), the inlier shares on every scene. Then STRUCTURED_PAIRS pairs of the
+# structured style at 800x600 matched by staged Matching (the JAX defaults)
+POSE_POINTS = 2000
+POSE_OUTLIERS = 0.3
+POSE_SCENES = 3
+POSE_K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+POSE_BARS = (1.0, 2.0, 0.9, 0.1)  # degrees of R and t, true inlier share, noise inlier share
+STRUCTURED_PAIRS = 2
+STRUCTURED_SEED = 26
 # the wide-head kernels' instantiations (csrc/attention.cu): bf16 <blocks of
 # 64 a warpgroup, keys per tile>, f32 one
 WIDE_KERNELS_BF16 = ("attn_wide_tc_kernel<3,48>", "attn_wide_tc_kernel<4,32>")
@@ -591,6 +633,24 @@ SHARD_SCORE_TOL = 2e-3
 # both above what their process held before the call (the same model and
 # inputs; this process also holds the label inputs recorded for phase 13)
 SHARD_MEMORY_SHARE = 0.6
+# phase 22's other configurations, each against the unsharded port at both
+# buckets (4096 over the two gloo ranks, 16384 on the one-rank NCCL group),
+# their AGC adjacency rows too where they build one: the card's band
+# defaults with cc_impl "dense" and "band", the dense build with the sparse
+# labels, and the dense build with the trunk compacted to half the bucket
+# (the unsharded runs; the sharded runs are SHARD_RUNS)
+SHARD_CONFIGS = {"band": ACCEL_DEFAULTS, "band_cc": {**ACCEL_DEFAULTS, "cc_impl": "band"},
+                 "sparse": {"cc_impl": "sparse"}, "compact": {}}
+# the sharded band build takes no cc_impl (it labels the band whole): one
+# sharded run of "band" is held to the unsharded runs of both
+SHARD_RUN_OF = {"band_cc": "band"}
+SHARD_RUNS = [name for name in SHARD_CONFIGS if name not in SHARD_RUN_OF]
+
+
+def shard_references(name):
+    """The configurations whose unsharded runs the sharded run `name` is
+    held to."""
+    return [name] + [n for n, run in SHARD_RUN_OF.items() if run == name]
 # phase 23: the entry points on JPEG files of synthetic 800x600 colour pairs
 # (and a 640x480 pair that the server resizes), match_pair_cli's flags per
 # configuration and the configuration of the direct call they are held to
@@ -860,11 +920,22 @@ def attention_case(b, n, m, masked_tail, dtype, seed, h=4, d=HEAD_DIM):
     return q, k, v, mask, info
 
 
-def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM):
+def attention_row(b, n, m, tail, dtype, h=4, d=HEAD_DIM, same_bits=False):
     """K1 against its plain versions at one shape; timed beside its bound,
-    the plain version and SDPA where the keys fill whole 64-key tiles."""
+    the plain version and SDPA where the keys fill whole 64-key tiles. With
+    `same_bits`, two more calls (2 launches) must give the same bits."""
     q, k, v, mask, info = attention_case(b, n, m, tail, dtype, seed=n + m + d, h=h, d=d)
     row = {"shape": f"B={b} N={n} M={m} H={h} D={d}", "dtype": str(dtype)[6:], **info}
+    if same_bits:
+        before = cuda_attention.launches
+        runs = [cuda_attention.masked_attention_cuda(q, k, v, mask) for _ in range(2)]
+        torch.cuda.synchronize()
+        row.update(two_calls_bit_equal=bool(torch.equal(*runs)),
+                   launches=cuda_attention.launches - before,
+                   clusters_per_head=cuda_attention.kernel_wide_plan(d, dtype)[1])
+        del runs
+        if not row["two_calls_bit_equal"] or row["launches"] != 2:
+            raise AssertionError(f"attention kernel {dtype} D={d}: two calls {row}")
     if m % 64 == 0:  # the trunk's shapes: time them
         esz = q.element_size()
         nbytes = 2 * b * n * h * d * esz + 2 * b * m * h * d * esz + b * m
@@ -1099,13 +1170,132 @@ def wide_path_phase():
         raise AssertionError(f"wide-head path, plain versions: launches {launches['plain']}")
     dscore = max(np.abs(preds["float32"][f"matching_scores{s}"]
                         - preds["plain"][f"matching_scores{s}"]).max() for s in "01")
+    preds_kept = {s: preds["bfloat16"][f"keypoints{s}"].shape[1] for s in "01"}
     if not dscore <= 1e-3:
         raise AssertionError(f"wide-head path: f32 scores differ from the plain versions' "
                              f"by {dscore} > 1e-3")
-    phase("25 wide-head path (Matching, 640-d trunk of 2 heads)", t0,
-          launches=json.dumps(launches), f32_max_score_diff=f"{dscore}",
-          kept=json.dumps([int(preds["bfloat16"][f"keypoints{s}"].shape[1]) for s in "01"]))
+    del preds
+    torch.cuda.empty_cache()
+    # K1 past one cluster a head (several clusters, each computing the whole
+    # Q K^T of its rows): ms, bound, SDPA's ms, errors, two calls bit-equal
+    widest = []
+    for (b, n, m, tail), h, d, dtype in WIDEST_ATTN_CASES:
+        widest.append(attention_row(b, n, m, tail, dtype, h, d, same_bits=True))
+        torch.cuda.empty_cache()
+    phase("25 wide-head path (Matching, 640-d trunk of 2 heads; K1 past one cluster a head)",
+          t0, launches=json.dumps(launches), f32_max_score_diff=f"{dscore}",
+          kept=json.dumps([int(preds_kept[s]) for s in "01"]),
+          widest=json.dumps([{k: r[k] for k in ("shape", "dtype", "ms", "bound_ms",
+                                                "library_ms", "plain_ms", "max_abs_err",
+                                                "launches", "two_calls_bit_equal",
+                                                "clusters_per_head")} for r in widest],
+                            separators=(",", ":")))
     return {dtype: launches[dtype] for dtype in ("bfloat16", "float32")}
+
+
+def pose_scene(seed, n=POSE_POINTS, outliers=POSE_OUTLIERS):
+    """tests/test_utils_extra.py's scene at n points: (p0, p1, T_0to1) in
+    pixels, the last share `outliers` of p1 uniform pixels."""
+    rng = np.random.RandomState(seed)
+    pts3 = rng.rand(n, 3) * 4 + [[-2, -2, 6]]
+    a = np.deg2rad(8.0)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.6, 0.05, 0.02])
+    p0 = (pts3 / pts3[:, 2:]) @ POSE_K.T
+    cam1 = pts3 @ R.T + t
+    p1 = ((cam1 / cam1[:, 2:]) @ POSE_K.T)[:, :2]
+    bad = int(round(outliers * n))
+    p1[n - bad:] = rng.rand(bad, 2) * [640, 480]
+    return p0[:, :2], p1, np.block([[R, t[:, None]], [np.zeros((1, 3)), np.ones((1, 1))]])
+
+
+def host_syncs(fn) -> int:
+    """The times `fn` makes the host wait for the card (a read of a device
+    value, a blocking copy), as torch.cuda.set_sync_debug_mode("warn")
+    reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def pose_structured_phase(sift_variables):
+    """estimate_pose on the card (eval/essential.py: the five-point RANSAC
+    and recoverPose in torch), ms a call and of its find_essential_mat, the
+    host's waits for the card in a call (host_syncs), pose errors and
+    inlier shares;
+    then the structured benchmark style: STRUCTURED_PAIRS 800x600 pairs
+    generated by the port, evaluated by run_benchmark with staged Matching
+    (the JAX defaults: host SIFT, 2048 keypoints), AUC, ms per image made
+    and per pair."""
+    t0 = time.perf_counter()
+    scenes = []
+    for seed in range(POSE_SCENES):
+        p0, p1, T = pose_scene(2600 + seed)
+        geometry.estimate_pose(p0, p1, POSE_K, POSE_K, thresh=1.0, device=DEVICE)  # warm-up
+        out, ms = timed_call(lambda: geometry.estimate_pose(p0, p1, POSE_K, POSE_K, thresh=1.0,
+                                                            device=DEVICE))
+        if out is None:
+            raise AssertionError(f"estimate_pose on scene {seed}: None")
+        R, t, inl = out
+        err_t, err_R = geometry.compute_pose_error(T, R, t)
+        good = len(p0) - int(round(POSE_OUTLIERS * len(p0)))
+        q0, q1 = (geometry._normalize_points(p, POSE_K) for p in (p0, p1))
+        thresh = 1.0 / np.mean(np.diag(POSE_K)[:2])
+        _, find_ms = timed_call(lambda: essential.find_essential_mat(q0, q1, thresh, 0.99999,
+                                                                     device=DEVICE))
+        syncs = host_syncs(lambda: geometry.estimate_pose(p0, p1, POSE_K, POSE_K, thresh=1.0,
+                                                          device=DEVICE))
+        scenes.append({"ms": ms, "find_essential_ms": find_ms, "host_syncs": syncs,
+                       "err_R_deg": float(err_R), "err_t_deg": float(err_t),
+                       "inlier_share_true": float(inl[:good].mean()),
+                       "inlier_share_noise": float(inl[good:].mean())})
+        if not (np.isfinite(R).all() and np.isfinite(t).all()):
+            raise AssertionError(f"estimate_pose on scene {seed}: {scenes[-1]}")
+    med_R = float(np.median([x["err_R_deg"] for x in scenes]))
+    med_t = float(np.median([x["err_t_deg"] for x in scenes]))
+    r_bar, t_bar, in_bar, noise_bar = POSE_BARS
+    if not (med_R < r_bar and med_t < t_bar
+            and all(x["inlier_share_true"] > in_bar and x["inlier_share_noise"] < noise_bar
+                    for x in scenes)):
+        raise AssertionError(f"estimate_pose: {scenes}")
+    print(f"  pose {json.dumps({'points': POSE_POINTS, 'outliers': POSE_OUTLIERS, 'scenes': scenes})}",
+          flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="gims_structured_") as tmp:
+        t = time.perf_counter()
+        txt, images = homography.generate_benchmark(
+            os.path.join(tmp, "set"), n_pairs=STRUCTURED_PAIRS, height=EVAL_RESIZE[1],
+            width=EVAL_RESIZE[0], seed=STRUCTURED_SEED, style="structured")
+        gen_ms = 1e3 * (time.perf_counter() - t) / STRUCTURED_PAIRS
+        m = TimedMatching(Matching(EVAL_STAGED_HOST, variables=sift_variables, device=DEVICE))
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        res = homography.run_benchmark(txt, images, os.path.join(tmp, "out"), resize=EVAL_RESIZE,
+                                       agc=EVAL_AGC, matcher=m, device=DEVICE)
+        elapsed = time.perf_counter() - t
+        launches = counts()
+        skipped, n_lines = skip_share(os.path.join(tmp, "out"))
+    row = {"pairs": n_lines, "ms_per_image_generated": gen_ms,
+           "ms_per_pair": 1e3 * elapsed / STRUCTURED_PAIRS,
+           "matcher_ms_per_pair": 1e3 * m.seconds / STRUCTURED_PAIRS,
+           "ransac_auc": res and res["ransac_auc"], "dlt_auc": res and res["dlt_auc"],
+           "precision": res and res["precision"], "recall": res and res["recall"],
+           "skip_share": skipped, "launches": launches}
+    print(f"  structured {json.dumps(row)}", flush=True)
+    if (n_lines != STRUCTURED_PAIRS or skipped or res is None
+            or not np.isfinite(res["ransac_auc"]).all()
+            or not staged_launches_ok(launches, STRUCTURED_PAIRS)):
+        raise AssertionError(f"structured pairs: {row}")
+    phase("26 estimate_pose and the structured benchmark style", t0,
+          pose_ms=json.dumps([x["ms"] for x in scenes]), median_err_R_deg=med_R,
+          median_err_t_deg=med_t, structured_auc=json.dumps(res["ransac_auc"]))
+    return scenes, row
 
 
 def wide_rows(attn, launches):
@@ -2809,6 +2999,158 @@ def shard_agreement(got, want, dtype, name):
     return info
 
 
+def shard_config_call(name, nb):
+    """(AGCConfig, forward_match's other arguments) of a configuration of
+    SHARD_CONFIGS at bucket nb."""
+    extra = {"compact_to": nb // 2} if name == "compact" else {}
+    return AGCConfig(**STAGED_KNOBS, **SHARD_CONFIGS[name]), extra
+
+
+def stacked(args):
+    """The two sides of a pair's (kpts, descs, valid) stacked, as
+    forward_match runs its AGC."""
+    return [torch.cat([args[i], args[i + 3]]) for i in range(3)]
+
+
+def shard_config_references(variables, inputs):
+    """The unsharded port at each configuration and bucket: its output, its
+    AGC's adjacency and kept (stacked sides; none for compaction, whose AGC
+    is the dense build's), its ms, launches and peak memory above what was
+    held before the call."""
+    want, info = {}, {}
+    for nb, _, dt in SHARD_CASES:
+        model = shard_matcher(variables, dt)
+        args = [x.to(DEVICE) for x in inputs[nb]]
+        for name in SHARD_CONFIGS:
+            acfg, extra = shard_config_call(name, nb)
+
+            def run():
+                return pipeline.forward_match(model, acfg, *args, FUSED_FRAME, **extra)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            out, ms = timed_call(run)
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            if differs(launches, match_counts(NUM_LAYERS, 1, 1)):
+                raise AssertionError(f"unsharded {name} {nb}: launches {launches}")
+            want[(name, nb)] = {"out": {k: v.cpu() for k, v in out.items()}}
+            if name != "compact":
+                adj, kept, _ = pipeline.run_agc(*stacked(args), acfg)
+                # the card keeps the larger bucket's for the NCCL check
+                want[(name, nb)].update(adj=adj if nb == SHARD_CASES[-1][0] else adj.cpu(),
+                                        kept=kept.cpu())
+            info[(name, nb)] = {"unsharded": {"ms": ms, "peak_bytes": peak,
+                                              "temp_bytes": peak - base, "launches": launches,
+                                              "matches": int((out["matches0"] >= 0).sum())}}
+            del out
+        del model, args
+    return want, info
+
+
+def shard_config_jobs(variables, inputs):
+    """The gloo ranks' jobs of SHARD_CONFIGS at the first bucket: the
+    sharded call of each (make_forward_match_sharded, or forward_match with
+    shard_axis where it compacts), then each AGC build."""
+    nb, _, dt = SHARD_CASES[0]
+    jobs = []
+    for name in SHARD_RUNS:
+        acfg, extra = shard_config_call(name, nb)
+        jobs.append({"kind": "axis" if extra else "match", "kwargs": extra,
+                     "mcfg": MatcherConfig(attention_dtype=dt, use_pallas_sinkhorn=True),
+                     "variables": variables, "acfg": acfg, "inputs": inputs[nb],
+                     "image_shape": FUSED_FRAME})
+    for name in SHARD_RUNS:
+        if name != "compact":
+            jobs.append({"kind": "agc", "acfg": shard_config_call(name, nb)[0],
+                         "inputs": stacked(inputs[nb])})
+    return jobs
+
+
+def shard_config_ranks(results, want, info):
+    """The gloo ranks' results of ``shard_config_jobs`` against the
+    unsharded port: every rank bit-equal, kept equal and the matches at the
+    phase's bars, 18 K1 partial launches a ring step, each rank's peak
+    memory under SHARD_MEMORY_SHARE of the unsharded run's, and the AGC's
+    adjacency rows and kept equal (the band run to both of its references)."""
+    nb, _, dt = SHARD_CASES[0]
+    names = SHARD_RUNS
+    builds = [n for n in names if n != "compact"]
+    for j, name in enumerate(names):
+        got = [r[j] for r in results]
+        for g in got[1:]:
+            for key, value in got[0]["out"].items():
+                if not torch.equal(g["out"][key], value):
+                    raise AssertionError(f"sharded {name} {nb}: the ranks' {key} differ")
+        ref = info[(name, nb)]["unsharded"]
+        row = {"backend": "gloo", "ranks_bit_equal": True, "ms": [g["ms"] for g in got],
+               "peak_bytes": [g["peak_bytes"] for g in got],
+               "temp_share": [g["temp_bytes"] / ref["temp_bytes"] for g in got],
+               "partial_launches": [g["partial_launches"] for g in got],
+               **shard_agreement(got[0]["out"], want[(name, nb)]["out"], dt,
+                                 f"{name} P={DP_SPLIT} {nb}")}
+        for ref in shard_references(name)[1:]:
+            row[f"against_{ref}"] = shard_agreement(got[0]["out"], want[(ref, nb)]["out"], dt,
+                                                    f"{name} as {ref} P={DP_SPLIT} {nb}")
+        if row["partial_launches"] != [NUM_LAYERS * DP_SPLIT] * DP_SPLIT:
+            raise AssertionError(f"sharded {name} {nb}: K1 partial launches {row}")
+        if max(row["temp_share"]) > SHARD_MEMORY_SHARE:
+            raise AssertionError(f"sharded {name} {nb}: a rank's peak memory {row}")
+        if name in builds:
+            g = [r[len(names) + builds.index(name)] for r in results]
+            adj = torch.cat([x["adj"] for x in g], dim=1)
+            row["adjacency_rows_equal"] = all(
+                torch.equal(adj, want[(ref, nb)]["adj"])
+                and all(torch.equal(x["kept"], want[(ref, nb)]["kept"]) for x in g)
+                for ref in shard_references(name))
+            if not row["adjacency_rows_equal"]:
+                raise AssertionError(f"sharded {name} {nb}: AGC adjacency rows or kept differ")
+        info[(name, nb)][f"P={DP_SPLIT}"] = row
+
+
+def shard_config_nccl(model, args, want, info):
+    """SHARD_CONFIGS at the larger bucket on a one-rank NCCL group (the
+    sharded code's collectives on the card): forward_match(shard_axis=...)
+    against the unsharded port, 18 K1 partial launches and no K1 or K2
+    launch, and the sharded AGC's adjacency and kept equal to the unsharded
+    build's (the band run to both of its references)."""
+    nb, _, dt = SHARD_CASES[-1]
+    with nccl_world_one() as group:
+        for name in SHARD_RUNS:
+            acfg, extra = shard_config_call(name, nb)
+
+            def run():
+                return pipeline.forward_match(model, acfg, *args, FUSED_FRAME, shard_axis=group,
+                                              **extra)
+            reset_counts()
+            out, first_ms = timed_call(run)
+            partial = cuda_attention.partial_launches
+            c = counts()
+            row = {"backend": "nccl", "ms_first_call": first_ms, "ms": timed_call(run)[1],
+                   "partial_launches": partial,
+                   **shard_agreement(out, want[(name, nb)]["out"], dt, f"{name} P=1 {nb}")}
+            for ref in shard_references(name)[1:]:
+                row[f"against_{ref}"] = shard_agreement(out, want[(ref, nb)]["out"], dt,
+                                                        f"{name} as {ref} P=1 {nb}")
+            if partial != NUM_LAYERS or c["attention"] or c["sinkhorn"]:
+                raise AssertionError(f"sharded {name} P=1 {nb}: launches {c}, partial {partial}")
+            del out
+            if name != "compact":
+                adj, kept, _ = pipeline.run_agc(*stacked(args), acfg, group=group)
+                refs = [want[(r, nb)] for r in shard_references(name)]
+                row["adjacency_rows_equal"] = all(torch.equal(adj, ref["adj"])
+                                                  and torch.equal(kept.cpu(), ref["kept"])
+                                                  for ref in refs)
+                del adj, kept
+                for ref in refs:
+                    ref.pop("adj")
+                if not row["adjacency_rows_equal"]:
+                    raise AssertionError(f"sharded {name} P=1 {nb}: AGC adjacency or kept differ")
+            torch.cuda.empty_cache()
+            info[(name, nb)]["P=1"] = row
+
+
 def shard_phase(variables):
     """forward_match with its keypoint axis split over ranks, against the
     unsharded port: at each case the unsharded port (K1, K2, the label
@@ -2845,10 +3187,13 @@ def shard_phase(variables):
                                   "matches": int((out["matches0"] >= 0).sum())}}
         del model, out, args
     torch.cuda.empty_cache()
+    cwant, cinfo = shard_config_references(variables, inputs)
 
     jobs = [{"kind": "match", "mcfg": MatcherConfig(attention_dtype=dt, use_pallas_sinkhorn=True),
              "variables": variables, "acfg": acfg, "inputs": inputs[nb],
              "image_shape": FUSED_FRAME, "reps": 1} for nb, _, dt in SHARD_CASES]
+    n_main = len(jobs)
+    jobs += shard_config_jobs(variables, inputs)
     with tempfile.TemporaryDirectory(prefix="gims_shard_") as tmp:
         t = time.perf_counter()
         ranks = dp_check.run(shard_check.shard_rank, [DEVICE + ":0"] * DP_SPLIT, "gloo",
@@ -2877,6 +3222,7 @@ def shard_phase(variables):
             raise AssertionError(f"sharded {nb}: a rank's peak memory {row}")
         info[nb][f"P={DP_SPLIT}"] = row
         launches[dt] = sum(row["partial_launches"])
+    shard_config_ranks([r["jobs"][n_main:] for r in ranks], cwant, cinfo)
 
     nb, nv, dt = SHARD_CASES[-1]
     model = shard_matcher(variables, dt)
@@ -2893,10 +3239,16 @@ def shard_phase(variables):
         raise AssertionError(f"sharded P=1 {nb}: launches {counts()}, partial {nccl_launches}")
     info[nb]["P=1"] = row
     launches["nccl"] = nccl_launches
-    del model, out, args
+    del out
+    torch.cuda.empty_cache()
+    shard_config_nccl(model, args, cwant, cinfo)
+    del model, args
     torch.cuda.empty_cache()
     for nb, *_ in SHARD_CASES:
         print(f"  shard {json.dumps(info[nb])}", flush=True)
+    for key, row in cinfo.items():
+        print(f"  shard_config {json.dumps({'config': key[0], 'bucket': key[1], **row})}",
+              flush=True)
 
     # K1's partial mode at the ring steps' shapes: P=2 (N/2 against M/2) and
     # the one-rank ring (N against M)
@@ -3619,6 +3971,8 @@ def main():
     launches = slice_phase()
     whole_path_phase(load_gims_checkpoint(WEIGHTS))
     wide_launches = wide_path_phase()
+    pose_structured_phase(load_gims_checkpoint(WEIGHTS))
+    torch.cuda.empty_cache()
     fused_launches, fms = fused_phase(load_gims_checkpoint(E2E_WEIGHTS),
                                       load_car_checkpoint(E2E_CAR_WEIGHTS))
     kp, de, va = fused_vs_plain_phase(fms["A"])

@@ -135,6 +135,8 @@ def _declare(lib):
         + [f, p])                  # scale * log2(e), stream
     lib.gims_attention_key_tile.restype = i
     lib.gims_attention_key_tile.argtypes = [i, i]  # dtype, D
+    lib.gims_attention_wide_plan.restype = i
+    lib.gims_attention_wide_plan.argtypes = [i, i, ctypes.POINTER(i)]  # dtype, D, plan[4]
     lib.gims_sinkhorn_z_reads.restype = i
     lib.gims_sinkhorn_z_reads.argtypes = [i, i, i]      # B, M1, N1
     lib.gims_sinkhorn_scratch_len.restype = i64

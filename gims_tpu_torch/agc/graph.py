@@ -486,6 +486,63 @@ def build_graph_band(
     """
     check_impls(reconnect_impl=reconnect_impl, cc_impl=cc_impl)
     single, kpts, descs, valid = _batched(kpts, descs, valid)
+    n_in = valid.shape[1]
+
+    def threshold_of(normed_u, valid):
+        # the strided percentile threshold, in the caller's row order: a
+        # (N/s, N) matrix product instead of rows of a full (N, N) one
+        s = max(int(threshold_stride), 1)
+        idx = torch.arange(valid.shape[1], device=valid.device)
+        sub_sim = torch.matmul(normed_u[:, ::s], normed_u.transpose(1, 2))
+        rows = idx[::s]
+        sub_mask = valid[:, ::s, None] & valid[:, None, :] & (rows[:, None] < idx[None, :])
+        return strided_threshold(sub_sim, sub_mask, percentile)
+
+    kpts, valid, perm, inv, va, band, threshold = band_edges(
+        kpts, descs, valid, radius, band_halfwidth, threshold_of)
+    bsz, n = valid.shape
+
+    # --- the dense bool adjacency, components and pruning, in sorted space ---
+    adj_half = _band_to_dense(band)
+    adj = adj_half | adj_half.transpose(1, 2)
+    if cc_impl == "band":
+        labels = connected_components_band(band, va, cc_rounds)
+    else:
+        labels = connected_components(adj, va, cc_rounds)
+    kept = _prune_small(labels, va, min_size)
+    adj = adj & kept[:, :, None] & kept[:, None, :]
+
+    # --- back to the caller's order before the reconnect, which depends on
+    # the enumeration order (ranks, centroid sums, argmin ties). kept and
+    # the labels are row gathers; the (N, N) adjacency is gathered too
+    # unless the caller composes inv into its own gather ---
+    kept, labels = caller_labels(kept, labels, perm, inv)
+    if not defer_unpermute:
+        rows_ = torch.gather(adj, 1, inv[..., None].expand(bsz, n, n))
+        adj = torch.gather(rows_, 2, inv[:, None, :].expand(bsz, n, n))
+    adj = _reconnect(adj, kpts, labels, kept, reconnect_impl, reconnect_buckets,
+                     scatter_map=inv if defer_unpermute else None)
+
+    kept_o = kept[:, :n_in]
+    labels_o = torch.clamp(labels[:, :n_in], max=n_in)
+    if defer_unpermute:
+        # rows of invalid and pruned nodes are all False, so a composed
+        # gather never needs clamping
+        out = AGCGraph(adj, kept_o, labels_o, threshold, inv[:, :n_in])
+    else:
+        out = AGCGraph(adj[:, :n_in, :n_in], kept_o, labels_o, threshold)
+    return _unbatch(out) if single else out
+
+
+def band_edges(kpts, descs, valid, radius: float, band_halfwidth: int, threshold_of):
+    """The band build up to its forward band, for (B, N, .) sets: pads N to
+    a multiple of BAND_ROWS (far keypoints, zero descriptors, invalid),
+    takes the threshold ``threshold_of(normed descriptors, padded valid)``
+    in the caller's row order, sorts by x and keeps the radius- and
+    threshold-gated forward band with the isolated-node fix on it. Returns
+    the padded kpts and valid (caller order), perm and inv (sorted position
+    -> caller row, caller row -> sorted position), valid in sorted order,
+    the band (B, N, Wh) bool and the threshold (B,)."""
     bsz, n_in = valid.shape
     dev = kpts.device
     br = BAND_ROWS
@@ -498,14 +555,8 @@ def build_graph_band(
     wh = -(-min(int(band_halfwidth), n) // br) * br
     idx = torch.arange(n, device=dev)
 
-    # --- the strided percentile threshold, in the caller's row order: a
-    # (N/s, N) matrix product instead of rows of a full (N, N) one ---
     normed_u = _normalize_rows(descs)
-    s = max(int(threshold_stride), 1)
-    sub_sim = torch.matmul(normed_u[:, ::s], normed_u.transpose(1, 2))
-    rows = idx[::s]
-    sub_mask = valid[:, ::s, None] & valid[:, None, :] & (rows[:, None] < idx[None, :])
-    threshold = strided_threshold(sub_sim, sub_mask, percentile)
+    threshold = threshold_of(normed_u, valid)
 
     # --- sort by x (invalid rows last; stable) ---
     sort_key = torch.where(valid, kpts[..., 0], BIG)
@@ -560,46 +611,25 @@ def build_graph_band(
     flat = band.to(torch.uint8).reshape(-1)
     flat.scatter_reduce_(0, lin, ok_fix.reshape(-1).to(torch.uint8), "amax")
     band = flat.view(bsz, n, wh).bool()
+    return kpts, valid, perm, inv, va, band, threshold
 
-    # --- the dense bool adjacency, components and pruning, in sorted space ---
-    adj_half = _band_to_dense(band)
-    adj = adj_half | adj_half.transpose(1, 2)
-    if cc_impl == "band":
-        labels = connected_components_band(band, va, cc_rounds)
-    else:
-        labels = connected_components(adj, va, cc_rounds)
-    kept = _prune_small(labels, va, min_size)
-    adj = adj & kept[:, :, None] & kept[:, None, :]
 
-    # --- back to the caller's order before the reconnect, which depends on
-    # the enumeration order (ranks, centroid sums, argmin ties). kept and
-    # the labels are row gathers; the (N, N) adjacency is gathered too
-    # unless the caller composes inv into its own gather ---
+def caller_labels(kept, labels, perm, inv):
+    """Sorted-space kept and labels (B, N) of the band build in the caller's
+    row order, each component labelled by its minimum caller id."""
+    bsz, n = kept.shape
+    idx = torch.arange(n, device=kept.device)
     kept = torch.gather(kept, 1, inv)
     safe = labels.clamp(max=n - 1).long()
     rep_o = torch.where(labels < n, torch.gather(perm, 1, safe), n)  # original rep id
     lab_o = torch.gather(rep_o, 1, inv)                               # per caller row
     # canonical labels: the minimum caller id of each component
-    min_id = torch.full((bsz, n), n, dtype=torch.long, device=dev)
+    min_id = torch.full((bsz, n), n, dtype=torch.long, device=kept.device)
     min_id.scatter_reduce_(1, lab_o.clamp(max=n - 1), torch.where(lab_o < n, idx, n),
                            "amin", include_self=True)
     labels = torch.where(lab_o < n, torch.gather(min_id, 1, lab_o.clamp(max=n - 1)),
                          n).int()
-    if not defer_unpermute:
-        rows_ = torch.gather(adj, 1, inv[..., None].expand(bsz, n, n))
-        adj = torch.gather(rows_, 2, inv[:, None, :].expand(bsz, n, n))
-    adj = _reconnect(adj, kpts, labels, kept, reconnect_impl, reconnect_buckets,
-                     scatter_map=inv if defer_unpermute else None)
-
-    kept_o = kept[:, :n_in]
-    labels_o = torch.clamp(labels[:, :n_in], max=n_in)
-    if defer_unpermute:
-        # rows of invalid and pruned nodes are all False, so a composed
-        # gather never needs clamping
-        out = AGCGraph(adj, kept_o, labels_o, threshold, inv[:, :n_in])
-    else:
-        out = AGCGraph(adj[:, :n_in, :n_in], kept_o, labels_o, threshold)
-    return _unbatch(out) if single else out
+    return kept, labels
 
 
 def band_coverage(kpts: torch.Tensor, valid: torch.Tensor, radius: float,

@@ -1,9 +1,10 @@
-"""The dense AGC build with its keypoint axis split over ranks.
+"""The AGC builds with their keypoint axis split over ranks.
 
-Counterpart of ``graph.build_graph`` under the JAX package's keypoint
-sharding (``gims_tpu/matcher/sharded.py``), where XLA's partitioner splits
-``gims_tpu/agc/graph.py::build_graph`` along the rows of its (N, N)
-matrices. PyTorch has no partitioner, so each collective is written here.
+Counterparts of ``graph.build_graph`` and ``graph.build_graph_band`` under
+the JAX package's keypoint sharding (``gims_tpu/matcher/sharded.py``),
+where XLA's partitioner splits ``gims_tpu/agc/graph.py``'s builds along
+the rows of their (N, N) matrices. PyTorch has no partitioner, so each
+collective is written here.
 Every rank of a ``torch.distributed`` group of P ranks passes the same whole
 keypoint sets (B, N, .); rank r owns rows [r N/P, (r+1) N/P) of the
 distances, similarities and adjacency and makes no other (N, N) tensor. The
@@ -20,7 +21,10 @@ staged through the host):
     minimum of the rank's rows, all-gathers the (B, N) labels and runs the
     three pointer jumps on the whole vector, stopping as the plain rounds
     of ``labels.py`` stop; small components are pruned from the gathered
-    labels, the same on every rank;
+    labels, the same on every rank. The sparse labels (``cc_impl="sparse"``,
+    ``propagate_sparse_rows``) list the neighbours of the rank's rows; a
+    round pulls over them and all-gathers the labels, then pushes to them,
+    which writes into any node's label, and all-reduces the pushes (min);
   * the reconnect: the component ids and centroids (O(N)) are computed
     whole on every rank; the (C+1, C+1) and (C+1, N) component tables are
     split by components and their argmins all-gathered; the link endpoints
@@ -32,6 +36,16 @@ Every rank ends with the same kept mask, labels and threshold, and its own
 rows of the adjacency. They equal ``build_graph``'s wherever the rank's
 similarity rows round as the rows of the whole matrix product do (the same
 matrix product kernel, row by row).
+
+The band build (``build_graph_band_sharded``) keeps O(N Wh) tensors only,
+(B, N, Wh) bands after a sort by x, so every rank builds the whole band, as
+it holds the whole inputs, and labels it whole (``labels.propagate`` in the
+band layout: the same neighbours round by round as the dense adjacency, so
+the same labels for either ``cc_impl``, on the card through the label
+kernel). What is split is its threshold, whose strided rows each rank takes
+from its own caller-order rows (the radix select above), and the (N, N)
+adjacency: each rank writes its caller-order rows from the band, then
+reconnects them as the dense build's rows.
 """
 
 from __future__ import annotations
@@ -40,6 +54,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from gims_tpu_torch.agc import labels as label_rounds
+from gims_tpu_torch.agc.band import _band_shear_bwd
 from gims_tpu_torch.agc.graph import (
     BIG,
     AGCGraph,
@@ -50,15 +66,20 @@ from gims_tpu_torch.agc.graph import (
     _nearest_component,
     _normalize_rows,
     _prune_small,
+    band_edges,
+    caller_labels,
     check_impls,
+    neighbor_list,
     percentile_k,
 )
 from gims_tpu_torch.agc.labels import _jump3
 from gims_tpu_torch.train import multihost as mh
 
 _SIGN = -2 ** 31
-# elements of a row chunk in one histogram pass of the radix select
-_CHUNK = 1 << 24
+# elements of a row chunk in one histogram pass of the radix select: its
+# temporaries take ~30 bytes an element, so a chunk of 4M keeps them near
+# 130 MB, under a rank's share of the (N, N) tensors at 4096 keypoints
+_CHUNK = 1 << 22
 
 
 def row_block(n: int, group) -> tuple:
@@ -146,6 +167,46 @@ def propagate_rows(adj_rows: torch.Tensor, valid: torch.Tensor, rounds: int, r0:
     idx = torch.arange(n, dtype=torch.int32, device=valid.device)
     label = one_round(torch.where(valid, idx, n))
     settled = torch.zeros(valid.shape[0], dtype=torch.bool, device=valid.device)
+    for _ in range(rounds):
+        new = one_round(label)
+        settled |= (new == label).all(dim=1)
+        if bool(settled.all()):
+            break
+        label = new
+    return label
+
+
+def propagate_sparse_rows(nbr_idx: torch.Tensor, nbr_ok: torch.Tensor, valid: torch.Tensor,
+                          rounds: int, r0: int, group) -> torch.Tensor:
+    """``labels.propagate("sparse", ...)`` over row blocks: nbr_idx and
+    nbr_ok (B, R, D) list the neighbours of this rank's rows [r0, r0 + R),
+    valid (B, N) is whole. Each round pulls the minimum label of the rows'
+    neighbours and all-gathers the (B, N) labels; then each rank pushes its
+    rows' labels to their neighbours, anywhere in [0, N), and the pushes are
+    all-reduced (min) before the three pointer jumps on the whole vector.
+    The rounds stop as ``labels._run_plain`` stops, on every rank at the
+    same round. Returns the (B, N) int32 labels, bit-equal to the unsharded
+    rounds."""
+    b, rows, d = nbr_idx.shape
+    n = valid.shape[1]
+    valid_rows = valid[:, r0:r0 + rows]
+    safe_nbr = torch.clamp(nbr_idx, max=n - 1).long().reshape(b, -1)
+    push_tgt = torch.where(nbr_ok, nbr_idx.long(), n).reshape(b, -1)
+
+    def one_round(label):
+        pulled = torch.where(nbr_ok, torch.gather(label, 1, safe_nbr).view(b, rows, d),
+                             n).amin(dim=-1)
+        mine = torch.minimum(label[:, r0:r0 + rows], torch.where(valid_rows, pulled, n))
+        label = mh.all_gather_cat(mine, 1, group)
+        src = mine[:, :, None].expand(b, rows, d).reshape(b, -1)
+        pushed = torch.full((b, n + 1), n, dtype=label.dtype, device=label.device)
+        pushed.scatter_reduce_(1, push_tgt, src, "amin", include_self=True)
+        pushed = mh.all_reduce(pushed[:, :n], "min", group)
+        return _jump3(torch.minimum(label, torch.where(valid, pushed, n)), n)
+
+    idx = torch.arange(n, dtype=torch.int32, device=valid.device)
+    label = one_round(torch.where(valid, idx, n))
+    settled = torch.zeros(b, dtype=torch.bool, device=valid.device)
     for _ in range(rounds):
         new = one_round(label)
         settled |= (new == label).all(dim=1)
@@ -305,6 +366,7 @@ def build_graph_sharded(
     threshold_impl: str = "exact",
     threshold_stride: int = 4,
     cc_impl: str = "dense",
+    cc_degree: int = 32,
     reconnect_impl: str = "exact",
     reconnect_buckets: int = 4096,
 ) -> AGCGraph:
@@ -313,13 +375,9 @@ def build_graph_sharded(
     kpts (B, N, 2), descs (B, N, D), valid (B, N): the same whole sets on
     every rank, N divisible by the group's size. Returns an AGCGraph whose
     adj is this rank's rows (B, N/P, N) and whose kept, labels and threshold
-    are whole and equal on every rank. ``cc_impl="sparse"`` is not ported
-    sharded and raises."""
+    are whole and equal on every rank."""
     check_impls(threshold_impl=threshold_impl, cc_impl=cc_impl,
                 reconnect_impl=reconnect_impl)
-    if cc_impl == "sparse":
-        raise NotImplementedError("cc_impl='sparse' under keypoint sharding is not ported; "
-                                  "see ROADMAP.md")
     bsz, n = valid.shape
     r0, rows = row_block(n, group)
     dev = kpts.device
@@ -329,13 +387,7 @@ def build_graph_sharded(
     pair_valid = valid_rows[:, :, None] & valid[:, None, :]
     off_diag = ridx[:, None] != idx[None, :]
 
-    # graph.pairwise_sq_dists of this rank's rows, without its (., N, 2)
-    # differences: the same sums of two squares
-    dx = kpts[:, r0:r0 + rows, None, 0] - kpts[:, None, :, 0]
-    d2 = dx * dx
-    dy = kpts[:, r0:r0 + rows, None, 1] - kpts[:, None, :, 1]
-    d2 += dy * dy
-    del dx, dy
+    d2 = _row_sq_dists(kpts, r0, rows)
     normed = _normalize_rows(descs)
     sim = torch.matmul(normed[:, r0:r0 + rows], normed.transpose(-1, -2))
 
@@ -359,6 +411,27 @@ def build_graph_sharded(
     adj = pvod & (d2 <= _f32_square(radius)) & (sim >= threshold[:, None, None])
     del sim
 
+    if cc_impl == "sparse":
+        # the rows' neighbour lists (one sort a row, as graph.neighbor_list);
+        # the fix edge rides the list, the push covers its reverse
+        nbr_idx, nbr_ok, top_key = neighbor_list(d2, adj, pvod, cc_degree)
+        has_any_edge = mh.all_reduce(nbr_ok.flatten(1).any(dim=1), "max", group)
+        isolated_rows = (valid_rows & (nbr_ok.sum(dim=2) == 0) & has_any_edge[:, None]
+                         & (top_key[..., 0] < BIG))
+        nn_rows = torch.clamp(nbr_idx[..., 0], max=n - 1)
+        nbr_ok[..., 0] |= isolated_rows
+        labels = propagate_sparse_rows(nbr_idx, nbr_ok, valid, cc_rounds, r0, group)
+        del nbr_idx, nbr_ok, top_key
+        isolated = mh.all_gather_cat(isolated_rows, 1, group)
+        nn_idx = mh.all_gather_cat(nn_rows, 1, group)
+        fix = isolated_rows[:, :, None] & (idx[None, None, :] == nn_rows[:, :, None])
+        fix_t = isolated[:, None, :] & (nn_idx[:, None, :] == ridx[None, :, None])
+        kept = _prune_small(labels, valid, min_size)
+        adj = (adj | fix | fix_t) & kept[:, r0:r0 + rows, None] & kept[:, None, :]
+        del fix, fix_t, pvod, pair_valid
+        return _reconnect_any(adj, kpts, d2, labels, kept, threshold, r0, group,
+                              reconnect_impl, reconnect_buckets)
+
     # --- isolated nodes to their nearest spatial neighbour ---
     degree = adj.sum(dim=2)
     has_any_edge = mh.all_reduce(adj.flatten(1).any(dim=1), "max", group)
@@ -377,9 +450,91 @@ def build_graph_sharded(
     labels = propagate_rows(adj, valid, cc_rounds, r0, group)
     kept = _prune_small(labels, valid, min_size)
     adj = adj & kept[:, r0:r0 + rows, None] & kept[:, None, :]
+    return _reconnect_any(adj, kpts, d2, labels, kept, threshold, r0, group, reconnect_impl,
+                          reconnect_buckets)
 
+
+def _reconnect_any(adj, kpts, d2, labels, kept, threshold, r0, group, reconnect_impl,
+                   reconnect_buckets) -> AGCGraph:
+    """The reconnect of this rank's rows (`d2` its rows' squared distances,
+    read by the exact reconnect), as an AGCGraph."""
     if reconnect_impl == "centroid":
         adj = _reconnect_centroid_rows(adj, kpts, labels, kept, r0, group, reconnect_buckets)
     else:
         adj = _reconnect_rows(adj, kpts, d2, labels, kept, r0, group, reconnect_buckets)
     return AGCGraph(adj, kept, labels, threshold)
+
+
+def _row_sq_dists(kpts: torch.Tensor, r0: int, rows: int) -> torch.Tensor:
+    """graph.pairwise_sq_dists of rows [r0, r0 + rows), without its
+    (., N, 2) differences: the same sums of two squares."""
+    dx = kpts[:, r0:r0 + rows, None, 0] - kpts[:, None, :, 0]
+    d2 = dx * dx
+    dy = kpts[:, r0:r0 + rows, None, 1] - kpts[:, None, :, 1]
+    d2 += dy * dy
+    return d2
+
+
+def build_graph_band_sharded(
+    kpts: torch.Tensor,
+    descs: torch.Tensor,
+    valid: torch.Tensor,
+    radius: float,
+    percentile: float,
+    min_size: int,
+    group,
+    cc_rounds: int = 20,
+    threshold_stride: int = 4,
+    band_halfwidth: int = 512,
+    reconnect_impl: str = "centroid",
+    reconnect_buckets: int = 1024,
+) -> AGCGraph:
+    """``graph.build_graph_band`` with the keypoint axis split over `group`
+    (the module's docstring): the same whole (B, N, .) sets on every rank,
+    N divisible by the group's size; returns this rank's caller-order
+    adjacency rows (B, N/P, N) and the whole kept, labels and threshold,
+    equal on every rank. The deferred un-permutation is an unsharded path
+    (as in JAX's ``forward_match``), so rows are always in the caller's
+    order. It takes no ``cc_impl``: the band rounds give the labels of
+    ``build_graph_band``'s "band" and "dense" alike."""
+    check_impls(reconnect_impl=reconnect_impl)
+    n_in = valid.shape[1]
+    r0, rows = row_block(n_in, group)
+    s = max(int(threshold_stride), 1)
+
+    def threshold_of(normed_u, valid_p):
+        # the strided rows of this rank's caller rows, reduced across ranks
+        idx = torch.arange(valid_p.shape[1], device=valid_p.device)
+        sub = idx[r0:r0 + rows]
+        sub = sub[sub % s == 0]
+        sim = torch.matmul(normed_u[:, sub], normed_u.transpose(1, 2))
+        mask = valid_p[:, sub, None] & valid_p[:, None, :] & (sub[:, None] < idx[None, :])
+        return kth_smallest_sharded(sim, mask, lambda cnt: _f32_rank(cnt, percentile), group)
+
+    kpts_p, _, perm, inv, va, band, threshold = band_edges(
+        kpts, descs, valid, radius, band_halfwidth, threshold_of)
+    bsz, n, wh = band.shape
+    labels = label_rounds.propagate("band", band, va, cc_rounds)
+    kept, labels = caller_labels(_prune_small(labels, va, min_size), labels, perm, inv)
+
+    # this rank's caller rows of the symmetric adjacency, from the band: the
+    # sorted row a holds edge(a, a + 1 + m) forward and edge(a, a - 1 - m)
+    # in the band's backward view; placed by sorted column, then the columns
+    # gathered into the caller's order
+    a = inv[:, r0:r0 + rows]
+    m = torch.arange(wh, device=band.device)
+    off = wh + 1
+    cols = torch.cat([a[..., None] + 1 + m + off, a[..., None] - 1 - m + off], dim=2)
+    sel = a[..., None].expand(bsz, rows, wh)
+    vals = torch.cat([torch.gather(band, 1, sel), torch.gather(_band_shear_bwd(band), 1, sel)],
+                     dim=2)
+    buf = torch.zeros((bsz, rows, n + 2 * off), dtype=torch.bool, device=band.device)
+    adj = torch.gather(buf.scatter_(2, cols, vals)[..., off:off + n], 2,
+                       inv[:, None, :].expand(bsz, rows, n))
+    del buf, vals, cols
+    adj = adj & kept[:, r0:r0 + rows, None] & kept[:, None, :]
+    d2 = _row_sq_dists(kpts_p, r0, rows) if reconnect_impl == "exact" else None
+    g = _reconnect_any(adj, kpts_p, d2, labels, kept, threshold, r0, group, reconnect_impl,
+                       reconnect_buckets)
+    return AGCGraph(g.adj[..., :n_in], kept[:, :n_in], torch.clamp(labels[:, :n_in], max=n_in),
+                    threshold)

@@ -48,10 +48,26 @@ def gray_to_bgr(img):
 
 
 def _colour(img, color):
+    """The colour as OpenCV's scalarToRawData writes it into `img`'s type:
+    rounded and saturated for uint8, converted as it is for floats."""
     c = np.asarray(color, np.float64).reshape(-1)
     n = 1 if img.ndim == 2 else img.shape[2]
     c = np.concatenate([c, np.zeros(max(0, n - len(c)))])[:n]
+    if img.dtype.kind == "f":
+        return c.astype(img.dtype)
     return np.clip(np.rint(c), 0, 255).astype(np.uint8)
+
+
+def _line_type(img, line_type):
+    """LINE_AA draws as LINE_8 on images that are not uint8 (OpenCV's rule);
+    anti-aliased uint8 shapes are not ported."""
+    if line_type == LINE_AA and img.dtype != np.uint8:
+        return LINE_8
+    if line_type != LINE_8:
+        raise NotImplementedError(f"line type {line_type} on a {img.dtype} image: only LINE_8 "
+                                  "(and LINE_AA where it draws as LINE_8) is ported "
+                                  "(ROADMAP.md §1)")
+    return line_type
 
 
 def _paint(img, ys, xs, colour):
@@ -74,6 +90,14 @@ def clip_line(width, height, p1, p2):
     or None when nothing of it lies inside."""
     if width <= 0 or height <= 0:
         return None
+    inside, q1, q2 = _clip_points(width, height, p1, p2)
+    return (q1, q2) if inside else None
+
+
+def _clip_points(width, height, p1, p2):
+    """OpenCV's ``clipLine`` with its points as it leaves them: (inside,
+    p1, p2), the points moved toward the image even where nothing of the
+    segment lies inside (``fill_poly`` reads them so)."""
     x1, y1 = p1
     x2, y2 = p2
     right, bottom = width - 1, height - 1
@@ -101,9 +125,7 @@ def clip_line(width, height, p1, p2):
                 y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
                 x2 = a
                 c2 = 0
-    if c1 | c2:
-        return None
-    return (x1, y1), (x2, y2)
+    return not (c1 | c2), (x1, y1), (x2, y2)
 
 
 def line_pixels(width, height, p1, p2):
@@ -168,8 +190,9 @@ def circle(img, center, radius, color, thickness=1):
     return img
 
 
-def rectangle(img, pt1, pt2, color, thickness=1):
+def rectangle(img, pt1, pt2, color, thickness=1, line_type=LINE_8):
     """``cv2.rectangle``, filled (``thickness < 0``) or of thickness 1."""
+    _line_type(img, line_type)
     x1, y1 = int(pt1[0]), int(pt1[1])
     x2, y2 = int(pt2[0]), int(pt2[1])
     if thickness < 0:
@@ -311,6 +334,184 @@ def _thick_line(img, p0, p1, colour, thickness, flags):
             centre = ((p[0] + (_XY_ONE >> 1)) >> _XY_SHIFT, (p[1] + (_XY_ONE >> 1)) >> _XY_SHIFT)
             ys, xs = circle_pixels(centre, radius, True)
             _paint(img, ys, xs, colour)
+
+
+# OpenCV's SinTable: sin(i degrees), i = 0 .. 450, as its float literals
+# (7 decimals)
+_SIN_TABLE = np.round(np.sin(np.deg2rad(np.arange(451))), 7).astype(np.float32).astype(np.float64)
+
+
+def ellipse2poly(center, axes, angle, arc_start, arc_end, delta):
+    """OpenCV's ``ellipse2Poly`` on double points: the arc's vertices every
+    `delta` degrees (integer angles, its sine table in float32)."""
+    angle = int(angle)
+    while angle < 0:
+        angle += 360
+    while angle > 360:
+        angle -= 360
+    if arc_start > arc_end:
+        arc_start, arc_end = arc_end, arc_start
+    while arc_start < 0:
+        arc_start += 360
+        arc_end += 360
+    while arc_end > 360:
+        arc_end -= 360
+        arc_start -= 360
+    if arc_end - arc_start > 360:
+        arc_start, arc_end = 0, 360
+    a = angle + (360 if angle < 0 else 0)
+    alpha, beta = _SIN_TABLE[450 - a], _SIN_TABLE[a]  # cos, sin
+    pts = []
+    for i in range(arc_start, arc_end + delta, delta):
+        ang = min(i, arc_end)
+        if ang < 0:
+            ang += 360
+        x = axes[0] * _SIN_TABLE[450 - ang]
+        y = axes[1] * _SIN_TABLE[ang]
+        pts.append((center[0] + x * alpha - y * beta, center[1] + x * beta + y * alpha))
+    if len(pts) == 1:
+        pts = [tuple(center)] * 2
+    return pts
+
+
+def ellipse(img, center, axes, angle, start_angle, end_angle, color, thickness=1,
+            line_type=LINE_8):
+    """``cv2.ellipse`` filled (``thickness < 0``) over a whole turn, of
+    ``LINE_8`` (and ``LINE_AA`` on a float image, where OpenCV draws it as
+    ``LINE_8``): OpenCV's ``EllipseEx``, the vertices of ``ellipse2poly`` in
+    16-bit fixed point, then ``FillConvexPoly``. Outlines and partial arcs
+    raise (``ROADMAP.md`` §1)."""
+    _line_type(img, line_type)
+    angle, start, end = (int(np.rint(a)) for a in (angle, start_angle, end_angle))
+    if thickness >= 0 or end - start < 360:
+        raise NotImplementedError("ellipse: only a filled whole turn is ported (ROADMAP.md §1)")
+    cx, cy = int(center[0]) << _XY_SHIFT, int(center[1]) << _XY_SHIFT
+    aw, ah = abs(int(axes[0])) << _XY_SHIFT, abs(int(axes[1])) << _XY_SHIFT
+    delta = (max(aw, ah) + (_XY_ONE >> 1)) >> _XY_SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 else 5
+    v = []
+    for x, y in ellipse2poly((float(cx), float(cy)), (float(aw), float(ah)), angle, start, end,
+                             delta):
+        px = int(np.rint(x / _XY_ONE)) << _XY_SHIFT
+        py = int(np.rint(y / _XY_ONE)) << _XY_SHIFT
+        pt = (px + int(np.rint(x - px)), py + int(np.rint(y - py)))
+        if not v or pt != v[-1]:
+            v.append(pt)
+    if len(v) == 1:
+        v = [(cx, cy)] * 2
+    _fill_convex_poly(img, v, _colour(img, color), _XY_SHIFT)
+    return img
+
+
+def _collect_poly_edges(img, v, edges, colour):
+    """OpenCV's ``CollectPolyEdges`` of ``LINE_8`` on integer points (no
+    fractional bits, no offset): each edge's outline by ``Line``, and its
+    [y0, y1, x, dx] (x in 16-bit fixed point, the edge's endpoints clipped
+    to the image where its outline leaves it)."""
+    h, w = img.shape[:2]
+    half = _XY_ONE >> 1
+    pt0 = (v[-1][0] << _XY_SHIFT, v[-1][1])
+    for p in v:
+        pt1 = (p[0] << _XY_SHIFT, p[1])
+        c0, c1 = list(pt0), list(pt1)
+        t0 = ((pt0[0] + half) >> _XY_SHIFT, pt0[1])
+        t1 = ((pt1[0] + half) >> _XY_SHIFT, pt1[1])
+        _paint(img, *line_pixels(w, h, t0, t1), colour)
+        if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            # the edge from its outline clipped to the image: its x always,
+            # its y where the clipped outline is not one row
+            _, t0, t1 = _clip_points(w, h, t0, t1)
+            if t0[1] != t1[1]:
+                c0[1], c1[1] = t0[1], t1[1]
+            c0[0], c1[0] = t0[0] << _XY_SHIFT, t1[0] << _XY_SHIFT
+        if pt0[1] != pt1[1]:
+            dx = _cdiv(c1[0] - c0[0], c1[1] - c0[1])
+            if pt0[1] < pt1[1]:
+                edges.append([pt0[1], pt1[1], c0[0] + (pt0[1] - c0[1]) * dx, dx])
+            else:
+                edges.append([pt1[1], pt0[1], c1[0] + (pt1[1] - c1[1]) * dx, dx])
+        pt0 = pt1
+
+
+def _fill_edge_collection(img, edges, colour):
+    """OpenCV's ``FillEdgeCollection`` of ``LINE_8``: the scanline fill of
+    an edge list (even-odd spans of the active edges, kept sorted by x with
+    its bubble sort)."""
+    h, w = img.shape[:2]
+    if len(edges) < 2:
+        return
+    ends = [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    y_min, y_max = min(e[0] for e in edges), max(e[1] for e in edges)
+    x_min = min(min(e[2] for e in edges), min(ends))
+    x_max = max(max(e[2] for e in edges), max(ends))
+    if y_max < 0 or y_min >= h or x_max < 0 or x_min >= (w << _XY_SHIFT):
+        return
+    edges = sorted(edges, key=lambda e: (e[0], e[2], e[3]))
+    total = len(edges)
+    i = 0
+    active = []  # the active list, in its linked order
+    y_max = min(y_max, h)
+    y = edges[0][0]
+    while y < y_max:
+        draw = False
+        pos = 0
+        prelast = None
+        while pos < len(active) or (i < total and edges[i][0] == y):
+            last = active[pos] if pos < len(active) else None
+            if last is not None and last[1] == y:
+                del active[pos]  # the edge ends at y
+                continue
+            keep = prelast
+            if last is not None and (i >= total or edges[i][0] > y or last[2] < edges[i][2]):
+                prelast = last
+                pos += 1
+            elif i < total:
+                active.insert(pos, edges[i])  # the edge starts at y
+                prelast = edges[i]
+                pos += 1
+                i += 1
+            else:
+                break
+            if draw:
+                if y >= 0:
+                    if keep[2] > prelast[2]:
+                        x1, x2 = (prelast[2] + _XY_ONE - 1) >> _XY_SHIFT, keep[2] >> _XY_SHIFT
+                    else:
+                        x1, x2 = (keep[2] + _XY_ONE - 1) >> _XY_SHIFT, prelast[2] >> _XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0):min(x2, w - 1) + 1] = colour if img.ndim == 3 \
+                            else colour[0]
+                keep[2] += keep[3]
+                prelast[2] += prelast[3]
+            draw = not draw
+        # OpenCV's bubble sort of the active list by x
+        stop = None
+        while active:
+            j, exchanged = 0, None
+            while j + 1 < len(active) and active[j] is not stop:
+                if active[j][2] > active[j + 1][2]:
+                    active[j], active[j + 1] = active[j + 1], active[j]
+                    exchanged = active[j]
+                j += 1
+            if exchanged is None or exchanged is active[0]:
+                break
+            stop = exchanged
+        y += 1
+
+
+def fill_poly(img, pts, color, line_type=LINE_8):
+    """``cv2.fillPoly`` of ``LINE_8`` (and ``LINE_AA`` on a float image,
+    where OpenCV draws it as ``LINE_8``) on integer points: any polygons,
+    convex or not, filled by the even-odd rule through OpenCV's edge list."""
+    _line_type(img, line_type)
+    colour = _colour(img, color)
+    edges = []
+    for poly in pts:
+        v = np.asarray(poly).reshape(-1, 2).astype(np.int64).tolist()
+        if v:
+            _collect_poly_edges(img, v, edges, colour)
+    _fill_edge_collection(img, edges, colour)
+    return img
 
 
 def polylines(img, pts, is_closed, color, thickness=1):

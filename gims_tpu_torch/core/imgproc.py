@@ -59,6 +59,7 @@ evaluation and pair generation (``gims_tpu/eval/homography.py``,
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 INTER_LINEAR = 1
 INTER_CUBIC = 2
@@ -302,6 +303,20 @@ def _resize_cubic_float(src, w, h):
 def _resize_linear_f32(src, w, h):
     """INTER_LINEAR of a float32 (H, W, C) image."""
     h_in, w_in = src.shape[:2]
+    fx, fy = w // w_in, h // h_in
+    if (w, h) == (fx * w_in, fy * h_in) and all(f & (f - 1) == 0 for f in (fx, fy)):
+        # the IPP build's upscale by powers of two: along x, then along y,
+        # each tap pair as fma(x1 - x0, t, x0) with the fraction t
+        xi, xw = _axis_taps(w, w_in, INTER_LINEAR)
+        yi, yw = _axis_taps(h, h_in, INTER_LINEAR)
+
+        def lerp(a, b, t):
+            return ((b - a).astype(np.float64) * t + a).astype(np.float32)
+
+        rows = lerp(src[:, xi[:, 0]], src[:, xi[:, 1]],
+                    xw[None, :, 1, None].astype(np.float32).astype(np.float64))
+        return lerp(rows[yi[:, 0]], rows[yi[:, 1]],
+                    yw[:, 1, None, None].astype(np.float32).astype(np.float64))
     if w_in == 2 * w and h_in == 2 * h:
         # the IPP build's exact 2x shrink: a lerp by 1/2 along x, then along y
         s = src[:2 * h, :2 * w]
@@ -394,11 +409,47 @@ def _reflect101(n, r):
     return np.where(i >= n, 2 * (n - 1) - i, i)
 
 
+def _gaussian_blur_float(src, sigma):
+    """``cv2.GaussianBlur`` of a float32 or float64 (H, W, C) image, as
+    OpenCV's build computes it, REFLECT_101. float32: ``sift.gaussian_blur``
+    (the fused multiply-add order of OpenCV's vector code) on the channels
+    interleaved along a row. float64: rows as the chain k0 x0, then
+    + k_i x_i; columns from the centre tap out, k_c x_c, then
+    + k_i (x_{c+i} + x_{c-i}) (OpenCV fuses the rows' multiply-adds: a few
+    ulps apart)."""
+    from gims_tpu_torch.frontend.sift import gaussian_blur as blur_f32, gaussian_kernel
+
+    h, w, cn = src.shape
+    if src.dtype == np.float32:
+        out = blur_f32(torch.from_numpy(np.ascontiguousarray(src).reshape(h, w * cn)), sigma, cn)
+        return out.numpy().reshape(h, w, cn)
+    k = gaussian_kernel(sigma, np.float64)
+    n, half = len(k), len(k) // 2
+    width = w * cn
+    x = src[:, _reflect101(w, half)].reshape(h, -1)
+    s = x[:, :width] * float(k[0])
+    for i in range(1, n):
+        s = s + float(k[i]) * x[:, i * cn:i * cn + width]
+    y = s[_reflect101(h, half)]
+    t = y[half:half + h] * float(k[half])
+    for i in range(1, half + 1):
+        t = t + float(k[half + i]) * (y[half + i:half + i + h] + y[half - i:half - i + h])
+    return t.reshape(h, w, cn)
+
+
 def gaussian_blur(img, sigma):
-    """``cv2.GaussianBlur(img, (0, 0), sigma)`` on uint8 images."""
+    """``cv2.GaussianBlur(img, (0, 0), sigma)`` on uint8, float32 and float64
+    images. uint8 and float32 equal OpenCV to the bit (float32 through
+    ``_gaussian_blur_float``; a few pixels of the last columns of narrow
+    one-channel images, whose width is not a multiple of 4, can differ by
+    an ulp); float64 within a few ulps (1e-15 relative)."""
     src, flat = _as_hwc(img)
+    if src.dtype in (np.float32, np.float64):
+        out = _gaussian_blur_float(src, sigma)
+        return out[..., 0] if flat else out
     if src.dtype != np.uint8:
-        raise NotImplementedError(f"gaussian_blur of {src.dtype}: only uint8 is ported")
+        raise NotImplementedError(f"gaussian_blur of {src.dtype}: only uint8, float32 and "
+                                  "float64 are ported")
     ksize = int(np.floor(sigma * 6 + 1 + 0.5)) | 1
     k = gaussian_kernel_fixed(sigma, ksize)
     r = ksize // 2

@@ -21,8 +21,8 @@
 // out' = (out_a w_a + out_b w_b) / (w_a + w_b). Without stats (a null
 // pointer) the kernels do and store what they did before.
 //
-// Head widths: any D up to 8192 (bf16) and 5120 (f32). Up to 256 the two
-// column-block kernels below work on column blocks of 64:
+// Head widths: any D. Up to 256 the two column-block kernels below work on
+// column blocks of 64:
 // one block for D <= 64, two for D <= 128, three for D <= 192, four for
 // D <= 256 (the f32 kernel takes three as four). Columns from D up to the
 // block's end are read as zeros (TMA's out-of-bounds fill, or the f32
@@ -82,10 +82,17 @@
 //     f32 (two row groups of 32 rows by four column quarters, up to 40
 //     tiles of 8 columns: D <= 320 in one CTA);
 //   * past that, over the CTAs of a thread-block cluster, which share the
-//     query rows and split the column blocks evenly. A cluster holds at
-//     most 16 CTAs, so D <= 8192 in bf16 and 5120 in f32; wider heads, which
-//     JAX's kernel takes, are refused (they would need Q K^T over more
-//     columns than a cluster holds, recomputed by several clusters).
+//     query rows and split the column blocks evenly (a cluster holds at
+//     most 16 CTAs: D <= 8192 in bf16 and 5120 in f32);
+//   * past that, over rep clusters of nz CTAs, the head cut into nz * rep
+//     chunks. Each cluster owns rep's share of the output columns for P V,
+//     and each computes the whole Q K^T of its rows: its CTA of rank zc
+//     sums the partial scores of chunks zc * rep .. zc * rep + rep - 1, one
+//     after another in that order, each chunk's Q and K streamed through
+//     shared memory with the key tile (Q is no longer resident), and P V
+//     runs on chunk zc * rep + c in cluster c. Every cluster sums the same
+//     partials in the same order, so all hold the same bits of S and P: the
+//     output is one softmax, and nothing is allocated beside it.
 //   Each warp (warpgroup) computes its partial S = Q K^T over its own
 //   columns; the partials go through shared memory (distributed shared
 //   memory across the cluster), and every warp of the row sums all of them
@@ -952,8 +959,8 @@ template <int C, int kKeys>
 __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const uint8_t* __restrict__ key_mask,
-    __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, int cb, long long osb,
-    long long osn, long long osh, long long mask_sb, float scale_log2,
+    __nv_bfloat16* __restrict__ out, int N, int M, int H, int D, int cb, int rep,
+    long long osb, long long osn, long long osh, long long mask_sb, float scale_log2,
     float* __restrict__ stats) {
   constexpr uint32_t kQBytes = kWideRows * kBlockD * 2;
   constexpr uint32_t kTileBytes = kKeys * kBlockD * 2;
@@ -972,15 +979,25 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * kWideRows;
-  const int z = blockIdx.z;
-  const int nz = gridDim.z;
-  const int blk0 = z * cb;  // the CTA's first column block
-  const int nbz = min(cb, (D + kBlockD - 1) / kBlockD - blk0);
-  const int half = (nbz + 1) / 2;
+  const int nz = gridDim.z / rep;  // CTAs of one cluster
+  const int zc = blockIdx.z % nz;  // this CTA's rank in its cluster
+  const int nb = (D + kBlockD - 1) / kBlockD;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
-  const int wb0 = wg == 0 ? 0 : half;  // the warpgroup's first block in the CTA
-  const int nbw = wg == 0 ? half : nbz - half;
+  // the warpgroup's share of chunk ch (cb column blocks from block ch * cb):
+  // its first block in the chunk and its count of blocks
+  auto wg_share = [&](int ch, int& first, int& count) {
+    const int nbz = max(0, min(cb, nb - ch * cb));
+    const int half = (nbz + 1) / 2;
+    first = wg == 0 ? 0 : half;
+    count = wg == 0 ? half : nbz - half;
+  };
+  // the chunk of P V and of the output: the CTA's own, or, where a head spans
+  // rep clusters, the one of its rep chunks of Q K^T that its cluster owns
+  const int pv = zc * rep + blockIdx.z / nz;
+  const int blk0 = pv * cb;  // the CTA's first column block of P V
+  int wb0, nbw;              // the warpgroup's first block in that chunk, and count
+  wg_share(pv, wb0, nbw);
   const int n_tiles = (M + kKeys - 1) / kKeys;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -996,20 +1013,27 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
   // before any reads a peer's shared memory
   exchange_sync(nz);
 
+  // K and V of tile t into stage s (V alone where a head spans clusters:
+  // K then comes chunk by chunk with Q)
   auto load_tile = [&](int t, int s) {
-    mbar_arrive_expect_tx(&my_full[s], 2 * nbw * kTileBytes);
+    mbar_arrive_expect_tx(&my_full[s], (rep == 1 ? 2 : 1) * nbw * kTileBytes);
     for (int i = 0; i < nbw; ++i) {
       const int c = wb0 + i;
       const int col = kBlockD * (blk0 + c);
-      tma_load(k_sm + (s * cb + c) * kKeys * kBlockD, &k_map, &my_full[s], col, h, t * kKeys, b);
+      if (rep == 1) {
+        tma_load(k_sm + (s * cb + c) * kKeys * kBlockD, &k_map, &my_full[s], col, h, t * kKeys,
+                 b);
+      }
       tma_load(v_sm + (s * cb + c) * kKeys * kBlockD, &v_map, &my_full[s], col, h, t * kKeys, b);
     }
   };
   if (tid == 0) {
-    mbar_arrive_expect_tx(&q_full[wg], nbw * kQBytes);
-    for (int i = 0; i < nbw; ++i) {
-      tma_load(q_sm + (wb0 + i) * kWideRows * kBlockD, &q_map, &q_full[wg],
-               kBlockD * (blk0 + wb0 + i), h, q0, b);
+    if (rep == 1) {  // Q stays resident
+      mbar_arrive_expect_tx(&q_full[wg], nbw * kQBytes);
+      for (int i = 0; i < nbw; ++i) {
+        tma_load(q_sm + (wb0 + i) * kWideRows * kBlockD, &q_map, &q_full[wg],
+                 kBlockD * (blk0 + wb0 + i), h, q0, b);
+      }
     }
     load_tile(0, 0);
   }
@@ -1023,35 +1047,62 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
   float m_lo = kNegInf, m_hi = kNegInf;  // running max (base 2)
   float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sum
   const uint8_t* mb = key_mask + b * mask_sb;
-  mbar_wait(&q_full[wg], 0);
+  if (rep == 1) mbar_wait(&q_full[wg], 0);
+  uint32_t qk_phase = 0;  // q_full's phase where Q and K come chunk by chunk
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t & 1;
     // the warpgroup is done with tile t - 1, so its stage s ^ 1 is free
     named_sync(1 + wg, 128);
     if (tid == 0 && t + 1 < n_tiles) load_tile(t + 1, s ^ 1);
-    mbar_wait(&my_full[s], (t >> 1) & 1);
 
-    // the partial S over this warpgroup's column blocks
+    // the partial S over this warpgroup's column blocks: its own, or, where
+    // the head spans rep clusters, those of the CTA's rep chunks of Q K^T,
+    // one after another, each chunk's Q and K through Q's slots and K's
+    // first stage, summed in chunk order (the same in every cluster)
     float sc[kKeys / 2];
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
-    fence_regs(sc);
-    wgmma_fence();
+    for (int j = 0; j < rep; ++j) {
+      int first = wb0, count = nbw, ks = s;  // count blocks from `first`, K's stage
+      if (rep == 1) {
+        mbar_wait(&my_full[s], (t >> 1) & 1);
+      } else {
+        const int ch = zc * rep + j;
+        wg_share(ch, first, count);
+        ks = 0;
+        if (j > 0) named_sync(1 + wg, 128);  // every thread is done with chunk j - 1
+        if (tid == 0) {
+          mbar_arrive_expect_tx(&q_full[wg], count * (kQBytes + kTileBytes));
+          for (int i = 0; i < count; ++i) {
+            const int col = kBlockD * (ch * cb + first + i);
+            tma_load(q_sm + (first + i) * kWideRows * kBlockD, &q_map, &q_full[wg], col, h, q0,
+                     b);
+            tma_load(k_sm + (first + i) * kKeys * kBlockD, &k_map, &q_full[wg], col, h,
+                     t * kKeys, b);
+          }
+        }
+        mbar_wait(&q_full[wg], qk_phase);
+        qk_phase ^= 1;
+      }
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      if (i < nbw) {
-        const uint64_t q_desc = sw128_desc(q_sm + (wb0 + i) * kWideRows * kBlockD);
-        const uint64_t k_desc = sw128_desc(k_sm + (s * cb + wb0 + i) * kKeys * kBlockD);
+      for (int i = 0; i < C; ++i) {
+        if (i < count) {
+          const uint64_t q_desc = sw128_desc(q_sm + (first + i) * kWideRows * kBlockD);
+          const uint64_t k_desc = sw128_desc(k_sm + (ks * cb + first + i) * kKeys * kBlockD);
 #pragma unroll
-        for (int kk = 0; kk < kBlockD / 16; ++kk) {  // +32 bytes per step
-          wgmma_qk<kKeys>(sc, q_desc + 2 * kk, k_desc + 2 * kk, 1);
+          for (int kk = 0; kk < kBlockD / 16; ++kk) {  // +32 bytes per step
+            wgmma_qk<kKeys>(sc, q_desc + 2 * kk, k_desc + 2 * kk, 1);
+          }
         }
       }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sc);
+    if (rep > 1) mbar_wait(&my_full[s], (t >> 1) & 1);  // V of tile t
 
     // S: every partial of the head, summed in the order (chunk, warpgroup);
     // a thread's pairs are those of the same thread of every warpgroup
@@ -1156,7 +1207,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_tc_kernel(
   const float den_hi = fmaxf(sum_hi, 1e-30f);
   const int row_lo = q0 + r_lo;
   const int row_hi = row_lo + 8;
-  if (stats != nullptr && z == 0 && wg == 0 && cq == 0) {  // every warpgroup holds the same
+  if (stats != nullptr && blockIdx.z == 0 && wg == 0 && cq == 0) {  // every warpgroup holds the same
     if (row_lo < N) {
       float* st = stats + (((long long)b * N + row_lo) * H + h) * 2;
       st[0] = m_lo;
@@ -1241,8 +1292,8 @@ __host__ __device__ inline size_t wide_f32_smem(int ntc, int nz) {
 __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ key_mask, float* __restrict__ out, int N, int M, int H, int D,
-    int ntc, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb, float scale_log2,
-    float* __restrict__ stats, int vec) {
+    int ntc, int rep, Strides qs, Strides ks, Strides vs, Strides os, long long mask_sb,
+    float scale_log2, float* __restrict__ stats, int vec) {
   constexpr int kKeys = kWideF32Keys;
   constexpr int kCT = kWideTiles / 4;  // a warp's column tiles, at most
   constexpr int kNT = kKeys / 8;       // a tile's key groups of 8
@@ -1264,23 +1315,36 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int q0 = blockIdx.x * kWideRows;
-  const int z = blockIdx.z;
-  const int nz = gridDim.z;
-  const int nt0 = z * ntc;  // the CTA's first column tile
-  const int ntz = min(ntc, (D + 7) / 8 - nt0);
-  const int quarter = (ntz + 3) / 4;
-  const int gw0 = min(w * quarter, ntz);  // the warp's first column tile in the CTA
-  const int ntw = min(ntz, gw0 + quarter) - gw0;
-  const int col0 = 8 * nt0;
+  const int nz = gridDim.z / rep;  // CTAs of one cluster
+  const int zc = blockIdx.z % nz;  // this CTA's rank in its cluster
+  const int ntt = (D + 7) / 8;
+  // chunk ch's 8-column tiles (ntc from tile ch * ntc), and the warp's quarter
+  // of them: its first tile in the chunk and its count
+  auto chunk_tiles = [&](int ch) { return max(0, min(ntc, ntt - ch * ntc)); };
+  auto warp_share = [&](int ch, int& first, int& count) {
+    const int ntz = chunk_tiles(ch);
+    const int quarter = (ntz + 3) / 4;
+    first = min(w * quarter, ntz);
+    count = min(ntz, first + quarter) - first;
+  };
+  // the chunk of P V and of the output: the CTA's own, or, where a head spans
+  // rep clusters, the one of its rep chunks of Q K^T that its cluster owns
+  const int pv = zc * rep + blockIdx.z / nz;
+  const int ntz = chunk_tiles(pv);
+  int gw0, ntw;  // the warp's first column tile in that chunk, and count
+  warp_share(pv, gw0, ntw);
+  const int col0 = 8 * pv * ntc;
   const int n_tiles = (M + kKeys - 1) / kKeys;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const uint8_t* mb = key_mask + b * mask_sb;
 
-  load_rows_wide<kWideRows>(q_sm, kS, q + b * qs.b + h * qs.h, qs.n, q0, N, col0, 8 * ntz, D,
-                            vec);
-  load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, 0, M, col0, 8 * ntz, D, vec);
-  cp_async_commit();
+  const float* qb = q + b * qs.b + h * qs.h;
+  if (rep == 1) {  // Q stays resident, K comes a tile ahead
+    load_rows_wide<kWideRows>(q_sm, kS, qb, qs.n, q0, N, col0, 8 * ntz, D, vec);
+    load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, 0, M, col0, 8 * ntz, D, vec);
+    cp_async_commit();
+  }
   // every CTA of the cluster has started before any reads a peer's shared memory
   if (nz > 1) cg::this_cluster().sync();
 
@@ -1304,8 +1368,8 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int key0 = tile * kKeys;
-    cp_async_wait0();  // K(tile) landed
-    __syncthreads();   // for every thread; P V(tile - 1) is done, so V's tile is free
+    if (rep == 1) cp_async_wait0();  // K(tile) landed
+    __syncthreads();  // for every thread; P V(tile - 1) is done, so V's tile is free
     load_rows_wide<kKeys>(v_sm, kS, vb, vs.n, key0, M, col0, 8 * ntz, D, vec);
     cp_async_commit();
     if (threadIdx.x < kKeys) {  // read after the exchange barrier below
@@ -1321,29 +1385,53 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
 #pragma unroll
       for (int j = 0; j < kNT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
     }
+    // count column tiles from `first` of Q's and K's tiles in shared memory
+    auto qk_partial = [&](int first, int count) {
 #pragma unroll
-    for (int i = 0; i < kCT; ++i) {
-      if (i >= ntw) break;
-      const int c = 8 * (gw0 + i) + t;
-      uint32_t a_hi[2][4], a_lo[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* qr = q_warp + (16 * mt + g) * kS + c;
-        split_tf32(qr[0], a_hi[mt][0], a_lo[mt][0]);
-        split_tf32(qr[8 * kS], a_hi[mt][1], a_lo[mt][1]);
-        split_tf32(qr[4], a_hi[mt][2], a_lo[mt][2]);
-        split_tf32(qr[8 * kS + 4], a_hi[mt][3], a_lo[mt][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float* kr = k_sm + (8 * j + g) * kS + c;
-        uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
-        split_tf32(kr[0], b_hi0, b_lo0);
-        split_tf32(kr[4], b_hi1, b_lo1);
+      for (int i = 0; i < kCT; ++i) {
+        if (i >= count) break;
+        const int c = 8 * (first + i) + t;
+        uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          mma_f32x3(s[mt][j], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+          const float* qr = q_warp + (16 * mt + g) * kS + c;
+          split_tf32(qr[0], a_hi[mt][0], a_lo[mt][0]);
+          split_tf32(qr[8 * kS], a_hi[mt][1], a_lo[mt][1]);
+          split_tf32(qr[4], a_hi[mt][2], a_lo[mt][2]);
+          split_tf32(qr[8 * kS + 4], a_hi[mt][3], a_lo[mt][3]);
         }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float* kr = k_sm + (8 * j + g) * kS + c;
+          uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+          split_tf32(kr[0], b_hi0, b_lo0);
+          split_tf32(kr[4], b_hi1, b_lo1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_f32x3(s[mt][j], a_hi[mt], a_lo[mt], b_hi0, b_hi1, b_lo0, b_lo1);
+          }
+        }
+      }
+    };
+    if (rep == 1) {
+      qk_partial(gw0, ntw);
+    } else {
+      // the head spans rep clusters: Q K^T over the CTA's rep chunks, one
+      // after another, each chunk's Q and K tile through their tiles in
+      // shared memory, summed in chunk order (the same in every cluster)
+      for (int jc = 0; jc < rep; ++jc) {
+        const int ch = zc * rep + jc;
+        int first, count;
+        warp_share(ch, first, count);
+        if (jc > 0) __syncthreads();  // every warp is done with chunk jc - 1
+        load_rows_wide<kWideRows>(q_sm, kS, qb, qs.n, q0, N, 8 * ch * ntc, 8 * chunk_tiles(ch),
+                                  D, vec);
+        load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, key0, M, 8 * ch * ntc, 8 * chunk_tiles(ch), D,
+                              vec);
+        cp_async_commit();
+        cp_async_wait0();  // (V(tile) too)
+        __syncthreads();
+        qk_partial(first, count);
       }
     }
 
@@ -1359,10 +1447,12 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
       }
     }
     exchange_sync(nz);  // also: every warp is done with K's tile
-    if (tile + 1 < n_tiles) {
-      load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, key0 + kKeys, M, col0, 8 * ntz, D, vec);
+    if (rep == 1) {
+      if (tile + 1 < n_tiles) {
+        load_rows_wide<kKeys>(k_sm, kS, kb, ks.n, key0 + kKeys, M, col0, 8 * ntz, D, vec);
+      }
+      cp_async_commit();  // empty on the last tile
     }
-    cp_async_commit();  // empty on the last tile
     auto add_partials = [&](const float4* src) {
 #pragma unroll
       for (int ww = 0; ww < 4; ++ww) {
@@ -1469,7 +1559,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) attn_wide_f32_kernel(
     const float den1 = fmaxf(sum1, 1e-30f);
     const int row0 = q0 + 32 * r + 16 * mt + g;
     const int row1 = row0 + 8;
-    if (stats != nullptr && z == 0 && w == 0 && t == 0) {  // a row group's warps hold the same
+    if (stats != nullptr && blockIdx.z == 0 && w == 0 && t == 0) {  // a row group's warps hold the same
       if (row0 < N) {
         float* st = stats + (((long long)b * N + row0) * H + h) * 2;
         st[0] = m_run[mt][0];
@@ -1625,13 +1715,13 @@ cudaError_t prepare_wide(const void* fn, size_t smem, int (&raised)[kMaxDevices]
   return err;
 }
 
-// A wide kernel over (64-row tiles of N, B*H, nz column chunks), the nz CTAs
-// of one (row tile, b*h) in one cluster.
+// A wide kernel over (64-row tiles of N, B*H, nz * rep column chunks), the
+// chunks of one (row tile, b*h) in rep clusters of nz CTAs.
 template <typename... Exp, typename... Act>
-int launch_wide(void (*kernel)(Exp...), int N, int BH, int nz, size_t smem, cudaStream_t stream,
-                Act... args) {
+int launch_wide(void (*kernel)(Exp...), int N, int BH, int nz, int rep, size_t smem,
+                cudaStream_t stream, Act... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kWideRows - 1) / kWideRows, BH, nz);
+  cfg.gridDim = dim3((N + kWideRows - 1) / kWideRows, BH, nz * rep);
   cfg.blockDim = dim3(kWideThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1651,7 +1741,8 @@ template <int C, int kKeys>
 int launch_wide_bf16(const void* q, const void* k, const void* v, const void* key_mask,
                      void* out, int B, int N, int M, int H, int D, const Strides& qs,
                      const Strides& ks, const Strides& vs, const Strides& os, long long mask_sb,
-                     float scale_log2, float* stats, cudaStream_t stream, int nz, int cb) {
+                     float scale_log2, float* stats, cudaStream_t stream, int nz, int rep,
+                     int cb) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap q_map, k_map, v_map;
@@ -1665,28 +1756,32 @@ int launch_wide_bf16(const void* q, const void* k, const void* v, const void* ke
   const cudaError_t err =
       prepare_wide(reinterpret_cast<const void*>(attn_wide_tc_kernel<C, kKeys>), smem, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_wide(attn_wide_tc_kernel<C, kKeys>, N, B * H, nz, smem, stream, q_map, k_map,
-                     v_map, static_cast<const uint8_t*>(key_mask),
-                     static_cast<__nv_bfloat16*>(out), N, M, H, D, cb, os.b, os.n, os.h, mask_sb,
-                     scale_log2, stats);
+  return launch_wide(attn_wide_tc_kernel<C, kKeys>, N, B * H, nz, rep, smem, stream, q_map,
+                     k_map, v_map, static_cast<const uint8_t*>(key_mask),
+                     static_cast<__nv_bfloat16*>(out), N, M, H, D, cb, rep, os.b, os.n, os.h,
+                     mask_sb, scale_log2, stats);
 }
 
-// How the wide-head kernels split a head of D columns: nz CTAs of one
-// cluster, each of at most `per` column blocks of 64 (bf16) or tiles of 8
-// (f32), as even as they go, and the keys per tile. bf16 takes the largest
-// tile that fits a CTA's shared memory with two stages: 48 keys at five
-// blocks (the fewest a CTA holds past 256 columns), 32 at six to eight.
+// How the wide-head kernels split a head of D columns into chunks of at
+// most `per` column blocks of 64 (bf16) or tiles of 8 (f32), as even as
+// they go: one chunk a CTA, nz CTAs a cluster, rep clusters a head (one
+// where the head fits a cluster of 16), and the keys per tile. bf16 takes
+// the largest tile that fits a CTA's shared memory with two stages: 48 keys
+// at five blocks (the fewest a CTA holds past 256 columns), 32 at six to
+// eight.
 struct WidePlan {
-  int nz, per, keys;
+  int nz, rep, per, keys;
 };
 
 WidePlan wide_plan(int dtype, int D) {
   const int unit = dtype == 0 ? 8 : kBlockD;
   const int cap = dtype == 0 ? kWideTiles : kWideBlocks;
   const int n = (D + unit - 1) / unit;
-  const int nz = (n + cap - 1) / cap;
-  const int per = (n + nz - 1) / nz;
-  return {nz, per, dtype == 0 ? kWideF32Keys : per <= 5 ? 48 : 32};
+  const int chunks = (n + cap - 1) / cap;  // the fewest CTAs that hold the head
+  const int rep = (chunks + kMaxCluster - 1) / kMaxCluster;
+  const int nz = (chunks + rep - 1) / rep;
+  const int per = (n + nz * rep - 1) / (nz * rep);
+  return {nz, rep, per, dtype == 0 ? kWideF32Keys : per <= 5 ? 48 : 32};
 }
 
 // bf16 past 256 columns: <3, 48> (at most three blocks a warpgroup) at five
@@ -1696,12 +1791,13 @@ int launch_wide_bf16_any(const void* q, const void* k, const void* v, const void
                          const Strides& ks, const Strides& vs, const Strides& os,
                          long long mask_sb, float scale_log2, float* stats, cudaStream_t stream) {
   const WidePlan p = wide_plan(1, D);
-  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1 || D % 8 != 0 || p.nz > kMaxCluster) {
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || os.d != 1 || D % 8 != 0 ||
+      p.nz * p.rep > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto launch = p.keys == 48 ? launch_wide_bf16<3, 48> : launch_wide_bf16<4, 32>;
   return launch(q, k, v, key_mask, out, B, N, M, H, D, qs, ks, vs, os, mask_sb, scale_log2, stats,
-                stream, p.nz, p.per);
+                stream, p.nz, p.rep, p.per);
 }
 
 // f32 past 256 columns: 8-column tiles over the plan's CTAs.
@@ -1710,7 +1806,7 @@ int launch_wide_f32(const void* q, const void* k, const void* v, const void* key
                     const Strides& vs, const Strides& os, long long mask_sb, float scale_log2,
                     float* stats, cudaStream_t stream) {
   const WidePlan p = wide_plan(0, D);
-  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || p.nz > kMaxCluster) {
+  if (qs.d != 1 || ks.d != 1 || vs.d != 1 || p.nz * p.rep > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = wide_f32_smem(p.per, p.nz);
@@ -1719,10 +1815,10 @@ int launch_wide_f32(const void* q, const void* k, const void* v, const void* key
       prepare_wide(reinterpret_cast<const void*>(attn_wide_f32_kernel), smem, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = D % 4 == 0 && rows_aligned(q, qs) && rows_aligned(k, ks) && rows_aligned(v, vs);
-  return launch_wide(attn_wide_f32_kernel, N, B * H, p.nz, smem, stream,
+  return launch_wide(attn_wide_f32_kernel, N, B * H, p.nz, p.rep, smem, stream,
                      static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<const uint8_t*>(key_mask),
-                     static_cast<float*>(out), N, M, H, D, p.per, qs, ks, vs, os, mask_sb,
+                     static_cast<float*>(out), N, M, H, D, p.per, p.rep, qs, ks, vs, os, mask_sb,
                      scale_log2, stats, vec);
 }
 
@@ -1730,10 +1826,7 @@ int launch_wide_f32(const void* q, const void* k, const void* v, const void* key
 // (where bf16 rounds P against the running max), 0 where none takes it.
 int key_tile(int dtype, int D) {
   if (D < 1 || (dtype != 0 && dtype != 1)) return 0;
-  if (D > kMaxD) {
-    const WidePlan p = wide_plan(dtype, D);
-    return p.nz > kMaxCluster ? 0 : p.keys;
-  }
+  if (D > kMaxD) return wide_plan(dtype, D).keys;
   const int blocks = (D + kBlockD - 1) / kBlockD;
   if (dtype == 0) {
     return blocks == 1 ? F32Cfg<kBlockD>::kKeys : blocks == 2 ? F32Cfg<2 * kBlockD>::kKeys
@@ -1779,9 +1872,9 @@ int attention_fwd(const void* q, const void* k, const void* v, const void* key_m
 // dtype: 0 = float32 (split-f32 kernel: unit D stride, any other strides),
 // 1 = bfloat16 (tensor-core kernel: unit D stride, 16-byte aligned bases and
 // strides, so D a multiple of 8). Any D from 1: up to 256 the column-block
-// kernels, beyond the wide-head kernels (D up to 5120 in f32 and 8192 in
-// bf16: a head's columns span at most a cluster of 16 CTAs). Returns a
-// cudaError_t (0 = launched).
+// kernels, beyond the wide-head kernels (past 5120 columns in f32 and 8192
+// in bf16 a head spans several clusters of CTAs). Returns a cudaError_t
+// (0 = launched).
 extern "C" int gims_attention_fwd(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* out, int dtype, int B, int N, int M, int H, int D, long long qsb,
@@ -1812,8 +1905,22 @@ extern "C" int gims_attention_fwd_partial(
 }
 
 // The keys per tile of the kernel that gims_attention_fwd launches at head
-// width D in dtype (0 = float32, 1 = bfloat16), 0 past the widest head it
-// takes. attention.kernel_block_k and KERNEL_WIDEST_HEAD are its copies in
-// Python (the plain version needs them without a card); a card test holds
-// them to it.
+// width D in dtype (0 = float32, 1 = bfloat16), 0 for a D or dtype it does
+// not take. attention.kernel_block_k is its copy in Python (the plain
+// version needs it without a card); a card test holds the two equal.
 extern "C" int gims_attention_key_tile(int dtype, int D) { return key_tile(dtype, D); }
+
+// The wide-head kernels' split of a head of D columns in dtype (0 = float32,
+// 1 = bfloat16): plan[0..3] = nz, rep, per, keys of wide_plan. Returns 0,
+// or 1 (plan untouched) where D is not past the column-block kernels' widest
+// or the dtype is neither. attention.wide_plan is its copy in Python; a card
+// test holds the two equal.
+extern "C" int gims_attention_wide_plan(int dtype, int D, int* plan) {
+  if (D <= kMaxD || (dtype != 0 && dtype != 1)) return 1;
+  const WidePlan p = wide_plan(dtype, D);
+  plan[0] = p.nz;
+  plan[1] = p.rep;
+  plan[2] = p.per;
+  plan[3] = p.keys;
+  return 0;
+}

@@ -1,7 +1,8 @@
-"""Pose/epipolar geometry utilities (host numpy).
+"""Pose/epipolar geometry utilities.
 
 A copy of the numpy helpers of ``gims_tpu/eval/geometry.py``;
-``estimate_pose``, which needs OpenCV there, raises here.
+``estimate_pose``, OpenCV's five-point RANSAC and cheirality check there,
+runs through ``eval/essential.py`` in torch on the caller's device.
 
 Behavioral spec: the reference's geometry helpers
 (reference: utils/common.py:389-512), which are themselves vendored from
@@ -13,7 +14,11 @@ epipolar distance, angular pose errors).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+
+from gims_tpu_torch.eval import essential
 
 
 def _normalize_points(pts: np.ndarray, K: np.ndarray) -> np.ndarray:
@@ -23,16 +28,43 @@ def _normalize_points(pts: np.ndarray, K: np.ndarray) -> np.ndarray:
     return (pts - center) / focal
 
 
-def estimate_pose(kpts0, kpts1, K0, K1, thresh, conf=0.99999):
+def estimate_pose(kpts0, kpts1, K0, K1, thresh, conf=0.99999,
+                  device: Optional[str] = None):
     """RANSAC essential matrix -> (R, t, inlier_mask) or None.
 
-    The JAX package calls OpenCV's five-point solver
-    (``cv2.findEssentialMat``, then ``cv2.recoverPose`` for the cheirality
-    check). The port has neither yet, so this raises.
+    ``essential.find_essential_mat`` can return a stack of candidate 3x3
+    matrices (from exactly 5 points); each is disambiguated with
+    ``essential.recover_pose`` (cheirality check) and the candidate with the
+    most points in front of both cameras wins. Each check narrows the mask
+    it is given to its pose's cheirality, as ``cv2.recoverPose`` writes it
+    back into the mask the JAX package passes. The pixel threshold is
+    converted to normalized coordinates with the mean focal length of both
+    cameras (the reference's convention, utils/common.py:392-399). Runs on
+    `device` (``cuda`` unless the caller names another).
     """
-    raise NotImplementedError(
-        "estimate_pose needs OpenCV's findEssentialMat / recoverPose (a five-point "
-        "RANSAC solver), not ported yet (ROADMAP.md §1, estimate_pose)")
+    if len(kpts0) < 5:
+        return None
+    pts0 = _normalize_points(np.asarray(kpts0), K0)
+    pts1 = _normalize_points(np.asarray(kpts1), K1)
+    focals = (K0[0, 0], K0[1, 1], K1[0, 0], K1[1, 1])
+    ransac_thresh = thresh / np.mean(focals)
+    found = essential.find_essential_mat(pts0, pts1, ransac_thresh, prob=conf, device=device)
+    if found is None:
+        return None
+    E_stack, mask = found
+    best = None
+    best_inliers = 0
+    for E in E_stack:
+        # JAX's call passes 1e9 positionally, and OpenCV's Python binding
+        # takes it as the R output of the overload without a distance
+        # threshold (it returns four values), so its cheirality check runs
+        # at OpenCV's default distance of 50; so does the port's
+        n, R, t, mask = essential.recover_pose(E, pts0, pts1, essential.DEFAULT_DISTANCE, mask,
+                                               device=device)
+        if n > best_inliers:
+            best_inliers = n
+            best = (R, t, mask.ravel() > 0)
+    return best
 
 
 def rotate_intrinsics(K, image_shape, rot):

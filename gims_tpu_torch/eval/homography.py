@@ -13,9 +13,11 @@ JPEG I/O (``core/image_io.py``), warps, resizes and blurs
 ``save_viz`` (``eval/viz.py``, written as ``{stem}_bordered.jpg``).
 Ground-truth matching (``train/gt.py``) and RANSAC run in torch on the harness's device (``cuda`` unless the caller
 names another), so the matcher's host outputs go back to the card for
-them. ``generate_benchmark`` makes the ``noise`` style (and reads PNG or
-JPEG ``source_dir`` images); the ``structured`` style, drawn with
-OpenCV's anti-aliased shapes, raises.
+them. ``generate_benchmark`` makes the ``noise`` and ``structured`` styles
+(and reads PNG or JPEG ``source_dir`` images); the structured scenes are
+drawn with ``core/drawing.py``'s filled ellipses, polygons and rectangles,
+which OpenCV draws as ``LINE_8`` on their float32 layers although the JAX
+package asks for ``LINE_AA``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from gims_tpu_torch.core import image_io, imgproc
+from gims_tpu_torch.core import drawing, image_io, imgproc
 from gims_tpu_torch.core.device import resolve_device
 from gims_tpu_torch.eval import metrics as M
 from gims_tpu_torch.eval.ransac import find_homography
@@ -261,6 +263,65 @@ def run_benchmark(
     return results
 
 
+def make_structured_image(rng, height: int, width: int) -> np.ndarray:
+    """Procedural scene with photographic keypoint statistics (layered
+    shaded shapes, soft shadows, multi-scale texture, vignetting): the JAX
+    package's ``make_structured_image``, the same draws from `rng` (a
+    ``np.random.RandomState``) in the same order and the same float32
+    arithmetic, so the same uint8 (H, W, 3) image."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    gx, gy = rng.uniform(-1, 1, 2)
+    base = 110 + 60 * (gx * xx / width + gy * yy / height)
+    img = np.repeat(base[:, :, None], 3, axis=2)
+    img += rng.uniform(-18, 18, (1, 1, 3))
+    img = img.astype(np.float32)
+
+    for _ in range(rng.randint(25, 55)):
+        layer = np.zeros((height, width, 3), np.float32)
+        color = rng.uniform(30, 225, 3)
+        kind = rng.randint(3)
+        cx, cy = rng.randint(0, width), rng.randint(0, height)
+        if kind == 0:
+            ax_, bx_ = rng.randint(8, width // 3), rng.randint(8, height // 3)
+            drawing.ellipse(layer, (cx, cy), (ax_, bx_), rng.uniform(0, 180), 0, 360,
+                            color.tolist(), -1, drawing.LINE_AA)
+        elif kind == 1:
+            npts = rng.randint(3, 7)
+            r = rng.randint(10, min(height, width) // 3)
+            ang = rng.uniform(0, 2 * np.pi, npts)
+            ang.sort()
+            pts = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)],
+                           axis=1).astype(np.int32)
+            drawing.fill_poly(layer, [pts], color.tolist(), drawing.LINE_AA)
+        else:
+            w2, h2 = rng.randint(10, width // 3), rng.randint(10, height // 3)
+            drawing.rectangle(layer, (cx - w2 // 2, cy - h2 // 2), (cx + w2 // 2, cy + h2 // 2),
+                              color.tolist(), -1, drawing.LINE_AA)
+        mask = layer.sum(axis=2) > 0
+        # per-shape linear shading + occasional fine texture
+        shade = 1.0 + 0.35 * ((xx - cx) / width * rng.uniform(-1, 1)
+                              + (yy - cy) / height * rng.uniform(-1, 1))
+        layer *= shade[:, :, None]
+        if rng.rand() < 0.4:
+            tex = rng.randn(height // 4, width // 4, 1).astype(np.float32)
+            tex = imgproc.resize(tex[:, :, 0], (width, height))[:, :, None]
+            layer += 14.0 * tex * mask[:, :, None]
+        # soft drop shadow: darken under a shifted copy of the mask
+        sh = np.roll(mask.astype(np.float32),
+                     (rng.randint(3, 9), rng.randint(3, 9)), (0, 1))
+        sh = imgproc.gaussian_blur(sh, 3.0)
+        img *= (1.0 - 0.25 * sh)[:, :, None]
+        a = rng.uniform(0.75, 1.0)
+        img = np.where(mask[:, :, None], (1 - a) * img + a * layer, img)
+
+    # vignette + fine grain + mild blur (sensor-ish statistics)
+    r2 = (((xx - width / 2) / width) ** 2 + ((yy - height / 2) / height) ** 2)
+    img *= (1.0 - 0.35 * r2)[:, :, None]
+    img += rng.randn(height, width, 3) * 2.0
+    img = imgproc.gaussian_blur(img, 0.8)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def _noise_image(low, height, width):
     img = imgproc.resize(low, (width, height), interpolation=imgproc.INTER_CUBIC)
     return imgproc.gaussian_blur(img, 1.2)
@@ -295,16 +356,14 @@ def generate_benchmark(out_dir: str, n_pairs=50, source_dir=None,
             p for p in sorted(Path(source_dir).iterdir())
             if p.suffix.lower() in (".jpg", ".png", ".jpeg")
         ]
-    if style == "structured" and not source:
-        raise NotImplementedError(
-            "style='structured' draws with OpenCV's anti-aliased shapes, not ported yet "
-            "(ROADMAP.md §1, the structured style); the committed "
-            "assets/quality_structured set is PNG and can be read")
     jobs = []
     for i in range(n_pairs):
         name = f"pair_{i:04d}.png"
         if source:
             jobs.append((name, _source_image, (source[i % len(source)], height, width)))
+        elif style == "structured":
+            # made here: its draws come from rng between the pairs' homographies
+            jobs.append((name, np.asarray, (make_structured_image(rng, height, width),)))
         else:
             low = rng.randint(0, 255, (height // 4, width // 4, 3)).astype(np.uint8)
             jobs.append((name, _noise_image, (low, height, width)))

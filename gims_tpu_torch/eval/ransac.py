@@ -60,11 +60,11 @@ def update_num_iters(p, ep, model_points, max_iters):
     return int(round(num / denom))
 
 
-def _draw_samples(n, count, gen, dev):
-    """(count, 4) indices, distinct within each row: the k-th draw is
+def draw_samples(n, count, gen, dev, size=MODEL_POINTS):
+    """(count, size) indices, distinct within each row: the k-th draw is
     uniform over the n - k indices not drawn yet."""
-    idx = torch.empty((count, MODEL_POINTS), dtype=torch.int64, device=dev)
-    for k in range(MODEL_POINTS):
+    idx = torch.empty((count, size), dtype=torch.int64, device=dev)
+    for k in range(size):
         x = torch.randint(0, n - k, (count,), generator=gen, device=dev)
         if k:
             # step past each index drawn before, in increasing order
@@ -248,7 +248,7 @@ def find_homography(src, dst, thresh: float = 3.0, max_iters: int = 3000,
         samples, found, attempts = [], 0, 0
         while found < want and (found or attempts < MAX_ATTEMPTS) \
                 and attempts < want * MAX_ATTEMPTS:
-            idx = _draw_samples(n, want, gen, dev)
+            idx = draw_samples(n, want, gen, dev)
             attempts += want
             idx = idx[_good_subsets(s64[idx], d64[idx])]
             samples.append(idx)

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from gims_tpu_torch.core.device import resolve_device
-from gims_tpu_torch.eval.ransac import (MODEL_POINTS, _dlt, _draw_samples, _good_subsets,
+from gims_tpu_torch.eval.ransac import (MODEL_POINTS, _dlt, _good_subsets, draw_samples,
                                         _levenberg_marquardt, _reproj_err, update_num_iters)
 
 CHUNK = 256  # hypotheses drawn and scored per batch
@@ -136,7 +136,7 @@ def find_homography_usac(src, dst, thresh: float = 3.0, max_iters: int = 2000,
         want = min(CHUNK, niters - it)
         samples, found, attempts = [], 0, 0
         while found < want and attempts < want * MAX_ATTEMPTS:
-            idx = _draw_samples(n, want, gen, "cpu").to(dev)
+            idx = draw_samples(n, want, gen, "cpu").to(dev)
             attempts += want
             idx = idx[_good_subsets(s64[idx], d64[idx])]
             samples.append(idx)

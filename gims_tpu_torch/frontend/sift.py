@@ -202,46 +202,50 @@ def exp32f(x: torch.Tensor) -> torch.Tensor:
     return z * yf
 
 
-def gaussian_kernel(sigma: float) -> np.ndarray:
-    """``cv::getGaussianKernel(cvRound(sigma*8+1)|1, sigma, CV_32F)`` in
-    OpenCV's own arithmetic (float64 weights times the reciprocal of their
-    sum, then float32), which the blur's bit-equality rests on."""
+def gaussian_kernel(sigma: float, dtype=F32) -> np.ndarray:
+    """``cv::getGaussianKernel(cvRound(sigma*8+1)|1, sigma)`` of a float
+    image's blur in OpenCV's own arithmetic (float64 weights times the
+    reciprocal of their sum, then `dtype`), which the blur's bit-equality
+    rests on."""
     n = int(np.rint(sigma * 8 + 1)) | 1
     x = np.arange(n, dtype=np.float64) - (n - 1) * 0.5
     t = np.exp(-0.5 / (sigma * sigma) * x * x)
-    return (t * (1.0 / t.sum())).astype(F32)
+    return (t * (1.0 / t.sum())).astype(dtype)
 
 
-def gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
-    """``cv2.GaussianBlur(x, (0, 0), sigma)`` of one (H, W) float32 image,
-    bit for bit: rows as the fused multiply-add chain k0 x0, then + k_i x_i,
-    fused but in the last W mod 4 columns; then columns as k_c x_c, then
-    + k_i (x_{c+i} + x_{c-i}), fused but in the last W mod 8 columns;
+def gaussian_blur(x: torch.Tensor, sigma: float, channels: int = 1) -> torch.Tensor:
+    """``cv2.GaussianBlur(x, (0, 0), sigma)`` of one (H, W * channels)
+    float32 image (its channels interleaved along a row), bit for bit: rows
+    as the fused multiply-add chain k0 x0, then + k_i x_i, fused but in the
+    last W C mod 4 elements; then columns as k_c x_c, then
+    + k_i (x_{c+i} + x_{c-i}), fused but in the last W C mod 8 elements;
     REFLECT_101."""
     k = gaussian_kernel(sigma)
     n, half = len(k), len(k) // 2
     h, w = x.shape
     dev = x.device
-    xp = x[:, torch.from_numpy(reflect101_index(w, half)).to(dev)].double()
+    cols = reflect101_index(w // channels, half)[:, None] * channels + np.arange(channels)
+    xp = x[:, torch.from_numpy(cols.reshape(-1)).to(dev)].double()
     s = torch.empty((h, w), dtype=torch.float32, device=dev)
     torch.mul(xp[:, 0:w], float(k[0]), out=s)
-    # OpenCV's vector row code takes 8, then 4 columns at a time with fused
-    # multiply-adds; the last W mod 4 columns go through its scalar code,
-    # which rounds the product and the sum apart
+    # OpenCV's vector row code takes 8, then 4 elements at a time with fused
+    # multiply-adds; the last W C mod 4 go through its scalar code, which
+    # rounds the product and the sum apart
     w4 = w - w % 4
     rtail = s[:, w4:].clone()
     xt = xp[:, w4:].float()
     for i in range(1, n):
         # computed in float64 (xp), written in float32: one rounding per tap
-        torch.add(s, xp[:, i:i + w], alpha=float(k[i]), out=s)
-        rtail = rtail + xt[:, i:i + w - w4] * float(k[i])
+        c = i * channels
+        torch.add(s, xp[:, c:c + w], alpha=float(k[i]), out=s)
+        rtail = rtail + xt[:, c:c + w - w4] * float(k[i])
     if w4 < w:
         s[:, w4:] = rtail
     yp = s.double()[torch.from_numpy(reflect101_index(h, half)).to(dev)]
     s = torch.empty((h, w), dtype=torch.float32, device=dev)
     torch.mul(yp[half:half + h], float(k[half]), out=s)
-    # OpenCV's vector column code takes 8 columns at a time with fused
-    # multiply-adds; the columns past the last multiple of 8 go through its
+    # OpenCV's vector column code takes 8 elements at a time with fused
+    # multiply-adds; the ones past the last multiple of 8 go through its
     # scalar code, which rounds the product and the sum apart
     w8 = w - w % 8
     tail = s[:, w8:].clone()

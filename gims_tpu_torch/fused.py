@@ -24,7 +24,8 @@ Per-octave budgets replace a global response sort: octave o gets a fixed
 share of the keypoint budget, its candidates are picked by within-octave
 top-k, and downstream masks treat the concatenation as any padded keypoint
 set. The colour sources take (B, H, W, 3) BGR images and need the
-2x-upsampled base. The multi-device split is not ported yet and raises.
+2x-upsampled base. ``devices=`` splits a batch over several cards, the JAX
+package's data-parallel mesh (``FusedMatching``).
 """
 
 from __future__ import annotations

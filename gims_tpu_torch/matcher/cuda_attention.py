@@ -9,8 +9,10 @@ accumulation; the output has q's dtype. Head widths from 1 to 256 take the
 column-block kernels; wider heads the wide-head kernels (bf16 on wgmma, f32
 as split TF32), which split a head's columns over warps and, past 512
 (bf16) or 320 (f32) columns, over the CTAs of a cluster, and exchange the
-partial scores in shared memory: nothing is allocated beside the output.
-The widest heads: ``attention.KERNEL_WIDEST_HEAD``. The bf16 kernels read
+partial scores in shared memory; heads wider than a cluster holds (8192
+columns in bf16, 5120 in f32) span several clusters, each owning a share of
+the output columns and each computing the whole Q K^T of its rows in the
+same order. Nothing is allocated beside the output. The bf16 kernels read
 widths that are a multiple of 8 (TMA's 16-byte strides); the wrapper zero-pads q, k
 and v along D to the next multiple of 8 for other widths (zeros add
 nothing to Q K^T, the extra output columns are dropped, and the scale
@@ -28,6 +30,7 @@ device, instead of returning a result that carries no gradient.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -95,6 +98,17 @@ def _check_grad(q, k, v):
                            "'auto', 'direct' or 'flash') to train")
 
 
+def kernel_wide_plan(d: int, dtype):
+    """The wide-head kernels' split of a head of `d` columns in `dtype`, as
+    the library makes it (``wide_plan`` of csrc/attention.cu): (nz, rep,
+    per, keys), or None where the column-block kernels take the head.
+    ``attention.wide_plan`` is its copy for the CPU."""
+    plan = (ctypes.c_int * 4)()
+    if _build.load().gims_attention_wide_plan(_DTYPES[dtype], d, plan):
+        return None
+    return tuple(plan)
+
+
 def _launch(q, k, v, key_mask, stats):
     """Check the inputs and launch the kernel (partial mode where `stats`
     is given); returns the output."""
@@ -111,10 +125,8 @@ def _launch(q, k, v, key_mask, stats):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one "
                         "of float32, bfloat16")
-    if d < 1 or d > attention.KERNEL_WIDEST_HEAD[q.dtype]:
-        raise ValueError(f"head dim {d} unsupported: the {q.dtype} kernel takes 1 to "
-                         f"{attention.KERNEL_WIDEST_HEAD[q.dtype]} (a head's columns span at "
-                         "most a cluster of 16 CTAs)")
+    if d < 1:
+        raise ValueError(f"head dim {d} unsupported")
     if key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, m):
         raise ValueError(f"key_mask must be ({b}, {m}) bool")
     if key_mask.stride(1) != 1:

@@ -25,36 +25,41 @@ from gims_tpu_torch.matcher.layers import batch_stat_updates
 
 
 def run_agc(kpts, descs, valid, acfg: AGCConfig, k=None,
-            radius=None, min_size=None, defer_unpermute=False):
+            radius=None, min_size=None, defer_unpermute=False, group=None):
     """Batched AGC. kpts (B,N,2), descs (B,N,D), valid (B,N); `k` the
     optional per-item exact percentile rank (B,), which the band build and
     the approximate threshold do not use. Returns (adj, kept, inv): inv is
     None except in band defer_unpermute mode, where adj stays in sorted-x
-    space and adj_caller[b, i, j] == adj[b, inv[b, i], inv[b, j]]."""
+    space and adj_caller[b, i, j] == adj[b, inv[b, i], inv[b, j]].
+
+    `group`: a ``torch.distributed`` group over which the keypoint axis is
+    split (``agc/sharded.py``); adj is then this rank's caller-order rows
+    (B, N/P, N), and defer_unpermute is not taken (an unsharded path)."""
     check_impls(agc_impl=acfg.agc_impl, threshold_impl=acfg.threshold_impl,
                 cc_impl=acfg.cc_impl, reconnect_impl=acfg.reconnect_impl)
     radius = acfg.radius if radius is None else radius
     min_size = acfg.min_size if min_size is None else min_size
+    common = dict(radius=radius, percentile=acfg.percentile, min_size=min_size,
+                  cc_rounds=acfg.cc_rounds, threshold_stride=acfg.threshold_stride,
+                  reconnect_impl=acfg.reconnect_impl, reconnect_buckets=acfg.reconnect_buckets)
+    dense = dict(k=k, threshold_impl=acfg.threshold_impl, cc_impl=acfg.cc_impl,
+                 cc_degree=acfg.cc_degree)
+    if group is not None:
+        from gims_tpu_torch.agc.sharded import build_graph_band_sharded, build_graph_sharded
+
+        if acfg.agc_impl == "band":
+            out = build_graph_band_sharded(kpts, descs, valid, group=group,
+                                           band_halfwidth=acfg.band_halfwidth, **common)
+        else:
+            out = build_graph_sharded(kpts, descs, valid, group=group, **dense, **common)
+        return out.adj, out.kept, None
     if acfg.agc_impl == "band":
         out = build_graph_band(
-            kpts, descs, valid, radius=radius, percentile=acfg.percentile,
-            min_size=min_size, cc_rounds=acfg.cc_rounds,
-            threshold_stride=acfg.threshold_stride,
-            band_halfwidth=acfg.band_halfwidth,
-            reconnect_impl=acfg.reconnect_impl,
-            reconnect_buckets=acfg.reconnect_buckets,
+            kpts, descs, valid, band_halfwidth=acfg.band_halfwidth,
             defer_unpermute=defer_unpermute,
-            cc_impl="band" if acfg.cc_impl == "band" else "dense")
+            cc_impl="band" if acfg.cc_impl == "band" else "dense", **common)
         return out.adj, out.kept, out.inv
-    out = build_graph(
-        kpts, descs, valid, radius=radius, percentile=acfg.percentile,
-        min_size=min_size, cc_rounds=acfg.cc_rounds, k=k,
-        threshold_impl=acfg.threshold_impl,
-        threshold_stride=acfg.threshold_stride,
-        cc_impl=acfg.cc_impl, cc_degree=acfg.cc_degree,
-        reconnect_impl=acfg.reconnect_impl,
-        reconnect_buckets=acfg.reconnect_buckets,
-    )
+    out = build_graph(kpts, descs, valid, **dense, **common)
     return out.adj, out.kept, None
 
 
@@ -83,21 +88,29 @@ def _compact_side(kpts, desc, adj, kept, scores, nc: int, inv=None):
     inv (band defer_unpermute): adj is in sorted-x space with
     adj_caller[i, j] == adj[inv[i], inv[j]]; composing inv into the gather
     gives the same adj_c without the caller-order (N, N) matrix."""
-    b, n = kept.shape
+    idx, kept_c = compact_order(kept, scores, nc)
+    ci = idx if inv is None else torch.gather(inv, 1, idx)
+    adj_rows = gather_rows(adj, ci)
+    adj_c = torch.gather(adj_rows, 2, ci[:, None, :].expand(-1, ci.shape[1], -1))
+    return idx, gather_rows(kpts, idx), gather_rows(desc, idx), adj_c, kept_c
+
+
+def compact_order(kept, scores, nc: int):
+    """The compacted bucket of ``_compact_side``: its index (B, nc), kept
+    keypoints first by score descending, ties by index (a stable sort), and
+    its kept mask."""
     sc = torch.zeros(kept.shape, dtype=torch.float32, device=kept.device) \
         if scores is None else scores
     key = torch.where(kept, sc, float("-inf"))
     idx = torch.argsort(-key, dim=1, stable=True)[:, :nc]          # (B, nc)
     ar = torch.arange(idx.shape[1], device=kept.device)[None, :]
-    kept_c = torch.gather(kept, 1, idx) & (ar < kept.sum(dim=1, keepdim=True))
+    return idx, torch.gather(kept, 1, idx) & (ar < kept.sum(dim=1, keepdim=True))
 
-    def rows(x):
-        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
-    ci = idx if inv is None else torch.gather(inv, 1, idx)
-    adj_rows = torch.gather(adj, 1, ci[..., None].expand(-1, -1, adj.shape[-1]))
-    adj_c = torch.gather(adj_rows, 2, ci[:, None, :].expand(-1, ci.shape[1], -1))
-    return idx, rows(kpts), rows(desc), adj_c, kept_c
+def gather_rows(x, idx):
+    """x (B, N, ...) at rows idx (B, K)."""
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(
+        idx.shape + x.shape[2:]))
 
 
 def _scatter_back(ext, idx0, idx1, kept0_c, kept1_c, nb0: int, nb1: int,
@@ -157,19 +170,19 @@ def forward_match(
     axis name, "kp"), which takes the group of
     ``ring_attention.set_ring_group`` (ValueError if none is set). The trunk
     then runs as JAX's ``_shard_cfg`` has it: ring attention and the plain
-    Sinkhorn. With `compact_to` it raises: no JAX caller passes both.
+    Sinkhorn, at `compact_to` where it compacts (which must then divide by
+    the group's size). The band build's deferred un-permutation is an
+    unsharded path, as in JAX.
     """
     if shard_axis is not None:
-        if compact_to is not None:
-            raise NotImplementedError("compact_to with shard_axis (trunk compaction under "
-                                      "keypoint sharding) is not ported; see ROADMAP.md")
         from gims_tpu_torch.matcher import ring_attention
         from gims_tpu_torch.matcher.sharded import forward_match_sharded
 
         group = ring_attention.get_ring_group() if isinstance(shard_axis, str) else shard_axis
         return forward_match_sharded(model, acfg, kpts0, desc0, valid0, kpts1, desc1, valid1,
                                      image_shape, group, k0=k0, k1=k1, adj0=adj0, adj1=adj1,
-                                     radius=radius, min_size=min_size)
+                                     radius=radius, min_size=min_size, compact_to=compact_to,
+                                     scores0=scores0, scores1=scores1)
     mcfg = model.config
     nb0, nb1 = kpts0.shape[1], kpts1.shape[1]
     compact = compact_to is not None and compact_to < max(nb0, nb1)

@@ -11,8 +11,10 @@ the port and torch only.
 Each job is a dict; its "kind" names what the rank runs:
 
   * "agc": ``build_graph_sharded`` on ``job["inputs"]`` (kpts, descs,
-    valid, whole) with ``job["kwargs"]``: this rank's adjacency rows, kept,
-    labels and threshold;
+    valid, whole) with ``job["kwargs"]`` (``build_graph_band_sharded`` where
+    they hold ``agc_impl="band"``): this rank's adjacency rows, kept,
+    labels and threshold; with ``job["acfg"]`` (an ``AGCConfig``) instead,
+    ``pipeline.run_agc`` over the group: its adjacency rows and kept;
   * "sinkhorn": ``log_optimal_transport_rows`` and ``extract_matches_rows``
     on this rank's rows of ``job["scores"]`` (whole) with ``job["masks"]``,
     ``job["alpha"]``, ``job["iters"]``, ``job["threshold"]``;
@@ -26,7 +28,11 @@ Each job is a dict; its "kind" names what the rank runs:
     elements of any tensor an op made in it (``LargestTensor``);
   * "axis": ``pipeline.forward_match(shard_axis="kp")`` after
     ``set_ring_group``, on the same fields as "match" and the tensors of
-    ``job.get("kwargs")`` (a Delaunay side's ``adj0``, say).
+    ``job.get("kwargs")`` (a Delaunay side's ``adj0``, say);
+  * "compact": ``matcher.sharded._compact_side_rows`` on ``job["inputs"]``
+    (kpts, desc, adjacency, kept, scores, whole; the rank passes its rows
+    of the adjacency) at bucket ``job["nc"]``: the index, this rank's rows
+    of the compacted adjacency and the compacted kept mask.
 """
 
 from __future__ import annotations
@@ -38,11 +44,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-from gims_tpu_torch.agc.sharded import build_graph_sharded, row_block
+from gims_tpu_torch.agc.sharded import build_graph_band_sharded, build_graph_sharded, row_block
 from gims_tpu_torch.matcher import cuda_attention, pipeline, ring_attention, sinkhorn
 from gims_tpu_torch.matcher.convert import load_variables
 from gims_tpu_torch.matcher.gmatcher import GMatcher
-from gims_tpu_torch.matcher.sharded import make_forward_match_sharded
+from gims_tpu_torch.matcher.sharded import _compact_side_rows, make_forward_match_sharded
 from gims_tpu_torch.train import dp_check
 
 
@@ -75,7 +81,13 @@ def _sync(device):
 
 def agc_job(job, device, group):
     kpts, descs, valid = (x.to(device) for x in job["inputs"])
-    g = build_graph_sharded(kpts, descs, valid, group=group, **job["kwargs"])
+    if "acfg" in job:
+        adj, kept, _ = pipeline.run_agc(kpts, descs, valid, job["acfg"], group=group)
+        return {"adj": adj.cpu(), "kept": kept.cpu()}
+    kwargs = dict(job["kwargs"])
+    build = build_graph_band_sharded if kwargs.pop("agc_impl", "dense") == "band" \
+        else build_graph_sharded
+    g = build(kpts, descs, valid, group=group, **kwargs)
     return {"adj": g.adj.cpu(), "kept": g.kept.cpu(), "labels": g.labels.cpu(),
             "threshold": g.threshold.cpu()}
 
@@ -101,7 +113,8 @@ def match_job(job, device, group):
     inputs = [x.to(device) for x in job["inputs"]]
     if job["kind"] == "axis":
         ring_attention.set_ring_group(group)
-        extra = {k: v.to(device) for k, v in job.get("kwargs", {}).items()}
+        extra = {k: v.to(device) if torch.is_tensor(v) else v
+                 for k, v in job.get("kwargs", {}).items()}
 
         def call():
             return pipeline.forward_match(model, job["acfg"], *inputs, job["image_shape"],
@@ -139,7 +152,16 @@ def match_job(job, device, group):
     return res
 
 
-JOBS = {"agc": agc_job, "sinkhorn": sinkhorn_job, "match": match_job, "axis": match_job}
+def compact_job(job, device, group):
+    kpts, desc, adj, kept, scores = (x.to(device) for x in job["inputs"])
+    r0, rows = row_block(adj.shape[1], group)
+    idx, _, _, adj_c, kept_c = _compact_side_rows(kpts, desc, adj[:, r0:r0 + rows], kept, scores,
+                                                  job["nc"], group)
+    return {"idx": idx.cpu(), "adj": adj_c.cpu(), "kept": kept_c.cpu()}
+
+
+JOBS = {"agc": agc_job, "sinkhorn": sinkhorn_job, "match": match_job, "axis": match_job,
+        "compact": compact_job}
 
 
 def run_job(job, device, group):

@@ -143,27 +143,42 @@ def test_kth_smallest_exact():
 
 
 @pytest.mark.parametrize("case", ["shard_axis", "unknown_build"])
-def test_unported_agc_impls_raise(case):
+def test_unported_agc_impls_raise(case, tmp_path):
     """A build name the JAX package does not have raises. Keypoint-axis
     sharding is ported (tests/test_torch_sharded.py): the axis name "kp"
     without a group set by ``ring_attention.set_ring_group`` raises
-    ValueError, and ``compact_to`` with it, which no JAX caller passes,
-    raises and names ROADMAP.md."""
+    ValueError, and ``compact_to`` with a group (one gloo rank here) runs
+    and returns the unsharded compacted call's matches and kept masks."""
     kpts, descs, valid = (torch.from_numpy(x)[None] for x in make_set(0, 128, 100))
     if case == "unknown_build":
         with pytest.raises(ValueError, match="agc_impl"):
             tpipeline.run_agc(kpts, descs, valid, AGCConfig(agc_impl="tiled"))
         return
+    import torch.distributed as dist
+
     from gims_tpu_torch.matcher import ring_attention
+    from gims_tpu_torch.train import multihost
 
     model = GMatcher(MatcherConfig(num_gnn_layers=2)).eval()
     ring_attention.set_ring_group(None)
     with pytest.raises(ValueError, match="set_ring_group"):
         tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
                                 image_shape=(600, 800), shard_axis="kp")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipeline.forward_match(model, AGCConfig(), kpts, descs, valid, kpts, descs, valid,
-                                image_shape=(600, 800), shard_axis="kp", compact_to=64)
+    kp0, de0, va0 = (torch.from_numpy(x)[None] for x in make_set(1, 128, 100, d=256))
+    kp1, de1, va1 = (torch.from_numpy(x)[None] for x in make_set(2, 128, 90, d=256))
+    args = (model, AGCConfig(radius=60.0, percentile=5.0, min_size=3), kp0, de0, va0, kp1, de1,
+            va1)
+    want = tpipeline.forward_match(*args, image_shape=(600, 800), compact_to=64)
+    dist.init_process_group("gloo", init_method=multihost.local_init_method(str(tmp_path)),
+                            world_size=1, rank=0)
+    try:
+        got = tpipeline.forward_match(*args, image_shape=(600, 800), compact_to=64,
+                                      shard_axis=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    for key in ("matches0", "matches1", "kept0", "kept1"):
+        assert torch.equal(got[key], want[key]), key
+    assert want["kept0"].any()
 
 
 @pytest.mark.parametrize("given", ["both", "side0"])

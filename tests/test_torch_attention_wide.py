@@ -84,14 +84,44 @@ def test_wide_bf16_tiled_matches_pallas_interpret(d):
 
 @pytest.mark.parametrize("d,bf16,f32", [(257, 48, 32), (320, 48, 32), (321, 32, 32),
                                         (512, 32, 32), (520, 48, 32), (640, 48, 32),
-                                        (641, 32, 32), (1024, 32, 32), (8192, 32, 32)])
+                                        (641, 32, 32), (1024, 32, 32), (5128, 32, 32),
+                                        (8192, 32, 32), (8200, 32, 32), (12288, 32, 32),
+                                        (16384, 32, 32)])
 def test_wide_key_tile_follows_the_kernels_chunks(d, bf16, f32):
     """The key tile of the plain version past 256 columns is the wide
     kernels': in bf16 a head's ceil(d / 64) column blocks go to
     ceil(blocks / 8) CTAs as evenly as they go, and a CTA of five blocks
     takes tiles of 48 keys, one of six to eight 32 (shared memory); f32
-    takes 32 keys at every width. The widest heads the kernels take are
-    16 CTAs of 8 blocks of 64 (bf16) and of 40 tiles of 8 (f32)."""
+    takes 32 keys at every width. Past a cluster of 16 CTAs (8192 columns
+    in bf16, 5120 in f32) a head spans rep clusters of nz CTAs, whose
+    chunks of `per` blocks of 64 (bf16) or tiles of 8 (f32) cover it, at
+    most 8 or 40 a CTA: every width runs."""
     assert attention.kernel_block_k(d, torch.bfloat16) == bf16
     assert attention.kernel_block_k(d, torch.float32) == f32
-    assert attention.KERNEL_WIDEST_HEAD == {torch.bfloat16: 8192, torch.float32: 5120}
+    for dtype, unit, cap, widest in ((torch.bfloat16, 64, 8, 8192), (torch.float32, 8, 40, 5120)):
+        nz, rep, per = attention.wide_plan(d, dtype)
+        assert nz <= 16 and per <= cap and nz * rep * per * unit >= d
+        assert (rep > 1) == (d > widest)
+
+
+@pytest.mark.parametrize("d,dtype", [(8200, torch.bfloat16), (5128, torch.float32)])
+def test_wide_tiled_past_one_cluster_matches_jax(d, dtype):
+    """One width past a cluster of 16 CTAs in each dtype (the kernel's
+    multi-cluster plan): the plain tiled version at the kernel's key tile
+    against JAX's jitted masked_attention on the same (bf16-rounded) inputs
+    in f32. f32 (split f32) within 1e-5; bf16 (P rounded per key tile) by
+    RMS within 2**-8 of the reference's, as the card tests hold the kernel
+    to the direct version."""
+    q, k, v, mask = wide_inputs(d, d, n=64, m=96, h=1)
+    if dtype == torch.bfloat16:
+        q, k, v = (torch.from_numpy(x).to(dtype).float().numpy() for x in (q, k, v))
+    want = np.asarray(_jax_attention(*(jnp.asarray(x) for x in (q, k, v, mask))))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    mt = torch.from_numpy(mask)
+    if dtype == torch.float32:
+        got = attention.masked_attention_tiled(*args, mt, split_f32=True).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        got = attention.masked_attention_tiled(*(x.to(dtype) for x in args), mt,
+                                               out_dtype=torch.float32).numpy()
+        assert np.sqrt(np.mean((got - want) ** 2)) <= 2.0 ** -8 * np.sqrt(np.mean(want ** 2))

@@ -34,10 +34,10 @@ direct version at D = 32, 64, 100, 128 and 256, 1e-4, with a key count off
 its tiles, a fully masked item, its partial mode and rows that are not
 16-byte aligned. K1 past 256 columns (the wide-head kernels: bf16 on wgmma,
 f32 as split TF32, a head's columns split over warps and, past 512 bf16 or
-320 f32 columns, over the CTAs of a cluster): "auto" and "pallas" launch
-them, within the same bars as the narrower heads, up to the widest head of
-each dtype (8192 bf16, 5120 f32; the plain version's key tile equal to the
-launcher's at every width); their
+320 f32 columns, over the CTAs of a cluster, and past 8192 bf16 or 5120
+f32 columns over several clusters): "auto" and "pallas" launch them,
+within the same bars as the narrower heads, at every width (to 16384 here;
+the plain version's key tile equal to the launcher's at every width); their
 partial mode against attention_partials_tiled; two calls give the same bits
 (the partial scores are summed in one fixed order), and unaligned f32 rows
 the same bits as aligned ones; a 640-d GMatcher of 2 heads through them.
@@ -190,10 +190,10 @@ def test_wrappers_refuse_what_they_do_not_take(cuda):
     mask = torch.ones((1, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(TypeError):
         cuda_attention.masked_attention_cuda(q.double(), q.double(), q.double(), mask)
-    for dtype, widest in attention.KERNEL_WIDEST_HEAD.items():  # a cluster of 16 CTAs
-        wide = torch.zeros((1, 8, 1, widest + 8), dtype=dtype, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):  # every width from 1, none below
+        empty = torch.zeros((1, 8, 1, 0), dtype=dtype, device=cuda)
         with pytest.raises(ValueError, match="head dim"):
-            cuda_attention.masked_attention_cuda(wide, wide, wide, mask)
+            cuda_attention.masked_attention_cuda(empty, empty, empty, mask)
     z = torch.randn((1, 9, 9), device=cuda)
     with pytest.raises(TypeError):
         cuda_sinkhorn.sinkhorn_uv_cuda(z.double(), z[:, :, 0].double(), z[:, 0].double(), 3)
@@ -224,7 +224,8 @@ def test_gmatcher_kernels_vs_plain(cuda):
 
 
 @pytest.mark.parametrize("d", [1, 8, 20, 24, 32, 40, 64, 96, 128, 160, 192, 250, 256,
-                               257, 300, 320, 384, 513, 640, 1024, 2304, 5120, 8192])
+                               257, 300, 320, 384, 513, 640, 1024, 2304, 5120, 5184, 8192,
+                               8256, 16384])
 def test_attention_auto_by_head_width(cuda, d):
     """On the card "auto" launches the kernel at every head width: up to 256
     one to four column blocks of 64 (a width short of its last block reads
@@ -233,9 +234,10 @@ def test_attention_auto_by_head_width(cuda, d):
     heads the wide-head kernels, in f32 and bf16 (384: six blocks of 64 in
     one CTA; 513 and up split a head over the CTAs of a cluster in both
     dtypes: 2304 over 5 (bf16) and 8, 5120 over 10 and 16, the widest f32
-    head, and 8192 over 16, the widest bf16 head; f32 at 8192 raises
-    ValueError and launches nothing, as past KERNEL_WIDEST_HEAD in either
-    dtype). f32 against the direct
+    head a cluster holds, and 8192 over 16, the widest bf16 one; wider heads
+    span several clusters: 5184 and 8192 in f32 over 2 clusters, 8256 over
+    2 in both dtypes, 16384 over 2 in bf16 and 4 in f32; each width past
+    one cluster gives the same bits on a second call). f32 against the direct
     version, 1e-4. bf16 against the tiled version: every element within the
     output's rounding rule plus one bf16 ulp of every rounded P (2**-7 times
     the attention of |v|: where a p lies at a rounding boundary the kernel
@@ -250,15 +252,13 @@ def test_attention_auto_by_head_width(cuda, d):
     for dtype in (torch.float32, torch.bfloat16):
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         before = cuda_attention.launches
-        if d > attention.KERNEL_WIDEST_HEAD[dtype]:
-            with pytest.raises(ValueError, match="head dim"):
-                attention.masked_attention(qd, kd, vd, mask, impl="auto")
-            assert cuda_attention.launches == before
-            continue
         out = attention.masked_attention(qd, kd, vd, mask, impl="auto")
         torch.cuda.synchronize()
         assert cuda_attention.launches == before + 1
         assert out.dtype == dtype and out.shape == q.shape
+        plan = cuda_attention.kernel_wide_plan(d, dtype)
+        if plan is not None and plan[1] > 1:
+            assert torch.equal(out, attention.masked_attention(qd, kd, vd, mask, impl="auto"))
         if dtype == torch.float32:
             assert (out - direct).abs().max().item() <= 1e-4
         else:
@@ -275,20 +275,27 @@ def test_attention_auto_by_head_width(cuda, d):
 
 
 def test_plain_key_tile_is_the_kernels(cuda):
-    """attention.kernel_block_k and KERNEL_WIDEST_HEAD copy the launcher's
-    choice, which the plain version needs without a card: equal to
-    gims_attention_key_tile (csrc/attention.cu) at every bf16 width and at
-    every f32 width past 256 (below, P stays f32 and the tile only orders
-    the rescaling), and no kernel takes a head one column past the widest."""
+    """attention.kernel_block_k copies the launcher's choice, which the
+    plain version needs without a card: equal to gims_attention_key_tile
+    (csrc/attention.cu) at every bf16 width and at every f32 width past 256
+    (below, P stays f32 and the tile only orders the rescaling), up to
+    heads of four clusters of 16 CTAs in both dtypes; no kernel takes a
+    head of no columns. attention.wide_plan (nz, rep, per) equals the
+    library's wide_plan past 256 columns, which it leaves to the
+    column-block kernels at and below."""
     lib = _build.load()
     for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
-        widest = attention.KERNEL_WIDEST_HEAD[dtype]
         first = 1 if dtype == torch.bfloat16 else attention.KERNEL_MAX_HEAD_DIM + 1
-        widths = range(first, widest + 1)
+        widths = range(first, 4 * 16 * 640 + 1)
         got = [lib.gims_attention_key_tile(code, d) for d in widths]
         want = [attention.kernel_block_k(d, dtype) for d in widths]
         assert got == want, [(d, a, b) for d, a, b in zip(widths, got, want) if a != b][:5]
-        assert lib.gims_attention_key_tile(code, widest + 1) == 0
+        assert lib.gims_attention_key_tile(code, 0) == 0
+        wide = range(attention.KERNEL_MAX_HEAD_DIM + 1, 4 * 16 * 640 + 1)
+        got = [cuda_attention.kernel_wide_plan(d, dtype)[:3] for d in wide]
+        want = [attention.wide_plan(d, dtype) for d in wide]
+        assert got == want, [(d, a, b) for d, a, b in zip(wide, got, want) if a != b][:5]
+        assert cuda_attention.kernel_wide_plan(attention.KERNEL_MAX_HEAD_DIM, dtype) is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -311,10 +318,10 @@ def test_attention_wide_head_kernel(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [320, 512, 640])
+@pytest.mark.parametrize("d", [320, 512, 640, 8256])
 def test_attention_wide_partial_mode_vs_plain(cuda, dtype, d):
     """The wide-head kernels' partial mode (640: a cluster of CTAs per head
-    in both dtypes): the output bit-equal to the default mode's, each row's
+    in both dtypes; 8256: two clusters per head in both): the output bit-equal to the default mode's, each row's
     base-2 max within 1e-4 and sum within 1e-4 relative of
     attention_partials_tiled's, 333 keys (off every key tile) with masked
     keys and item 1 fully masked (its stats: the max of the masked scores,
@@ -336,11 +343,12 @@ def test_attention_wide_partial_mode_vs_plain(cuda, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [320, 640])
+@pytest.mark.parametrize("d", [320, 640, 5184, 8256, 16384])
 def test_attention_wide_head_same_bits(cuda, dtype, d):
     """Two calls of the wide-head kernels give the same bits, output and
     partial stats (each partial score sum runs in one fixed order, across
-    the cluster's CTAs at 640 too); in f32, q, k and v at an offset of one
+    the cluster's CTAs at 640 too, and in every cluster of a head alike
+    past one cluster: 5184 in f32, 8256 and 16384 in both); in f32, q, k and v at an offset of one
     float (rows not 16-byte aligned: the kernel's 4-byte copies) give the
     same bits as the aligned call."""
     g = torch.Generator(device=cuda).manual_seed(d + 11)

@@ -13,16 +13,23 @@ descriptor halves), a 4-layer 64-d matcher from JAX's identity warm start
 Sinkhorn iterations. Tolerances:
 
 - (a) the sharded dense AGC (exact and approximate threshold, exact and
-  centroid reconnect, a path graph cut by its round cap) against the
-  unsharded ``build_graph``: threshold, labels, kept and adjacency equal.
-  Measured on this CPU: each rank's similarity rows equal the rows of the
-  whole product, so no pair sits at a threshold by rounding alone;
+  centroid reconnect, the sparse labels at the default list and at a list
+  of 4 that the push must complete, a path graph cut by its round cap)
+  against the unsharded ``build_graph``, and the sharded band build
+  (centroid and exact reconnect, a band of 128; it takes no ``cc_impl``)
+  against ``build_graph_band`` with ``cc_impl`` "dense" and "band":
+  threshold, labels, kept and adjacency equal. Measured on this CPU: each rank's similarity rows equal the rows
+  of the whole product, so no pair sits at a threshold by rounding alone;
 - (b) the row-block Sinkhorn and extraction against ``log_optimal_transport``
   and ``extract_matches``: Z within 1e-5 on the valid rows and columns and
   the dustbins, matches equal, matching scores within 1e-5 (exp of Z);
 - (c) the whole sharded ``forward_match`` against JAX's
-  ``make_forward_match_sharded`` on a 2-device mesh (the identity start)
-  and against the unsharded port (both starts), JAX's own bars
+  ``make_forward_match_sharded`` on a 2-device mesh (the identity start;
+  the dense build, the band build and the sparse labels; the one sharded
+  band run is held to JAX and the unsharded port at either ``cc_impl``,
+  since the sharded band build reads none; trunk compaction against JAX's ``forward_match(compact_to=128,
+  shard_axis="kp")`` jitted under the mesh) and against the unsharded port
+  (both starts and every configuration), JAX's own bars
   (tests/test_sharded.py): kept equal, matches0 agreement > 0.995,
   matching_scores0 within 2e-3; every rank bit-equal. (With the moved
   parameters JAX's sharded program itself flips two pairs of matches
@@ -30,23 +37,32 @@ Sinkhorn iterations. Tolerances:
   the port's sharded and unsharded runs agree there);
 - (d) the counterpart of ``test_sharded_memory_scales``: the largest tensor
   any op makes on a rank at P = 2 (and 4) holds under 0.6x the elements of the
-  unsharded run's largest (measured: a ring step's (2B H, N/2, M/2) scores
+  unsharded run's largest, for the dense build, the band build, the sparse
+  labels and compaction (measured: a ring step's (2B H, N/2, M/2) scores
   against the (2B H, N, M) scores of the direct attention, 0.25x);
-- (e) the raises: buckets not divisible by P (JAX's ValueError text),
-  ``cc_impl="sparse"``, ``agc_impl="band"``, ``compact_to``, and the ring
-  without a group.
+- (d') the compacted bucket's adjacency rows of the sharded compaction
+  equal the unsharded compaction's (the trunk's GraphSAGE reads them; the
+  warm start's output barely depends on them);
+- (e) the raises: buckets not divisible by P (JAX's ValueError text, also
+  for a ``compact_to`` that P does not divide), and the ring without a
+  group.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from gims_tpu.api import init_gmatcher_variables as jinit
 from gims_tpu.config import AGCConfig as JAGCConfig
 from gims_tpu.config import MatcherConfig as JMatcherConfig
+from gims_tpu.matcher import pipeline as jpipeline
+from gims_tpu.matcher import ring_attention as jring
+from gims_tpu.matcher.sharded import _shard_cfg
 from gims_tpu.matcher.sharded import make_forward_match_sharded as jsharded
 from gims_tpu_torch.agc import graph as tgraph
 from gims_tpu_torch.config import AGCConfig, MatcherConfig
@@ -65,6 +81,19 @@ MATCHER = dict(descriptor_dim=64, input_dim=64, keypoint_encoder=(32, 64), num_g
 AGC = dict(radius=60.0, percentile=5.0, min_size=3)
 AGC_CASES = [dict(threshold_impl=t, reconnect_impl=r)
              for t in ("exact", "approx") for r in ("exact", "centroid")]
+AGC_CASES += [dict(cc_impl="sparse"),
+              dict(threshold_impl="approx", reconnect_impl="centroid", cc_impl="sparse",
+                   cc_degree=4),
+              dict(agc_impl="band", band_halfwidth=128, reconnect_impl="centroid"),
+              dict(agc_impl="band", band_halfwidth=128, reconnect_impl="exact", cc_impl="band")]
+# the card's band defaults (chip_smoke.ACCEL_DEFAULTS) at a band of 128
+BAND = dict(agc_impl="band", threshold_impl="approx", reconnect_impl="centroid",
+            reconnect_buckets=1024, band_halfwidth=128)
+CONFIGS = {"band": BAND, "band_cc": {**BAND, "cc_impl": "band"}, "sparse": {"cc_impl": "sparse"}}
+# the sharded band build labels the band whatever cc_impl says: "band_cc" is
+# held to the run of "band"
+RUN_OF = {"band_cc": "band"}
+COMPACT = 128
 PATH_ROUNDS = 1
 BLOCKED = {"jax", "jaxlib", "flax", "gims_tpu", "cv2"}
 
@@ -125,6 +154,12 @@ def sinkhorn_inputs():
     return scores, row_mask, col_mask
 
 
+def compact_scores():
+    """Detection scores of both sides, the order of the compacted bucket."""
+    rng = np.random.RandomState(5)
+    return [torch.from_numpy(rng.rand(1, NB).astype(np.float32)) for _ in range(2)]
+
+
 def port_model(v):
     model = GMatcher(MatcherConfig(**MATCHER))
     load_variables(model, v)
@@ -141,7 +176,8 @@ def inputs():
 def rank_jobs(inputs):
     kp0, de0, va0, kp1, de1, va1 = inputs["pair"]
     stacked = [torch.cat([kp0, kp1]), torch.cat([de0, de1]), torch.cat([va0, va1])]
-    jobs = [{"kind": "agc", "inputs": stacked, "kwargs": {**AGC, **case}} for case in AGC_CASES]
+    jobs = [{"kind": "agc", "inputs": stacked, "kwargs": sharded_kwargs(case)}
+            for case in AGC_CASES]
     jobs.append({"kind": "agc", "inputs": path_inputs(),
                  "kwargs": dict(radius=15.0, percentile=5.0, min_size=3, cc_rounds=PATH_ROUNDS)})
     scores, row_mask, col_mask = sinkhorn_inputs()
@@ -149,10 +185,36 @@ def rank_jobs(inputs):
                  "alpha": 1.0, "iters": 10, "threshold": 0.02})
     match = {"kind": "match", "mcfg": MatcherConfig(**MATCHER), "variables": inputs["variables"],
              "acfg": AGCConfig(**AGC), "inputs": inputs["pair"], "image_shape": SHAPE}
+    s0, s1 = compact_scores()
+    compact = {**match, "kind": "axis",
+               "kwargs": {"compact_to": COMPACT, "scores0": s0, "scores1": s1}}
+    configs = {name: {**match, "acfg": AGCConfig(**AGC, **CONFIGS[name])}
+               for name in CONFIGS if name not in RUN_OF}
     jobs += [match, {**match, "kind": "axis"}, {**match, "variables": inputs["moved"]},
              {**match, "kind": "axis", "kwargs": {"adj0": delaunay_adj0(inputs)}},
-             {**match, "largest": True}]
+             *configs.values(), compact]
+    jobs += [{**job, "largest": True}
+             for job in [match, configs["band"], configs["sparse"], compact]]
+    jobs.append({"kind": "compact", "inputs": compact_inputs(inputs), "nc": COMPACT})
     return jobs
+
+
+def compact_inputs(inputs):
+    """Both sides stacked, with the dense build's adjacency and kept mask
+    and the detection scores: the inputs of the trunk compaction."""
+    kp0, de0, va0, kp1, de1, va1 = inputs["pair"]
+    kpts, desc = torch.cat([kp0, kp1]), torch.cat([de0, de1])
+    g = tgraph.build_graph(kpts, desc, torch.cat([va0, va1]), **AGC)
+    return [kpts, desc, g.adj, g.kept, torch.cat(compact_scores())]
+
+
+def sharded_kwargs(case):
+    """A case's keyword arguments of the sharded build: the band build
+    takes no cc_impl."""
+    kwargs = {**AGC, **case}
+    if kwargs.get("agc_impl") == "band":
+        kwargs.pop("cc_impl", None)
+    return kwargs
 
 
 def delaunay_adj0(inputs):
@@ -171,22 +233,54 @@ def ranks(request, inputs, tmp_path_factory):
     return p, [r["jobs"] for r in results], [r["modules"] for r in results]
 
 
+def unsharded_call(inputs, kind, largest=None):
+    """The unsharded port's forward_match of a job kind (under `largest`, a
+    ``LargestTensor``, where given)."""
+    name = "moved" if kind == "moved" else "variables"
+    acfg = AGCConfig(**AGC, **CONFIGS.get(kind, {}))
+    kwargs = {}
+    if kind == "delaunay":
+        kwargs = {"adj0": delaunay_adj0(inputs)}
+    elif kind == "compact":
+        s0, s1 = compact_scores()
+        kwargs = {"compact_to": COMPACT, "scores0": s0, "scores1": s1}
+    with largest or contextlib.nullcontext():
+        return pipeline.forward_match(port_model(inputs[name]), acfg, *inputs["pair"], SHAPE,
+                                      **kwargs)
+
+
 @pytest.fixture(scope="module")
 def unsharded(inputs):
-    out = {name: pipeline.forward_match(port_model(inputs[name]), AGCConfig(**AGC),
-                                        *inputs["pair"], SHAPE)
-           for name in ("variables", "moved")}
-    out["delaunay"] = pipeline.forward_match(port_model(inputs["variables"]), AGCConfig(**AGC),
-                                             *inputs["pair"], SHAPE, adj0=delaunay_adj0(inputs))
-    return out
+    return {kind: unsharded_call(inputs, kind)
+            for kind in ("variables", "moved", "delaunay", *CONFIGS, "compact")}
 
 
 @pytest.fixture(scope="module")
 def jax_sharded(inputs):
+    """JAX's sharded program on a 2-device mesh: make_forward_match_sharded
+    for the dense build and each configuration, and forward_match with
+    compact_to under the mesh (what make_forward_match_sharded does, with
+    the compaction's knobs)."""
     mesh = Mesh(np.array(jax.devices()[:2]), ("kp",))
-    call = jsharded(JMatcherConfig(**MATCHER), JAGCConfig(**AGC), mesh, SHAPE)
-    out = call(inputs["variables"], *(jnp.asarray(x.numpy()) for x in inputs["pair"]))
-    return as_np(out)
+    pair = [jnp.asarray(x.numpy()) for x in inputs["pair"]]
+    out = {}
+    for kind, extra in (("match", {}), *CONFIGS.items()):
+        call = jsharded(JMatcherConfig(**MATCHER), JAGCConfig(**AGC, **extra), mesh, SHAPE)
+        out[kind] = as_np(call(inputs["variables"], *pair))
+    row = NamedSharding(mesh, P(None, "kp"))
+    mcfg = _shard_cfg(JMatcherConfig(**MATCHER))
+    jring.set_ring_mesh(mesh, "kp")
+
+    def compacted(variables, kp0, de0, va0, kp1, de1, va1, s0, s1):
+        args = [jax.lax.with_sharding_constraint(a, row) for a in (kp0, de0, va0, kp1, de1, va1)]
+        return jpipeline.forward_match(variables, mcfg, JAGCConfig(**AGC), *args, SHAPE,
+                                       compact_to=COMPACT, scores0=s0, scores1=s1,
+                                       shard_axis="kp")
+
+    with jax.sharding.set_mesh(mesh):
+        out["compact"] = as_np(jax.jit(compacted)(
+            inputs["variables"], *pair, *(jnp.asarray(x.numpy()) for x in compact_scores())))
+    return out
 
 
 def test_children_import_no_jax(ranks):
@@ -204,7 +298,9 @@ def test_sharded_agc_equals_unsharded(ranks, inputs, case):
     else:
         args, kwargs = path_inputs(), dict(radius=15.0, percentile=5.0, min_size=3,
                                            cc_rounds=PATH_ROUNDS)
-    want = tgraph.build_graph(*args, **kwargs)
+    build = tgraph.build_graph_band if kwargs.pop("agc_impl", "dense") == "band" \
+        else tgraph.build_graph
+    want = build(*args, **kwargs)
     got = [r[case] for r in jobs]
     assert torch.equal(torch.cat([g["adj"] for g in got], dim=1), want.adj)
     for g in got:
@@ -248,40 +344,60 @@ def check_match(out, want, name):
                                np.asarray(want["matching_scores0"]), atol=2e-3, err_msg=name)
 
 
-KINDS = ["match", "axis", "moved", "delaunay"]
+KINDS = ["match", "axis", "moved", "delaunay", *CONFIGS, "compact"]
+RUNS = [kind for kind in KINDS if kind not in RUN_OF]  # the ranks' forward-match jobs
+LARGEST = ["match", "band", "sparse", "compact"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_sharded_forward_match_matches_jax_and_unsharded(ranks, unsharded, jax_sharded, kind):
     """JAX's identity warm start against JAX's sharded program and the
-    unsharded port, through make_forward_match_sharded ("match") and
-    forward_match(shard_axis="kp") ("axis"); the moved parameters, and a
-    Delaunay side 0 (its adjacency given, sliced by rows), against the
-    unsharded port."""
+    unsharded port, through make_forward_match_sharded ("match", the band
+    build, whose one run "band_cc" reads too, and the sparse labels) and
+    forward_match(shard_axis="kp") ("axis", and "compact": compact_to at
+    half the bucket); the moved parameters, and a Delaunay side 0 (its
+    adjacency given, sliced by rows), against the unsharded port."""
     p, jobs, _ = ranks
-    got = [r[len(AGC_CASES) + 2 + KINDS.index(kind)] for r in jobs]
+    got = [r[len(AGC_CASES) + 2 + RUNS.index(RUN_OF.get(kind, kind))] for r in jobs]
     for g in got:
         for key, value in got[0]["out"].items():
             assert torch.equal(g["out"][key], value), key
         assert g["partial_launches"] == 0  # the plain partials on the CPU
     out = {k: v.numpy() for k, v in got[0]["out"].items()}
-    want = unsharded[kind if kind in ("moved", "delaunay") else "variables"]
-    if kind in ("match", "axis"):
-        check_match(out, jax_sharded, "jax sharded")
+    want = unsharded["variables" if kind in ("match", "axis") else kind]
+    if kind not in ("moved", "delaunay"):
+        check_match(out, jax_sharded["match" if kind == "axis" else kind], "jax sharded")
     check_match(out, {k: v.numpy() for k, v in want.items()}, "port unsharded")
     assert (out["matches0"] >= 0).sum() > 50
     np.testing.assert_allclose(out["mdesc0"], want["mdesc0"].numpy(), atol=1e-4)
 
 
-def test_sharded_largest_tensor_scales(ranks, inputs):
+@pytest.mark.parametrize("kind", LARGEST)
+def test_sharded_largest_tensor_scales(ranks, inputs, kind):
+    """The dense build, the band build, the sparse labels and compaction:
+    each rank's largest tensor against the unsharded run's of the same
+    configuration."""
     p, jobs, _ = ranks
     largest = shard_check.LargestTensor()
-    with largest:
-        pipeline.forward_match(port_model(inputs["variables"]), AGCConfig(**AGC),
-                               *inputs["pair"], SHAPE)
+    unsharded_call(inputs, kind, largest)
     for r in jobs:
-        assert r[-1]["largest_numel"] < 0.6 * largest.numel, (r[-1]["largest_shape"],
-                                                              largest.shape)
+        got = r[len(AGC_CASES) + 2 + len(RUNS) + LARGEST.index(kind)]
+        assert got["largest_numel"] < 0.6 * largest.numel, (got["largest_shape"],
+                                                            largest.shape)
+
+
+def test_sharded_compaction_rows_equal_unsharded(ranks, inputs):
+    """The compacted bucket's adjacency: each rank's rows of it, joined
+    from the ranks that hold them, equal those rows of the unsharded
+    ``_compact_side``; the index and kept mask equal on every rank."""
+    p, jobs, _ = ranks
+    got = [r[-1] for r in jobs]
+    kpts, desc, adj, kept, scores = compact_inputs(inputs)
+    idx, _, _, adj_c, kept_c = pipeline._compact_side(kpts, desc, adj, kept, scores, COMPACT)
+    assert torch.equal(torch.cat([g["adj"] for g in got], dim=1), adj_c)
+    for g in got:
+        assert torch.equal(g["idx"], idx) and torch.equal(g["kept"], kept_c)
+    assert adj_c.any(dim=2).float().mean() > 0.5  # rows held by every rank have edges
 
 
 def test_sharded_raises(monkeypatch, inputs):
@@ -296,13 +412,10 @@ def test_sharded_raises(monkeypatch, inputs):
     with pytest.raises(ValueError) as err:
         pipeline.forward_match(model, AGCConfig(**AGC), *odd, SHAPE, shard_axis=object())
     assert str(err.value) == str(jerr.value)
-    for acfg in (AGCConfig(**AGC, cc_impl="sparse"), AGCConfig(**AGC, agc_impl="band")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.forward_match(model, acfg, kp, de, va, kp, de, va, SHAPE,
-                                   shard_axis=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a compacted trunk bucket that the ranks do not divide, before any work
+    with pytest.raises(ValueError, match=r"buckets \(51, 51\) must divide the 2-way mesh"):
         pipeline.forward_match(model, AGCConfig(**AGC), kp, de, va, kp, de, va, SHAPE,
-                               shard_axis=object(), compact_to=64)
+                               shard_axis=object(), compact_to=51)
     monkeypatch.undo()
     ring_attention.set_ring_group(None)
     q = torch.zeros(1, 8, 4, 16)
